@@ -1,0 +1,117 @@
+"""Plain PyTorch versions of the CUDA kernels: the semantics contracts.
+
+The CPU tests run them, the kernel wrappers run them when their tensors
+lie on the CPU, and chip_smoke.py holds each kernel against them on the
+card. They repeat the kernels' arithmetic order (the score axpy, the
+sequential distance dot, the sequential audit and weighting sums), so a
+kernel and its plain version agree bitwise on perm and on lambda-hat.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.predictors import (
+    KNNLambdaPredictor,
+    _idw_lambda,
+    knn_topk_scan,
+)
+from repro_torch.core.ranking import AUDIT_TOL, audit_selected
+
+# distance elements a plain KNN chunk may hold (b * chunk), 64 MiB of f32
+_REF_CHUNK_ELEMS = 1 << 24
+
+
+def score_axpy(u, a, lam, eps: float):
+    """s = u + (1+eps) * sum_k lam_k a_k as the unrolled axpy of the
+    Pallas kernel (fused_rank._merge_scored_tile): s starts at u and
+    adds ((1+eps) * lam_k) * a_k one constraint at a time."""
+    c = float(np.float32(1.0 + eps))
+    s = u
+    for k in range(a.shape[1]):
+        s = s + (c * lam[:, k:k + 1]) * a[:, k, :]
+    return s
+
+
+def rank_audited_ref(u, a, b, lam, gamma, m2: int, eps: float = 1e-4,
+                     tol: float | None = None):
+    """Rank + audit: u (n, m1), a (n, K, m1), b (n, K), lam (n, K),
+    gamma (n, m2) -> (vals (n, m2) desc, idx (n, m2) int32, utility (n,),
+    exposure (n, K), compliant (n,) bool). Ties go to the lower item
+    index."""
+    if tol is None:
+        tol = AUDIT_TOL
+    s = score_axpy(u, a, lam, eps)
+    order = torch.sort(-s, dim=-1, stable=True).indices[:, :m2]
+    vals = torch.gather(s, 1, order)
+    u_sel = torch.gather(u, 1, order)
+    a_sel = torch.gather(a, 2, order[:, None, :].expand(-1, a.shape[1], -1))
+    utility, exposure, compliant = audit_selected(u_sel, a_sel, gamma, b,
+                                                  tol=tol)
+    return vals, order.to(torch.int32), utility, exposure, compliant
+
+
+def sq_norm_seq(x):
+    """|x|^2 over the last axis, summed coordinate by coordinate."""
+    acc = x[..., 0] * x[..., 0]
+    for d in range(1, x.shape[-1]):
+        acc = acc + x[..., d] * x[..., d]
+    return acc
+
+
+def d2_sequential(Xq, x2, db):
+    """Expanded-form squared distances with the cross term summed
+    coordinate by coordinate, each product and addition rounded on its
+    own: the CUDA sweep's order. x2 (b, 1) must come from sq_norm_seq."""
+    cross = Xq[:, None, 0] * db[None, :, 0]
+    for d in range(1, Xq.shape[1]):
+        cross = cross + Xq[:, None, d] * db[None, :, d]
+    y2 = sq_norm_seq(db)
+    return torch.clamp_min(x2 - 2.0 * cross + y2[None, :], 0.0)
+
+
+def knn_lambda_ref(xq, xdb, lam_db, k: int):
+    """Inverse-distance-weighted KNN lambda-hat (B, K) on the k nearest
+    rows by (d2, index), the database streamed in chunks."""
+    chunk = max(1024, _REF_CHUNK_ELEMS // max(1, xq.shape[0]))
+    x2 = sq_norm_seq(xq)[:, None]
+    d2_top, idx = knn_topk_scan(xdb, xq, k=k, chunk=chunk,
+                                d2_fn=d2_sequential, x2=x2)
+    return _idw_lambda(d2_top, x2, sq_norm_seq(xdb[idx]), lam_db[idx])
+
+
+def check_pred_width(k_pred: int, k_bucket: int) -> None:
+    """A predictor may emit fewer shadow prices than the problem has
+    constraint rows (the extras get lam = 0), never more."""
+    if k_pred > k_bucket:
+        raise ValueError(
+            f"predictor emits {k_pred} shadow prices but the problem "
+            f"carries only {k_bucket} constraint rows; serving a "
+            f"constraint the predictor was not fit for needs lam, not X")
+
+
+def knn_rank_audited_ref(X, X_db, lam_db, u, a, b, gamma, *, k: int,
+                         m2: int, eps: float = 1e-4,
+                         tol: float | None = None):
+    """The KNN online stage: lambda-hat from knn_lambda_ref, zero-padded
+    to a's constraint rows, then rank_audited_ref. Returns the five
+    rank_audited_ref outputs plus lam (n, K)."""
+    check_pred_width(lam_db.shape[1], a.shape[1])
+    lam = knn_lambda_ref(X, X_db, lam_db, k)
+    lam = torch.nn.functional.pad(lam, (0, a.shape[1] - lam.shape[1]))
+    return (*rank_audited_ref(u, a, b, lam, gamma, m2, eps, tol), lam)
+
+
+def predict_rank_audited_ref(X, predictor, u, a, b, gamma, m2: int,
+                             eps: float = 1e-4, tol: float | None = None):
+    """Predict-then-rank+audit. The KNN family is the one ported; its
+    lambda-hat comes from the plain version of the kernel's arithmetic.
+    Returns (vals, idx, utility, exposure, compliant, lam)."""
+    if not isinstance(predictor, KNNLambdaPredictor):
+        raise NotImplementedError(
+            f"{type(predictor).__name__}: only the KNN predictor is ported "
+            f"(ROADMAP Queue 1 item 3)")
+    return knn_rank_audited_ref(X, predictor.X_db, predictor.lam_db, u, a,
+                                b, gamma, k=predictor.k, m2=m2, eps=eps,
+                                tol=tol)

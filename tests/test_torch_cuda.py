@@ -1,0 +1,64 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card. Marked `cuda`: they skip without one. This file imports no JAX,
+so it runs on a machine that has only PyTorch (`--noconftest` skips
+tests/conftest.py, which imports JAX):
+
+  PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+The kernels and the plain versions round every operation in the same
+order, so every output must match bitwise.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.fused_rank import rank_audited_cuda
+from repro_torch.kernels.knn_topk import knn_rank_audited_cuda
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _rank(rng, n, m1, K, m2, dev):
+    u = rng.uniform(1.0, 5.0, (n, m1))
+    a = rng.random((n, K, m1)) < 0.15
+    lam = rng.exponential(0.5, (n, K))
+    b = rng.uniform(0.0, 2.0, (n, K))
+    g = np.broadcast_to(1.0 / np.log2(np.arange(2, m2 + 2)), (n, m2))
+    return [torch.tensor(np.ascontiguousarray(x), dtype=torch.float32,
+                         device=dev) for x in (u, a, b, lam, g)]
+
+
+@pytest.mark.parametrize("n,m1,K,m2", [(32, 1024, 8, 64), (5, 700, 5, 50),
+                                       (16, 5000, 8, 128), (3, 64, 1, 1)])
+def test_rank_audited_kernel_equals_plain(card, n, m1, K, m2):
+    t = _rank(np.random.default_rng(m1), n, m1, K, m2, card)
+    got = rank_audited_cuda(*t, m2=m2)
+    for g, w in zip(got, ref.rank_audited_ref(*t, m2)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n_db,K_pred", [(5001, 5), (600, 8)])
+def test_knn_rank_audited_kernel_equals_plain(card, n_db, K_pred):
+    rng = np.random.default_rng(n_db)
+    u, a, b, _, g = _rank(rng, 32, 1024, 8, 64, card)
+    X_db = torch.tensor(rng.normal(size=(n_db, 20)), dtype=torch.float32,
+                        device=card)
+    lam_db = torch.tensor(np.abs(rng.normal(size=(n_db, K_pred))),
+                          dtype=torch.float32, device=card)
+    X = torch.tensor(rng.normal(size=(32, 20)), dtype=torch.float32,
+                     device=card)
+    X[3] = X_db[n_db - 1]                        # an exact match
+    args = (X, X_db, lam_db, u, a, b, g)
+    got = knn_rank_audited_cuda(*args, k=10, m2=64)
+    for gt, w in zip(got, ref.knn_rank_audited_ref(*args, k=10, m2=64)):
+        assert torch.equal(gt, w)
+    assert torch.equal(got[5][3, :K_pred], lam_db[n_db - 1])

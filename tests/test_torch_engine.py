@@ -1,0 +1,149 @@
+"""The port's serving engine against repro.serving.ServingEngine on the
+same mixed stream of lambda-given and KNN requests, both under a frozen
+clock (batch composition is then a pure function of the stream). The
+JAX engine runs executor='xla' (the use_kernel=False route) at
+pipeline_depth=0.
+
+Per request: perm and compliant match exactly; utility and exposure
+within rtol=1e-5, atol=1e-5.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from conftest import FrozenClock
+from repro.core.predictors import KNNLambdaPredictor as JaxKNN
+from repro.core.predictors import predictor_state
+from repro.serving import RankRequest as JaxRequest
+from repro.serving import ServingEngine as JaxEngine
+from repro_torch.core.predictors import from_numpy
+from repro_torch.serving import buckets
+from repro_torch.serving.engine import RankRequest, ServingEngine
+
+RTOL, ATOL = 1e-5, 1e-5
+D, K_PRED = 20, 5
+
+
+def _stream(seed, n_requests):
+    """Mixed stream: lambda-given requests (K=5, m2=50) and KNN requests
+    (K=5 or 3, m2=50 or 8), m1 jittered; returns request kwargs."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for rid in range(n_requests):
+        kind = rng.integers(0, 3)
+        m2 = 8 if kind == 2 else 50
+        K = 3 if kind == 2 else 5
+        m1 = int(rng.integers(max(m2, 200), 513))
+        gamma = (1.0 / np.log2(np.arange(2, m2 + 2))).astype(np.float32)
+        kw = dict(rid=rid, m2=m2, gamma=gamma,
+                  u=rng.uniform(1.0, 5.0, m1).astype(np.float32),
+                  a=(rng.random((K, m1)) < 0.15).astype(np.float32),
+                  b=np.full(K, 0.06 * gamma.sum(), np.float32))
+        if kind == 0:
+            kw["lam"] = rng.exponential(0.5, K).astype(np.float32)
+        else:
+            kw["X"] = rng.normal(size=D).astype(np.float32)
+            kw["tag"] = "knn"
+        out.append(kw)
+    return out
+
+
+def _knn(seed=3, n_db=400):
+    rng = np.random.default_rng(seed)
+    return JaxKNN.fit(jnp.asarray(rng.normal(size=(n_db, D)), jnp.float32),
+                      jnp.asarray(np.abs(rng.normal(size=(n_db, K_PRED))),
+                                  jnp.float32), k=10)
+
+
+def _serve_both(stream, max_batch):
+    jknn = _knn()
+    jeng = JaxEngine(max_batch=max_batch, max_wait_ms=1e9, executor="xla",
+                     pipeline_depth=0, clock=FrozenClock())
+    jeng.register_predictor("knn", jknn, d_cov=D)
+    want = {r.rid: r for r in jeng.serve_stream(
+        [JaxRequest(**kw) for kw in stream])}
+    eng = ServingEngine(max_batch=max_batch, max_wait_ms=1e9,
+                        clock=FrozenClock(), device="cpu")
+    state = {f: np.asarray(v) for f, v in predictor_state(jknn).items()}
+    eng.register_predictor("knn", from_numpy(state, k=10, device="cpu"),
+                           d_cov=D)
+    got = {r.rid: r for r in eng.serve_stream(
+        [RankRequest(**kw) for kw in stream])}
+    return eng, got, want
+
+
+@pytest.mark.parametrize("max_batch,n_requests", [(8, 29), (4, 16)])
+def test_engine_matches_jax_engine_on_a_mixed_stream(max_batch, n_requests):
+    stream = _stream(max_batch, n_requests)
+    eng, got, want = _serve_both(stream, max_batch)
+    assert sorted(got) == sorted(want) == list(range(n_requests))
+    for rid, w in want.items():
+        g = got[rid]
+        np.testing.assert_array_equal(g.perm, np.asarray(w.perm))
+        assert g.compliant == w.compliant
+        np.testing.assert_allclose(g.utility, w.utility, rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(g.exposure, w.exposure, rtol=RTOL,
+                                   atol=ATOL)
+        assert g.bucket == w.bucket
+    m = eng.metrics
+    assert m.results == m.requests == n_requests
+    assert m.executable_calls == m.batches
+    assert m.kernel_launches == 0              # the CPU runs the plain path
+    assert m.drain_flushes >= 1 and m.capacity_flushes >= 1
+    assert 0.0 < m.summary()["compliance"] <= 1.0
+
+
+def test_bucket_geometry_pads_the_serve_online_cell():
+    """serve_online widths (m1=1024, K=5, m2=50) land in the bucket
+    (m1 1024, K tier 8, m2 64, batch 32)."""
+    bk = buckets.bucket_for(m1=1024, m2=50, K=5, tag="knn", batch=32)
+    assert (bk.m1, bk.m2, bk.K, bk.batch) == (1024, 64, 8, 32)
+    assert buckets.bucket_for(m1=600, m2=50, K=5, tag="_lam",
+                              batch=32).m1 == 1024
+
+
+def test_futures_metrics_and_errors():
+    stream = _stream(5, 6)
+    eng = ServingEngine(max_batch=4, max_wait_ms=5.0, clock=FrozenClock(),
+                        device="cpu")
+    eng.register_predictor("knn", from_numpy(
+        {f: np.asarray(v) for f, v in predictor_state(_knn()).items()},
+        k=10, device="cpu"), d_cov=D)
+    eng.warmup([RankRequest(**kw) for kw in stream])
+    early = []
+    for kw in stream:
+        early += eng.submit(RankRequest(**kw))
+    assert len(early) < 6                          # partial batches wait
+    late = eng.poll(now=1.0)                       # past max_wait_ms
+    assert sorted(r.rid for r in early + late) == list(range(6))
+    assert eng.metrics.deadline_flushes >= 1
+    with pytest.raises(KeyError):
+        eng.bucket_of(RankRequest(**{**stream[1], "tag": "nope",
+                                     "lam": None,
+                                     "X": np.zeros(D, np.float32)}))
+    bad = dict(stream[0], lam=None, X=np.zeros(D, np.float32), tag="knn",
+               a=np.zeros((6, stream[0]["u"].shape[0]), np.float32),
+               b=np.zeros(6, np.float32))
+    with pytest.raises(ValueError, match="shadow prices"):
+        eng.submit(RankRequest(**bad))
+    eng.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        eng.submit(RankRequest(**stream[0]))
+
+
+def test_staging_is_reused_and_results_do_not_alias_it():
+    stream = [kw for kw in _stream(9, 24) if "lam" in kw][:8]
+    eng = ServingEngine(max_batch=4, max_wait_ms=1e9, clock=FrozenClock(),
+                        device="cpu")
+    res = {r.rid: r for r in eng.serve_stream(
+        [RankRequest(**kw) for kw in stream])}
+    assert len(eng._staging) == len({eng.bucket_of(RankRequest(**kw))
+                                     for kw in stream})
+    again = ServingEngine(max_batch=1, max_wait_ms=1e9, device="cpu",
+                          clock=FrozenClock())
+    for kw in stream:
+        (one,) = again.serve_stream([RankRequest(**kw)])
+        np.testing.assert_array_equal(one.perm, res[kw["rid"]].perm)
+        assert one.utility == res[kw["rid"]].utility
