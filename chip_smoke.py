@@ -1,22 +1,34 @@
-"""Drives the PyTorch port's main path on one CUDA card and checks it.
+"""Drives the PyTorch port's paths on one CUDA card and checks them.
 
   python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero before a result is printed):
-  1. build both CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
+  1. build the four CUDA kernels from src/repro_torch/kernels/csrc with
+     nvcc, one process per source, all started together;
   2. hold each kernel against its plain PyTorch version on the card at
      the engine bucket of the paper's serve_online cell (B=32, m1=1024,
-     K=8, m2=64, d=20, n_db=1,048,576, k=10), at m2=128 and at a ragged
-     n_db: perm and compliant exact, utility/exposure within rtol=1e-5,
-     atol=1e-5, lambda-hat within rtol=1e-5, atol=1e-6;
-  3. serve 256 KNN and 64 lambda-given requests at serve_online widths
-     (m1 jittered in 512-1024) through ServingEngine(device="cuda"),
-     check every result against the plain version on the same padded
-     batch, and check that each wrapper's launch counter equals the
-     batches of its route times the route's launches;
-  4. time both kernels (CUDA events, medians) at the bucket shape and at
-     a large batch, beside the plain version, a library yardstick that
-     only this script calls, and the card's bound.
+     K=8, m2=64, d=20, n_db=1,048,576, k=10; the affine kernel with a
+     K_pred=5 predictor padded to K=8), at m2=128 and at a ragged n_db:
+     perm and compliant exact, utility/exposure within rtol=1e-5,
+     atol=1e-5, lambda-hat within rtol=1e-5, atol=1e-6; and knn_lambda's
+     lambda-hat bitwise equal to knn_rank_audited's;
+  O. the offline stage at the paper-ranking offline_dual width: a
+     MovieLens-like problem (Table 1a constraints, 8192 train users,
+     m1=1024, K=5, m2=50, d=20) through fit_pipeline (300 dual
+     iterations) on the card, then the Fig. 2 strategies on 8192
+     holdout users through the kernels (backend="kernel") and the
+     knn_chain route, each batch's perm held against its plain version;
+  3. serve 192 KNN, 64 linear, 64 mean and 64 lambda-given requests at
+     serve_online widths (m1 jittered in 512-1024) through
+     ServingEngine(device="cuda"), check every result against the plain
+     version on the same padded batch, and check that each wrapper's
+     launch counter equals the batches of its route times the route's
+     launches;
+  4. time the four kernels (CUDA events, medians) at the bucket shape and
+     at a large batch, beside the plain version, a library yardstick
+     that only this script calls, and the card's bound.
+The launch counters are set to 0 just before the offline phase's
+holdout path and the serving path and read just after each.
 Prints the kernel table as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 """
@@ -25,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -40,8 +53,11 @@ N_DB = 1_048_576
 BUCKET = dict(B=32, m1=1024, K=8, m2=64)
 LARGE_RANK_B = 8192           # the serve_online cell's full batch
 LARGE_KNN_B = 1024            # cut from 8192: see PERF.md
+OFFLINE = dict(n=8192, m1=1024, K=5, m2=50, iters=300, n_items=4096)
 TOL = dict(rtol=1e-5, atol=1e-5)
 LAM_TOL = dict(rtol=1e-5, atol=1e-6)
+KERNELS = ("rank_audited", "knn_rank_audited", "linear_rank_audited",
+           "knn_lambda")
 
 
 def fail(msg: str):
@@ -61,6 +77,21 @@ def rank_inputs(gen, dev, B, m1, K, m2):
     g = 1.0 / torch.log2(torch.arange(2, m2 + 2, device=dev,
                                       dtype=torch.float32))
     return u, a, b, lam, g.expand(B, m2).contiguous()
+
+
+def affine_inputs(gen, dev, B, K, relu):
+    """X (B, D) and a K_PRED-wide predictor padded to K rows: the linear
+    family (relu) or the mean family (W = 0, a negative price in c)."""
+    X = torch.randn((B, D), generator=gen, device=dev)
+    W = torch.zeros((K, D), device=dev)
+    c = torch.zeros((K,), device=dev)
+    if relu:
+        W[:K_PRED] = torch.randn((K_PRED, D), generator=gen, device=dev) * 0.3
+        c[:K_PRED] = torch.randn((K_PRED,), generator=gen, device=dev) * 0.3
+    else:
+        c[:K_PRED] = torch.rand((K_PRED,), generator=gen, device=dev) - 0.3
+        c[0] = -0.25
+    return X, W, c
 
 
 def knn_db(gen, dev, n_db):
@@ -117,19 +148,68 @@ def rank_work(B, m1, K, m2):
     return read + write, 2 * B * K * m1 + 2 * B * (K + 1) * m2
 
 
-def knn_work(B, n_db, m1, K, m2):
-    """(bytes, fp32 flops) of the KNN stage: the db read once, the k
-    winners' lambda rows, the rank inputs; distances B * n_db * (2d+3)
-    plus |x|^2 per db row, then rank+audit."""
+def linear_work(B, m1, K, m2):
+    """rank+audit, with X, W and c read in place of lambda, lambda-hat
+    written, and the prologue's 2 B K d flops."""
     rb, rf = rank_work(B, m1, K, m2)
-    db = 4 * (n_db * D + B * D + B * KNN_K * K_PRED + B * K)
-    flops = B * n_db * (2 * D + 3) + 2 * n_db * D
-    return rb + db, rf + flops
+    return rb + 4 * (B * D + K * D + K), rf + 2 * B * K * D
+
+
+def sweep_work(B, n_db):
+    """(bytes, fp32 flops) of the KNN predictor: the db and queries read
+    once, the k winners' lambda rows, lambda-hat written; distances
+    B * n_db * (2d+3) plus |x|^2 per db row."""
+    nbytes = 4 * (n_db * D + B * D + B * KNN_K * K_PRED + B * K_PRED)
+    return nbytes, B * n_db * (2 * D + 3) + 2 * n_db * D
+
+
+def knn_work(B, n_db, m1, K, m2):
+    """The KNN stage: the sweep, then rank+audit (lambda-hat written at
+    the bucket's K)."""
+    rb, rf = rank_work(B, m1, K, m2)
+    sb, sf = sweep_work(B, n_db)
+    return rb + sb + 4 * B * (K - K_PRED), rf + sf
 
 
 def bound(nbytes, flops):
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def reset_counters(wrappers):
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def read_counters(wrappers):
+    return {name: w.launches for name, w in wrappers.items()}
+
+
+def movielens_users(gen, dev, n, m1, K, m2, n_items):
+    """MovieLens-like users as repro.data.synthetic builds them: items
+    with latent factors V, 4 topics at a 5% rate and a release-year
+    delta; users with latent factors X (the covariates, d=20) and a
+    random slate of m1 distinct items; u = 3 + 1.8 X.V + noise (the
+    ratings of make_interactions, unrounded). Table 1a: each topic's
+    exposure >= 0.10 sum(gamma), the year row >= 0."""
+    V = torch.randn((n_items, D), generator=gen, device=dev)
+    topics = (torch.rand((4, n_items), generator=gen, device=dev)
+              < 0.05).float()
+    age = torch.floor(torch.empty(n_items, device=dev).exponential_(
+        generator=gen) * 12.0)
+    delta = (torch.clamp(2019.0 - age, 1950.0, 2019.0) - 1990.0) / 100.0
+    X = torch.randn((n, D), generator=gen, device=dev) / math.sqrt(D)
+    slate = torch.argsort(torch.rand((n, n_items), generator=gen,
+                                     device=dev), dim=1)[:, :m1]
+    u = torch.gather(3.0 + 1.8 * (X @ V.T), 1, slate)
+    u = u + 0.35 * torch.randn((n, m1), generator=gen, device=dev)
+    a = torch.cat([topics[:, slate].permute(1, 0, 2), delta[slate][:, None]],
+                  dim=1).contiguous()
+    gamma = 1.0 / torch.log2(torch.arange(2, m2 + 2, device=dev,
+                                          dtype=torch.float32))
+    b = torch.tensor([0.10 * float(gamma.sum())] * 4 + [0.0], device=dev)
+    assert a.shape == (n, K, m1)
+    return X, u.contiguous(), a, b, gamma
 
 
 def main() -> int:
@@ -139,12 +219,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels.fused_rank import rank_audited_cuda
-    from repro_torch.kernels.knn_topk import knn_rank_audited_cuda
+    from repro_torch.core import ranking
     from repro_torch.core.predictors import KNNLambdaPredictor
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.fused_rank import (
+        linear_rank_audited_cuda,
+        rank_audited_cuda,
+    )
+    from repro_torch.kernels.knn_topk import (
+        knn_lambda_cuda,
+        knn_rank_audited_cuda,
+    )
     from repro_torch.serving.engine import RankRequest, ServingEngine
 
+    wrappers = {"rank_audited": rank_audited_cuda,
+                "knn_rank_audited": knn_rank_audited_cuda,
+                "linear_rank_audited": linear_rank_audited_cuda,
+                "knn_lambda": knn_lambda_cuda}
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -162,7 +253,7 @@ def main() -> int:
     # -- phase 2: each kernel against its plain version --------------------
     B, m1, K, m2 = BUCKET["B"], BUCKET["m1"], BUCKET["K"], BUCKET["m2"]
     X_db, lam_db = knn_db(gen, dev, N_DB)
-    err = {"rank_audited": 0.0, "knn_rank_audited": 0.0}
+    err = {name: 0.0 for name in KERNELS}
     for mm2 in (m2, 128):
         u, a, b, lam, g = rank_inputs(gen, dev, B, m1, K, mm2)
         got = rank_audited_cuda(u, a, b, lam, g, m2=mm2, eps=EPS)
@@ -171,6 +262,20 @@ def main() -> int:
                     ref.rank_audited_ref(u, a, b, lam, g, mm2, EPS))
         if mm2 == m2:
             err["rank_audited"] = e
+        for relu in (True, False):
+            X, W, c = affine_inputs(gen, dev, B, K, relu)
+            got = linear_rank_audited_cuda(u, a, b, X, W, c, g, m2=mm2,
+                                           eps=EPS, relu=relu)
+            torch.cuda.synchronize()
+            e = compare(f"linear_rank_audited m2={mm2} relu={relu}", got,
+                        ref.linear_rank_audited_ref(u, a, b, X, W, c, g, mm2,
+                                                    EPS, relu=relu),
+                        lam_at=5)
+            if not relu and not (got[5][:, 0] < 0).all():
+                fail("the mean route clamped a negative price")
+            if mm2 == m2:
+                err["linear_rank_audited"] = max(
+                    err["linear_rank_audited"], e)
         xq = torch.randn((B, D), generator=gen, device=dev)
         xq[0] = X_db[N_DB - 1]                   # an exact match
         for n_db in (N_DB, N_DB - 4093):         # and a ragged db
@@ -178,21 +283,98 @@ def main() -> int:
             got = knn_rank_audited_cuda(xq, xdb, ldb, u, a, b, g, k=KNN_K,
                                         m2=mm2, eps=EPS)
             torch.cuda.synchronize()
-            e = compare(f"knn_rank_audited m2={mm2} n_db={n_db}", got,
-                        ref.knn_rank_audited_ref(xq, xdb, ldb, u, a, b, g,
-                                                 k=KNN_K, m2=mm2, eps=EPS),
+            want = ref.knn_rank_audited_ref(xq, xdb, ldb, u, a, b, g,
+                                            k=KNN_K, m2=mm2, eps=EPS)
+            e = compare(f"knn_rank_audited m2={mm2} n_db={n_db}", got, want,
                         lam_at=5)
             if mm2 == m2 and n_db == N_DB:
                 err["knn_rank_audited"] = e
                 if not torch.equal(got[5][0, :K_PRED], lam_db[N_DB - 1]):
                     fail("exact-match query did not return its row's lambda")
-    log(f"phase 2: kernels equal their plain versions, max abs err {err}")
+            if mm2 == m2:
+                lam_hat = knn_lambda_cuda(xq, xdb, ldb, k=KNN_K)
+                torch.cuda.synchronize()
+                plain = want[5][:, :K_PRED]
+                if not torch.allclose(lam_hat, plain, **LAM_TOL):
+                    fail(f"knn_lambda n_db={n_db}: outside {LAM_TOL}")
+                err["knn_lambda"] = max(
+                    err["knn_lambda"], float((lam_hat - plain).abs().max()))
+                if not torch.equal(lam_hat, got[5][:, :K_PRED]):
+                    fail(f"knn_lambda n_db={n_db}: lambda-hat differs from "
+                         f"knn_rank_audited's")
+    log(f"phase 2: kernels equal their plain versions, max abs err {err}; "
+        f"knn_lambda's lambda-hat is bitwise knn_rank_audited's")
 
-    # -- phase 3: the engine serves the main path ---------------------------
+    # -- offline phase: fit_pipeline, then the Fig. 2 strategies -----------
+    o = OFFLINE
+    X_all, u_all, a_all, b_off, gamma_off = movielens_users(
+        gen, dev, 2 * o["n"], o["m1"], o["K"], o["m2"], o["n_items"])
+    tr, ho = slice(0, o["n"]), slice(o["n"], 2 * o["n"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = ranking.fit_pipeline(X_all[tr], u_all[tr], a_all[tr], b_off,
+                                gamma_off, m2=o["m2"], num_iters=o["iters"],
+                                device=dev)
+    torch.cuda.synchronize()
+    offline_s = time.perf_counter() - t0
+    sol = pipe.train_solution
+    if not (torch.isfinite(sol.lam).all() and (sol.lam >= 0).all()):
+        fail("offline: shadow prices not finite and >= 0")
+    train_comp = float(sol.compliant.float().mean())
+    X_h, u_h, a_h = X_all[ho], u_all[ho], a_all[ho]
+    b_rows = b_off.expand(o["n"], o["K"]).contiguous()
+    g_rows = gamma_off.expand(o["n"], o["m2"]).contiguous()
+    reset_counters(wrappers)
+    fig2 = {}
+    for strategy in ("none", "optimal", "mean", "linear", "knn"):
+        fig2[strategy] = ranking.rank_with_strategy(
+            pipe, strategy, X_h, u_h, a_h, b_off, dual_iters=o["iters"],
+            backend="kernel", device=dev)
+    chain = ops.predict_rank_audited(X_h, pipe.predictors["knn"], u_h, a_h,
+                                     b_off, gamma_off, m2=o["m2"],
+                                     eps=pipe.eps, knn_chain=True,
+                                     device=dev)
+    torch.cuda.synchronize()
+    offline_launches = read_counters(wrappers)
+    for strategy, out in fig2.items():
+        if strategy in ("none", "optimal"):
+            eps = 0.0 if strategy == "none" else pipe.eps
+            want = ref.rank_audited_ref(u_h, a_h, b_rows, out.lam, g_rows,
+                                        o["m2"], eps)
+        else:
+            want = ref.predict_rank_audited_ref(
+                X_h, pipe.predictors[strategy], u_h, a_h, b_rows, g_rows,
+                o["m2"], pipe.eps)
+        got = (want[0], out.perm, out.utility, out.exposure, out.compliant,
+               out.lam)
+        compare(f"offline holdout {strategy}", got, want,
+                lam_at=None if strategy in ("none", "optimal") else 5)
+    if not (torch.equal(chain.perm, fig2["knn"].perm)
+            and torch.equal(chain.lam, fig2["knn"].lam)):
+        fail("offline: the knn_chain route differs from the fused KNN route")
+    expect = {"rank_audited": 3, "linear_rank_audited": 2,
+              "knn_rank_audited": 2, "knn_lambda": 2}
+    if offline_launches != expect:
+        fail(f"offline launch counters {offline_launches} != {expect}")
+    opt_util = float(fig2["optimal"].utility.mean())
+    fig2_row = {s: {"compliance": float(out.compliant.float().mean()),
+                    "utility_vs_optimal": float(out.utility.mean())
+                    / opt_util}
+                for s, out in fig2.items()}
+    log(f"offline: fit_pipeline on {o['n']} users x m1={o['m1']} x "
+        f"K={o['K']} x m2={o['m2']}, {o['iters']} iterations, in "
+        f"{offline_s:.3f} s; train compliance {train_comp}; eps "
+        f"{pipe.eps}; holdout {json.dumps(fig2_row)}; launches "
+        f"{offline_launches}")
+
+    # -- phase 3: the engine serves four routes -----------------------------
     rng = np.random.default_rng(args.seed)
     knn = KNNLambdaPredictor(X_db=X_db, lam_db=lam_db, k=KNN_K)
+    predictors = {"knn": knn, "linear": pipe.predictors["linear"],
+                  "mean": pipe.predictors["mean"]}
     gamma50 = (1.0 / np.log2(np.arange(2, 52))).astype(np.float32)
-    kinds = rng.permutation([1] * 256 + [0] * 64)
+    kinds = rng.permutation(["knn"] * 192 + ["linear"] * 64 + ["mean"] * 64
+                            + ["_lam"] * 64)
     reqs = []
     for rid, kind in enumerate(kinds):
         mm1 = int(rng.integers(512, 1025))
@@ -200,10 +382,11 @@ def main() -> int:
                   u=rng.uniform(1.0, 5.0, mm1).astype(np.float32),
                   a=(rng.random((K_PRED, mm1)) < 0.15).astype(np.float32),
                   b=np.full(K_PRED, 0.06 * gamma50.sum(), np.float32))
-        if kind:
-            kw.update(X=rng.normal(size=D).astype(np.float32), tag="knn")
-        else:
+        if kind == "_lam":
             kw.update(lam=rng.exponential(0.5, K_PRED).astype(np.float32))
+        else:
+            kw.update(X=(rng.normal(size=D) / math.sqrt(D)).astype(
+                np.float32), tag=str(kind))
         reqs.append(RankRequest(**kw))
 
     class CheckedEngine(ServingEngine):
@@ -221,21 +404,20 @@ def main() -> int:
                  [r.rid for r, _ in pending.entries], pending.out))
 
     eng = CheckedEngine(max_batch=32, max_wait_ms=2.0, eps=EPS, device="cuda")
-    eng.register_predictor("knn", knn, d_cov=D)
+    for tag, p in predictors.items():
+        eng.register_predictor(tag, p, d_cov=D)
     warm = eng.warmup(reqs)
     torch.cuda.synchronize()
     eng.captured.clear()
-    rank_audited_cuda.launches = 0
-    knn_rank_audited_cuda.launches = 0
+    reset_counters(wrappers)
     t0 = time.perf_counter()
     results = eng.serve_stream(reqs)
     serve_s = time.perf_counter() - t0
-    launches = {"rank_audited": rank_audited_cuda.launches,
-                "knn_rank_audited": knn_rank_audited_cuda.launches}
+    serve_launches = read_counters(wrappers)
     by_rid = {r.rid: r for r in results}
     if sorted(by_rid) != list(range(len(reqs))):
         fail(f"served {len(by_rid)} of {len(reqs)} requests")
-    n_batches = {"_lam": 0, "knn": 0}
+    n_batches = {"_lam": 0, "knn": 0, "linear": 0, "mean": 0}
     for bucket, staged, rids, out in eng.captured:
         n_batches[bucket.tag] += 1
         t = {k: torch.tensor(v, device=dev) for k, v in staged.items()}
@@ -243,15 +425,15 @@ def main() -> int:
             want = ref.rank_audited_ref(t["u"], t["a"], t["b"], t["lam"],
                                         t["gamma"], bucket.m2, EPS)
         else:
-            want = ref.knn_rank_audited_ref(
-                t["X"], X_db, lam_db, t["u"], t["a"], t["b"], t["gamma"],
-                k=KNN_K, m2=bucket.m2, eps=EPS)
+            want = ref.predict_rank_audited_ref(
+                t["X"], predictors[bucket.tag], t["u"], t["a"], t["b"],
+                t["gamma"], bucket.m2, EPS)
         got = [torch.tensor(np.asarray(x), device=dev) for x in
                (out.perm, out.perm, out.utility, out.exposure,
                 out.compliant, out.lam)]
         got[0] = want[0]                         # vals are not served
         compare(f"served batch {bucket.name}", got, want,
-                lam_at=5 if bucket.tag == "knn" else None)
+                lam_at=None if bucket.tag == "_lam" else 5)
         for i, rid in enumerate(rids):
             res, req = by_rid[rid], reqs[rid]
             perm = res.perm
@@ -264,33 +446,35 @@ def main() -> int:
             if not np.isfinite(res.utility) or \
                     not np.isfinite(res.exposure).all():
                 fail(f"request {rid}: non-finite audit")
-    expect = {"rank_audited": n_batches["_lam"] * ops.kernel_launch_count(
-                  None, 64),
-              "knn_rank_audited": n_batches["knn"] * ops.kernel_launch_count(
-                  knn, 64)}
-    if launches != expect or eng.metrics.kernel_launches != sum(
+    per_batch = {tag: ops.kernel_launch_count(predictors.get(tag), 64)
+                 for tag in n_batches}
+    expect = {"rank_audited": n_batches["_lam"] * per_batch["_lam"],
+              "knn_rank_audited": n_batches["knn"] * per_batch["knn"],
+              "linear_rank_audited": n_batches["linear"] * per_batch["linear"]
+              + n_batches["mean"] * per_batch["mean"],
+              "knn_lambda": 0}
+    if serve_launches != expect or eng.metrics.kernel_launches != sum(
             expect.values()):
-        fail(f"launch counters {launches} != batches x route launches "
+        fail(f"launch counters {serve_launches} != batches x route launches "
              f"{expect} (metrics {eng.metrics.kernel_launches})")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"{name} never launched on the main path")
+    for name in ("rank_audited", "knn_rank_audited", "linear_rank_audited"):
+        if serve_launches[name] == 0:
+            fail(f"{name} never launched on the serving path")
     summary = eng.metrics.summary()
     log(f"phase 3: served {len(results)} requests in {serve_s:.3f} s over "
         f"{summary['batches']} batches {n_batches}, buckets "
-        f"{warm['buckets']}, launches {launches}, compliance "
+        f"{warm['buckets']}, launches {serve_launches}, compliance "
         f"{summary['compliance']}, latency_ms {summary['latency_ms']}")
+    del eng, X_all, u_all, a_all, pipe, fig2, chain
 
     # -- phase 4: timing ---------------------------------------------------
-    rows = []
     timing = {}
+    c_eps = float(np.float32(1.0 + EPS))
     for label, Bt in (("bucket", B), ("large", LARGE_RANK_B)):
         u, a, b, lam, g = rank_inputs(gen, dev, Bt, m1, K, m2)
         reps = 20 if Bt == B else 5
-        c = float(np.float32(1.0 + EPS))
-        s = u + c * torch.einsum("nk,nkm->nm", lam, a)
-        nbytes, flops = rank_work(Bt, m1, K, m2)
-        bms, by = bound(nbytes, flops)
+        s = u + c_eps * torch.einsum("nk,nkm->nm", lam, a)
+        bms, by = bound(*rank_work(Bt, m1, K, m2))
         timing[("rank_audited", label)] = dict(
             batch=Bt,
             ms=time_ms(lambda: rank_audited_cuda(u, a, b, lam, g, m2=m2,
@@ -299,13 +483,27 @@ def main() -> int:
                 u, a, b, lam, g, m2, EPS), 2, groups=3),
             library_ms=time_ms(lambda: torch.topk(s, m2), reps),
             bound_ms=bms, bound_by=by)
+        X, W, c = affine_inputs(gen, dev, Bt, K, True)
+        bms, by = bound(*linear_work(Bt, m1, K, m2))
+        timing[("linear_rank_audited", label)] = dict(
+            batch=Bt,
+            ms=time_ms(lambda: linear_rank_audited_cuda(
+                u, a, b, X, W, c, g, m2=m2, eps=EPS), reps),
+            plain_ms=time_ms(lambda: ref.linear_rank_audited_ref(
+                u, a, b, X, W, c, g, m2, EPS), 2, groups=3),
+            library_ms=time_ms(lambda: torch.topk(torch.baddbmm(
+                u[:, None], torch.addmm(c, X, W.T)[:, None], a,
+                alpha=c_eps)[:, 0], m2), reps),
+            bound_ms=bms, bound_by=by)
     y2 = (X_db * X_db).sum(1)
     for label, Bt in (("bucket", B), ("large", LARGE_KNN_B)):
         u, a, b, lam, g = rank_inputs(gen, dev, Bt, m1, K, m2)
         xq = torch.randn((Bt, D), generator=gen, device=dev)
         reps = 10 if Bt == B else 2
-        nbytes, flops = knn_work(Bt, N_DB, m1, K, m2)
-        bms, by = bound(nbytes, flops)
+        library_ms = time_ms(lambda: torch.topk(
+            torch.addmm(y2, xq, X_db.T, alpha=-2.0), KNN_K, largest=False),
+            reps)
+        bms, by = bound(*knn_work(Bt, N_DB, m1, K, m2))
         timing[("knn_rank_audited", label)] = dict(
             batch=Bt,
             ms=time_ms(lambda: knn_rank_audited_cuda(
@@ -313,30 +511,48 @@ def main() -> int:
             plain_ms=time_ms(lambda: ref.knn_rank_audited_ref(
                 xq, X_db, lam_db, u, a, b, g, k=KNN_K, m2=m2, eps=EPS),
                 1, groups=3),
-            library_ms=time_ms(lambda: torch.topk(
-                torch.addmm(y2, xq, X_db.T, alpha=-2.0), KNN_K,
-                largest=False), reps),
-            bound_ms=bms, bound_by=by)
+            library_ms=library_ms, bound_ms=bms, bound_by=by)
+        bms, by = bound(*sweep_work(Bt, N_DB))
+        timing[("knn_lambda", label)] = dict(
+            batch=Bt,
+            ms=time_ms(lambda: knn_lambda_cuda(xq, X_db, lam_db, k=KNN_K),
+                       reps),
+            plain_ms=time_ms(lambda: ref.knn_lambda_ref(xq, X_db, lam_db,
+                                                        KNN_K), 1, groups=3),
+            library_ms=library_ms, bound_ms=bms, bound_by=by)
     for key, tm in timing.items():
         log(f"phase 4: {key[0]} {key[1]} {json.dumps(tm)}")
 
-    sources = {"rank_audited": ("src/repro_torch/kernels/csrc/rank_audited.cu",
+    csrc = "src/repro_torch/kernels/csrc/"
+    sources = {"rank_audited": (csrc + "rank_audited.cu",
                                 "src/repro/kernels/fused_rank.py:261"),
-               "knn_rank_audited": (
-                   "src/repro_torch/kernels/csrc/knn_rank_audited.cu",
-                   "src/repro/kernels/knn_topk.py:574")}
+               "knn_rank_audited": (csrc + "knn_rank_audited.cu",
+                                    "src/repro/kernels/knn_topk.py:574"),
+               "linear_rank_audited": (csrc + "linear_rank_audited.cu",
+                                       "src/repro/kernels/fused_rank.py:384"),
+               "knn_lambda": (csrc + "knn_lambda.cu",
+                              "src/repro/kernels/knn_topk.py:253")}
+    rows = []
     for name, (source, replaces) in sources.items():
         main_t = timing[(name, "bucket")]
+        shape = {"batch": B, "m1": m1, "K": K, "m2": m2}
+        if name == "linear_rank_audited":
+            shape.update(d=D, K_pred=K_PRED)
+        elif name == "knn_lambda":
+            shape = {"batch": B, "n_db": N_DB, "d": D, "k": KNN_K,
+                     "K_pred": K_PRED}
+        elif name == "knn_rank_audited":
+            shape.update(n_db=N_DB, d=D, k=KNN_K)
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": offline_launches[name] + serve_launches[name],
+            "launches_by_path": {"offline_holdout": offline_launches[name],
+                                 "serving": serve_launches[name]},
             "max_abs_err": err[name], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
             "bound_by": main_t["bound_by"],
-            "library_ms": main_t["library_ms"],
-            "shape": {"batch": B, "m1": m1, "K": K, "m2": m2,
-                      **({"n_db": N_DB, "d": D, "k": KNN_K}
-                         if name == "knn_rank_audited" else {})},
+            "library_ms": main_t["library_ms"], "shape": shape,
             "large": timing[(name, "large")]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,16 +1,18 @@
-"""The paper's KNN shadow-price predictor f(X) -> lambda (counterpart of
-the exact KNN path of repro.core.predictors).
+"""Shadow-price predictors f(X) -> lambda (counterpart of
+repro.core.predictors): the paper's mean baseline, its KNN regressor
+and the ridge-regression linear family.
 
-The estimator is sklearn's KNN regressor with inverse-distance weights
-(k = 10, Euclidean), computed by brute force: d2(x, xi) = |x|^2 -
-2 x.xi + |xi|^2, then the k smallest with ties to the lowest database
-index, then the weights of `_idw_lambda`. The other predictor families
-(mean, linear, MLP) and the quantized database are later slices
-(ROADMAP Queue 1 items 3 and 6).
+The KNN estimator is sklearn's KNN regressor with inverse-distance
+weights (k = 10, Euclidean), computed by brute force: d2(x, xi) =
+|x|^2 - 2 x.xi + |xi|^2, then the k smallest with ties to the lowest
+database index, then the weights of `_idw_lambda`. The MLP family and
+the quantized KNN database are later slices (ROADMAP Queue 1 items 3
+and 6).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -22,6 +24,81 @@ from repro_torch.device import resolve_device
 # database in chunks: the one-product form's (b, n_train) distance matrix
 # is n_train * 4 bytes per query row.
 KNN_CHUNK_THRESHOLD = 32_768
+
+
+def _f32(x, dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
+@dataclass(frozen=True)
+class MeanLambdaPredictor:
+    """Intercept-only, covariate-free predictor: lam_hat = mean(lam_train).
+    The mean is broadcast as it is, unclamped: a negative mean stays
+    negative."""
+
+    mean_lam: torch.Tensor  # (K,) f32
+
+    @staticmethod
+    def fit(X_train, lam_train, device=None) -> "MeanLambdaPredictor":
+        del X_train
+        dev = resolve_device(device)
+        return MeanLambdaPredictor(
+            mean_lam=torch.mean(_f32(lam_train, dev), dim=0))
+
+    @property
+    def device(self) -> torch.device:
+        return self.mean_lam.device
+
+    @property
+    def num_constraints(self) -> int:
+        return int(self.mean_lam.shape[0])
+
+    def to(self, device) -> "MeanLambdaPredictor":
+        return MeanLambdaPredictor(
+            mean_lam=self.mean_lam.to(resolve_device(device)))
+
+    def predict(self, X) -> torch.Tensor:
+        batch = tuple(X.shape[:-1])
+        return self.mean_lam.expand(batch + tuple(self.mean_lam.shape))
+
+
+@dataclass(frozen=True)
+class LinearLambdaPredictor:
+    """Ridge regression lam ~ W x + c in closed form; lam_hat is clamped
+    at 0."""
+
+    W: torch.Tensor  # (K, d) f32
+    c: torch.Tensor  # (K,) f32
+
+    @staticmethod
+    def fit(X_train, lam_train, l2: float = 1e-3,
+            device=None) -> "LinearLambdaPredictor":
+        """Centre X and lam, solve (Xc^T Xc + l2 I) W^T = Xc^T Yc in f32,
+        then c = mean(lam) - W mean(X)."""
+        dev = resolve_device(device)
+        X, Y = _f32(X_train, dev), _f32(lam_train, dev)
+        mu_x, mu_y = X.mean(dim=0), Y.mean(dim=0)
+        Xc, Yc = X - mu_x, Y - mu_y
+        d = X.shape[1]
+        G = Xc.T @ Xc + l2 * torch.eye(d, dtype=X.dtype, device=dev)
+        W = torch.linalg.solve(G, Xc.T @ Yc).T.contiguous()    # (K, d)
+        return LinearLambdaPredictor(W=W, c=mu_y - W @ mu_x)
+
+    @property
+    def device(self) -> torch.device:
+        return self.W.device
+
+    @property
+    def num_constraints(self) -> int:
+        return int(self.W.shape[0])
+
+    def to(self, device) -> "LinearLambdaPredictor":
+        dev = resolve_device(device)
+        return LinearLambdaPredictor(W=self.W.to(dev), c=self.c.to(dev))
+
+    def predict(self, X) -> torch.Tensor:
+        X = _f32(X, self.device)
+        return torch.clamp_min(X @ self.W.T + self.c, 0.0)
 
 
 @dataclass(frozen=True)
@@ -161,29 +238,72 @@ def knn_predict_chunked(X_db, lam_db, X, *, k: int = 10,
     return out[0] if squeeze else out
 
 
-STATE_FIELDS = ("X_db", "lam_db")
+# The array fields of each ported family: the state a predictor carries
+# across from the JAX package and swaps in place.
+STATE_FIELDS = {
+    MeanLambdaPredictor: ("mean_lam",),
+    KNNLambdaPredictor: ("X_db", "lam_db"),
+    LinearLambdaPredictor: ("W", "c"),
+}
 
 
-def predictor_state(predictor: KNNLambdaPredictor) -> dict:
+def state_fields(predictor) -> tuple:
+    """The array fields of the predictor's family (empty for a family
+    this package does not know)."""
+    return STATE_FIELDS.get(type(predictor), ())
+
+
+def predictor_state(predictor) -> dict:
     """The predictor's array state as a flat dict of tensors."""
-    return {f: getattr(predictor, f) for f in STATE_FIELDS}
+    return {f: getattr(predictor, f) for f in state_fields(predictor)}
 
 
-def from_numpy(state: dict, k: int, device=None) -> KNNLambdaPredictor:
-    """Build the port's KNN predictor from the arrays of a JAX predictor
-    (`repro.core.predictors.predictor_state(knn)`, each converted with
-    np.asarray): the weights carried across from the reference."""
-    extra = set(state) - set(STATE_FIELDS)
-    if extra:
+def with_state(predictor, state: dict):
+    """The predictor with its array state replaced by `state` (the keys
+    of predictor_state); non-array fields (KNN's k) carry over."""
+    fields = state_fields(predictor)
+    if set(state) != set(fields):
+        raise ValueError(f"state keys {sorted(state)} != {sorted(fields)} "
+                         f"for {type(predictor).__name__}")
+    if not fields:
+        return predictor
+    return dataclasses.replace(predictor, **state)
+
+
+def from_numpy(state: dict, k: int | None = None, device=None):
+    """Build the port's predictor from the arrays of a JAX predictor
+    (`repro.core.predictors.predictor_state(p)`, each converted with
+    np.asarray): the weights carried across from the reference. The
+    family follows from the keys: {X_db, lam_db} is KNN (and needs k),
+    {W, c} linear, {mean_lam} mean."""
+    keys = set(state)
+    if {"X_db", "lam_db"} < keys:
         raise NotImplementedError(
-            f"state fields {sorted(extra)}: the quantized KNN database is "
-            f"not ported yet (ROADMAP Queue 1 item 6)")
-    missing = set(STATE_FIELDS) - set(state)
-    if missing:
-        raise ValueError(f"KNN state lacks {sorted(missing)}")
-    X_db = np.array(state["X_db"], np.float32)
-    lam_db = np.array(state["lam_db"], np.float32)
+            f"state fields {sorted(keys - {'X_db', 'lam_db'})}: the "
+            f"quantized KNN database is not ported yet (ROADMAP Queue 1 "
+            f"item 6)")
+    if keys not in ({"mean_lam"}, {"W", "c"}, {"X_db", "lam_db"}):
+        raise NotImplementedError(
+            f"state fields {sorted(keys)}: only the mean, linear and KNN "
+            f"families are ported; the MLP family is ROADMAP Queue 1 item 3")
+    arrays = {f: np.array(v, np.float32) for f, v in state.items()}
+    if keys == {"mean_lam"}:
+        mean_lam = arrays["mean_lam"]
+        if mean_lam.ndim != 1:
+            raise ValueError(f"mean_lam {mean_lam.shape} must be 1-D")
+        return MeanLambdaPredictor(
+            mean_lam=_f32(mean_lam, resolve_device(device)))
+    if keys == {"W", "c"}:
+        W, c = arrays["W"], arrays["c"]
+        if W.ndim != 2 or c.shape != (W.shape[0],):
+            raise ValueError(f"W {W.shape} and c {c.shape} must be (K, d) "
+                             f"and (K,)")
+        dev = resolve_device(device)
+        return LinearLambdaPredictor(W=_f32(W, dev), c=_f32(c, dev))
+    X_db, lam_db = arrays["X_db"], arrays["lam_db"]
     if X_db.ndim != 2 or lam_db.ndim != 2 or X_db.shape[0] != lam_db.shape[0]:
         raise ValueError(f"X_db {X_db.shape} and lam_db {lam_db.shape} must "
                          f"be 2-D with one row per train user")
+    if k is None:
+        raise ValueError("a KNN state needs k")
     return KNNLambdaPredictor.fit(X_db, lam_db, k=k, device=device)

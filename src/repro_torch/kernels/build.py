@@ -19,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("rank_audited", "knn_rank_audited")
+SOURCES = ("rank_audited", "knn_rank_audited", "linear_rank_audited",
+           "knn_lambda")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -31,6 +32,9 @@ SIGNATURES = {
                      [_P] * 10 + [_I] * 5 + [_F, _F, _P]),
     "knn_rank_audited": ("knn_rank_audited_launch",
                          [_P] * 15 + [_I] * 12 + [_F, _F, _P]),
+    "linear_rank_audited": ("linear_rank_audited_launch",
+                            [_P] * 13 + [_I] * 7 + [_F, _F, _P]),
+    "knn_lambda": ("knn_lambda_launch", [_P] * 6 + [_I] * 8 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -1,12 +1,14 @@
-"""The KNN online-stage kernel's wrapper (counterpart of
-repro.kernels.knn_topk.knn_rank_audited_pallas), beside its plain
-version.
+"""The KNN kernels' wrappers (counterparts of
+repro.kernels.knn_topk.knn_rank_audited_pallas and knn_lambda_pallas),
+beside their plain versions.
 
-The kernel (csrc/knn_rank_audited.cu) is two launches: a distance sweep
-split across blocks by query tile and db chunk, then one block per
-query that merges the partial top-k lists, weights lambda-hat and ranks
-the row. On a CPU tensor the wrapper runs the plain version,
-`ref.knn_rank_audited_ref`.
+Both kernels are two launches that share csrc/knn_sweep.cuh: a distance
+sweep split across blocks by query tile and db chunk, then one block per
+query that merges the partial top-k lists and weights lambda-hat.
+knn_rank_audited (csrc/knn_rank_audited.cu) then ranks and audits the
+row; knn_lambda (csrc/knn_lambda.cu) writes lambda-hat only. On a CPU
+tensor a wrapper runs the plain version (`ref.knn_rank_audited_ref`,
+`ref.knn_lambda_ref`).
 """
 
 from __future__ import annotations
@@ -22,12 +24,18 @@ from repro_torch.kernels.common import (
     KNN_MAX_D,
     KNN_MAX_K,
     KNN_QTILE,
+    MAX_KERNEL_K,
     check_tensor,
 )
 from repro_torch.kernels.fused_rank import check_rank_args, sort_width
-from repro_torch.kernels.ref import check_pred_width, knn_rank_audited_ref
+from repro_torch.kernels.ref import (
+    check_pred_width,
+    knn_lambda_ref,
+    knn_rank_audited_ref,
+)
 
-__all__ = ["knn_rank_audited_cuda", "knn_rank_audited_ref", "sweep_tile"]
+__all__ = ["knn_lambda_cuda", "knn_lambda_ref", "knn_rank_audited_cuda",
+           "knn_rank_audited_ref", "sweep_tile"]
 
 _SMEM_FLOATS = 48 * 1024 // 4  # static shared-memory limit of one block
 _KNN_SUB = 8                    # threads per query in the distance sweep
@@ -46,6 +54,56 @@ def sweep_tile(D: int, k: int) -> int:
     return st
 
 
+def _check_sweep(xq, xdb, lam_db, k: int, dev: torch.device):
+    """Validate the KNN sweep's inputs; returns (B, N, D, K_pred, st,
+    n_chunks), the tile and grid only on the card."""
+    N, D = xdb.shape
+    B, k_pred = xq.shape[0], lam_db.shape[1]
+    if not 1 <= k <= min(N, KNN_MAX_K):
+        raise ValueError(f"the kernel needs 1 <= k <= min(n_train, "
+                         f"{KNN_MAX_K}), got k={k}, n_train={N}")
+    if D > KNN_MAX_D:
+        raise ValueError(f"the kernel takes d <= {KNN_MAX_D}, got {D}")
+    f32 = torch.float32
+    check_tensor("xq", xq, (B, D), f32, dev)
+    check_tensor("xdb", xdb, (N, D), f32, dev)
+    check_tensor("lam_db", lam_db, (N, k_pred), f32, dev)
+    if dev.type == "cpu":
+        return B, N, D, k_pred, 0, 0
+    n_chunks = -(-N // KNN_CHUNK)
+    if n_chunks > 65535:                 # the sweep grid's y extent
+        raise ValueError(f"n_train={N} exceeds {65535 * KNN_CHUNK} rows")
+    return B, N, D, k_pred, sweep_tile(D, k), n_chunks
+
+
+def knn_lambda_cuda(xq, xdb, lam_db, *, k: int = 10, device=None):
+    """KNN lambda-hat: xq (B, D), xdb (N, D), lam_db (N, K_pred), all f32
+    and contiguous on `device` (None = the card) -> lam (B, K_pred). Two
+    launches per call; each adds one to `knn_lambda_cuda.launches`."""
+    dev = resolve_device(device)
+    B, N, D, k_pred, st, n_chunks = _check_sweep(xq, xdb, lam_db, k, dev)
+    if not 1 <= k_pred <= MAX_KERNEL_K:
+        raise ValueError(f"the kernel takes 1 <= K_pred <= {MAX_KERNEL_K}, "
+                         f"got {k_pred}")
+    if dev.type == "cpu":
+        return knn_lambda_ref(xq, xdb, lam_db, k)
+    f32 = torch.float32
+    ws_d2 = torch.empty((B, n_chunks, k), dtype=f32, device=dev)
+    ws_idx = torch.empty((B, n_chunks, k), dtype=torch.int32, device=dev)
+    lam = torch.empty((B, k_pred), dtype=f32, device=dev)
+    if B:
+        build.launch(
+            "knn_lambda", xq.data_ptr(), xdb.data_ptr(), lam_db.data_ptr(),
+            ws_d2.data_ptr(), ws_idx.data_ptr(), lam.data_ptr(), B, N, D, k,
+            k_pred, KNN_CHUNK, st, n_chunks,
+            torch.cuda.current_stream(dev).cuda_stream)
+        knn_lambda_cuda.launches += 2
+    return lam
+
+
+knn_lambda_cuda.launches = 0
+
+
 def knn_rank_audited_cuda(xq, xdb, lam_db, u, a, b, gamma, *, k: int = 10,
                           m2: int, eps: float = 1e-4,
                           tol: float | None = None, device=None):
@@ -59,25 +117,14 @@ def knn_rank_audited_cuda(xq, xdb, lam_db, u, a, b, gamma, *, k: int = 10,
     dev = resolve_device(device)
     tol = AUDIT_TOL if tol is None else tol
     B, m1, K = check_rank_args(u, a, b, None, gamma, m2, dev)
-    N, D = xdb.shape
-    k_pred = lam_db.shape[1]
+    if xq.shape[0] != B:
+        raise ValueError(f"xq carries {xq.shape[0]} rows, the problem {B}")
+    _, N, D, k_pred, st, n_chunks = _check_sweep(xq, xdb, lam_db, k, dev)
     check_pred_width(k_pred, K)
-    if not 1 <= k <= min(N, KNN_MAX_K):
-        raise ValueError(f"the kernel needs 1 <= k <= min(n_train, "
-                         f"{KNN_MAX_K}), got k={k}, n_train={N}")
-    if D > KNN_MAX_D:
-        raise ValueError(f"the kernel takes d <= {KNN_MAX_D}, got {D}")
-    f32 = torch.float32
-    check_tensor("xq", xq, (B, D), f32, dev)
-    check_tensor("xdb", xdb, (N, D), f32, dev)
-    check_tensor("lam_db", lam_db, (N, k_pred), f32, dev)
     if dev.type == "cpu":
         return knn_rank_audited_ref(xq, xdb, lam_db, u, a, b, gamma, k=k,
                                     m2=m2, eps=eps, tol=tol)
-    st = sweep_tile(D, k)
-    n_chunks = -(-N // KNN_CHUNK)
-    if n_chunks > 65535:                 # the sweep grid's y extent
-        raise ValueError(f"n_train={N} exceeds {65535 * KNN_CHUNK} rows")
+    f32 = torch.float32
     ws_d2 = torch.empty((B, n_chunks, k), dtype=f32, device=dev)
     ws_idx = torch.empty((B, n_chunks, k), dtype=torch.int32, device=dev)
     vals = torch.empty((B, m2), dtype=f32, device=dev)

@@ -2,26 +2,41 @@
 routes a micro-batch to its kernel by predictor and returns a complete
 RankingOutput.
 
-Routes ported in this slice:
+Routes, with their launches per micro-batch on the card:
   predictor=None  lambda given: `rank_audited`, one launch;
+  mean, linear    `linear_rank_audited`, one launch (lambda-hat = X W^T + c
+                  in the prologue; mean is W = 0 with the clamp off);
   KNN             `knn_rank_audited`, two launches (distance sweep, then
-                  merge + weighting + rank + audit).
+                  merge + weighting + rank + audit);
+  KNN, knn_chain  `knn_lambda` (two launches) then `rank_audited` (one):
+                  three launches where the TPU chain took two.
 Every entry point takes `device` (None = the card). On the card a route
 launches its kernel or raises; only `device="cpu"` runs the plain
-PyTorch versions. Nothing is padded here: the kernels mask ragged edges
-themselves, and the 1M-row KNN database is passed as it lies.
+PyTorch versions. Nothing is padded per call beyond the affine
+predictor's W and c to the problem's K (the serving engine builds those
+once per bucket): the kernels mask ragged edges themselves, and the
+1M-row KNN database is passed as it lies. The MLP family and the
+quantized KNN database raise NotImplementedError (`unported`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.predictors import KNNLambdaPredictor
+from repro_torch.core.predictors import (
+    KNNLambdaPredictor,
+    LinearLambdaPredictor,
+    MeanLambdaPredictor,
+)
 from repro_torch.core.ranking import AUDIT_TOL, RankingOutput
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
-from repro_torch.kernels.fused_rank import MAX_KERNEL_M2, rank_audited_cuda
-from repro_torch.kernels.knn_topk import knn_rank_audited_cuda
+from repro_torch.kernels.fused_rank import (
+    MAX_KERNEL_M2,
+    linear_rank_audited_cuda,
+    rank_audited_cuda,
+)
+from repro_torch.kernels.knn_topk import knn_lambda_cuda, knn_rank_audited_cuda
 
 
 def _f32(x, dev: torch.device) -> torch.Tensor:
@@ -102,44 +117,114 @@ def knn_rank_audited(X, X_db, lam_db, u, a, b, gamma, *, k: int = 10,
                          compliant=comp, lam=lam)
 
 
+def knn_lambda(X, X_db, lam_db, *, k: int = 10, device=None):
+    """KNN lambda-hat (B, K_pred) of the queries X (B, d) over (X_db,
+    lam_db): the `knn_lambda` kernel on the card, its plain version on
+    the CPU."""
+    dev = resolve_device(device)
+    X, X_db, lam_db = _f32(X, dev), _f32(X_db, dev), _f32(lam_db, dev)
+    if X_db.shape[0] < k:
+        raise ValueError(f"n_train={X_db.shape[0]} < k={k}")
+    return knn_lambda_cuda(X, X_db, lam_db, k=k, device=dev)
+
+
+def linear_rank_audited(X, W, c, u, a, b, gamma, *, relu: bool, m2: int,
+                        eps: float = 1e-4, tol: float | None = None,
+                        device=None) -> RankingOutput:
+    """The affine online stage: lambda-hat = X W^T + c (clamped at 0 if
+    `relu`), then rank + audit. X (n, d), W (K, d) and c (K,) already
+    padded to a's K rows (`ref.affine_params`); u, a, b, gamma as in
+    `rank_audited`."""
+    dev = resolve_device(device)
+    tol = AUDIT_TOL if tol is None else tol
+    u, a, b, gamma = _rank_inputs(u, a, b, gamma, dev)
+    X, W, c = _f32(X, dev), _f32(W, dev), _f32(c, dev)
+    if X.shape[0] != u.shape[0]:
+        raise ValueError(f"X carries {X.shape[0]} covariate rows but the "
+                         f"problem has {u.shape[0]} users")
+    if _check_m2(m2, dev):
+        _, idx, util, expo, comp, lam = linear_rank_audited_cuda(
+            u, a, b, X, W, c, gamma, m2=m2, eps=eps, tol=tol, relu=relu,
+            device=dev)
+    else:
+        _, idx, util, expo, comp, lam = ref.linear_rank_audited_ref(
+            u, a, b, X, W, c, gamma, m2, eps, tol, relu)
+    return RankingOutput(perm=idx, utility=util, exposure=expo,
+                         compliant=comp, lam=lam)
+
+
 def unported(predictor) -> NotImplementedError:
-    """The error for a predictor family this slice does not port."""
+    """The error for a predictor family the port does not serve yet."""
     return NotImplementedError(
-        f"{type(predictor).__name__}: only the KNN predictor is ported; "
-        f"mean, linear and MLP are ROADMAP Queue 1 item 3 (kernel: Queue 2 "
-        f"item 3), the quantized KNN database Queue 1 item 6")
+        f"{type(predictor).__name__}: the mean, linear and KNN families "
+        f"are ported; the MLP is ROADMAP Queue 1 item 3, the quantized KNN "
+        f"database Queue 1 item 6")
+
+
+def route_of(predictor) -> str:
+    """The route a predictor's batches take: 'lam' (None), 'affine'
+    (mean, linear) or 'knn'; any other family raises (`unported`)."""
+    if predictor is None:
+        return "lam"
+    if isinstance(predictor, KNNLambdaPredictor):
+        return "knn"
+    if isinstance(predictor, (LinearLambdaPredictor,
+                              MeanLambdaPredictor)):
+        return "affine"
+    raise unported(predictor)
 
 
 def predict_rank_audited(X, predictor, u, a, b, gamma, *, m2: int,
                          eps: float = 1e-4, tol: float | None = None,
+                         knn_chain: bool = False, affine=None,
                          device=None) -> RankingOutput:
     """The online stage for one micro-batch, routed by predictor:
     `predictor=None` means X already holds the shadow prices (n, K) and
-    runs `rank_audited`; a KNN predictor runs `knn_rank_audited` on
-    its own tensors. Any other family raises NotImplementedError."""
+    runs `rank_audited`; mean and linear run `linear_rank_audited`; KNN
+    runs `knn_rank_audited` on its own tensors, or with `knn_chain`
+    `knn_lambda` then `rank_audited` (the same lambda-hat, bitwise).
+    Any other family raises NotImplementedError. `affine` is an affine
+    predictor's (W, c, relu) already padded to a's K rows
+    (`ref.affine_params`), as the serving engine keeps them per bucket;
+    None builds them here."""
+    route = route_of(predictor)
     n = u.shape[0]
     if X.shape[0] != n:
         raise ValueError(f"X carries {X.shape[0]} covariate rows but the "
                          f"problem has {n} users")
-    if predictor is None:
+    if route == "lam":
         return rank_audited(u, a, b, X, gamma, m2=m2, eps=eps, tol=tol,
                             device=device)
-    if isinstance(predictor, KNNLambdaPredictor):
+    if route == "affine":
+        if affine is None:
+            affine = ref.affine_params(predictor, X.shape[1], a.shape[-2])
+        W, c, relu = affine
+        return linear_rank_audited(X, W, c, u, a, b, gamma, relu=relu,
+                                   m2=m2, eps=eps, tol=tol, device=device)
+    if not knn_chain:
         return knn_rank_audited(X, predictor.X_db, predictor.lam_db, u, a,
                                 b, gamma, k=predictor.k, m2=m2, eps=eps,
                                 tol=tol, device=device)
-    raise unported(predictor)
+    K = a.shape[-2]
+    ref.check_pred_width(predictor.num_constraints, K)
+    lam = knn_lambda(X, predictor.X_db, predictor.lam_db, k=predictor.k,
+                     device=device)
+    lam = torch.nn.functional.pad(lam, (0, K - lam.shape[1]))
+    return rank_audited(u, a, b, lam, gamma, m2=m2, eps=eps, tol=tol,
+                        device=device)
 
 
-def kernel_launch_count(predictor, m2: int, *, device=None) -> int:
+def kernel_launch_count(predictor, m2: int, *, device=None,
+                        knn_chain: bool = False) -> int:
     """Kernel launches one dispatcher call makes, by route: 1 for the
-    lambda-given route (`predictor=None`), 2 for KNN, 0 where the plain
-    PyTorch path runs (a CPU device, or m2 > MAX_KERNEL_M2). A count of
-    the route, not a run: it needs no card."""
+    lambda-given route (`predictor=None`) and for mean and linear, 2 for
+    KNN, 3 for KNN with `knn_chain`; 0 where the plain PyTorch path runs
+    (a CPU device, or m2 > MAX_KERNEL_M2). A count of the route, not a
+    run: it needs no card."""
     dev = torch.device("cuda" if device is None else device)
-    if predictor is not None and not isinstance(predictor,
-                                                KNNLambdaPredictor):
-        raise unported(predictor)
+    route = route_of(predictor)
     if dev.type != "cuda" or m2 > MAX_KERNEL_M2:
         return 0
-    return 1 if predictor is None else 2
+    if route == "knn":
+        return 3 if knn_chain else 2
+    return 1

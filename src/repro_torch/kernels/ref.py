@@ -14,6 +14,8 @@ import torch
 
 from repro_torch.core.predictors import (
     KNNLambdaPredictor,
+    LinearLambdaPredictor,
+    MeanLambdaPredictor,
     _idw_lambda,
     knn_topk_scan,
 )
@@ -73,7 +75,8 @@ def d2_sequential(Xq, x2, db):
 
 def knn_lambda_ref(xq, xdb, lam_db, k: int):
     """Inverse-distance-weighted KNN lambda-hat (B, K) on the k nearest
-    rows by (d2, index), the database streamed in chunks."""
+    rows by (d2, index), the database streamed in chunks: the plain
+    version of the knn_lambda kernel."""
     chunk = max(1024, _REF_CHUNK_ELEMS // max(1, xq.shape[0]))
     x2 = sq_norm_seq(xq)[:, None]
     d2_top, idx = knn_topk_scan(xdb, xq, k=k, chunk=chunk,
@@ -103,15 +106,64 @@ def knn_rank_audited_ref(X, X_db, lam_db, u, a, b, gamma, *, k: int,
     return (*rank_audited_ref(u, a, b, lam, gamma, m2, eps, tol), lam)
 
 
+def affine_lambda_ref(X, W, c, relu: bool):
+    """lam_hat = X W^T + c (n, K), the dot over d taken coordinate by
+    coordinate with every product and addition rounded on its own (the
+    kernel's prologue order), then + c, then the clamp at 0 if `relu`."""
+    lam = X[:, 0, None] * W[None, :, 0]
+    for d in range(1, X.shape[1]):
+        lam = lam + X[:, d, None] * W[None, :, d]
+    lam = lam + c
+    return torch.clamp_min(lam, 0.0) if relu else lam
+
+
+def linear_rank_audited_ref(u, a, b, X, W, c, gamma, m2: int,
+                            eps: float = 1e-4, tol: float | None = None,
+                            relu: bool = True):
+    """The affine online stage: lam_hat from affine_lambda_ref with X
+    (n, d), W (K, d), c (K,), then rank_audited_ref. Returns the five
+    rank_audited_ref outputs plus lam (n, K)."""
+    lam = affine_lambda_ref(X, W, c, relu)
+    return (*rank_audited_ref(u, a, b, lam, gamma, m2, eps, tol), lam)
+
+
+def affine_params(predictor, d: int, K: int):
+    """(W (K, d), c (K,), relu) of an affine predictor, zero-padded to K
+    constraint rows so padded rows get lam_hat = 0: the linear family
+    as it is (relu on), the mean family as W = 0, c = mean_lam (relu
+    off, so a negative mean stays negative)."""
+    if isinstance(predictor, LinearLambdaPredictor):
+        W, c, relu = predictor.W, predictor.c, True
+        if W.shape[1] != d:
+            raise ValueError(f"predictor takes d={W.shape[1]} covariates, "
+                             f"X carries {d}")
+    elif isinstance(predictor, MeanLambdaPredictor):
+        c, relu = predictor.mean_lam, False
+        W = torch.zeros((c.shape[0], d), dtype=torch.float32,
+                        device=c.device)
+    else:
+        raise TypeError(f"{type(predictor).__name__} is not affine")
+    check_pred_width(W.shape[0], K)
+    pad = K - W.shape[0]
+    W = torch.nn.functional.pad(W.to(torch.float32), (0, 0, 0, pad))
+    c = torch.nn.functional.pad(c.to(torch.float32), (0, pad))
+    return W.contiguous(), c.contiguous(), relu
+
+
 def predict_rank_audited_ref(X, predictor, u, a, b, gamma, m2: int,
                              eps: float = 1e-4, tol: float | None = None):
-    """Predict-then-rank+audit. The KNN family is the one ported; its
-    lambda-hat comes from the plain version of the kernel's arithmetic.
-    Returns (vals, idx, utility, exposure, compliant, lam)."""
-    if not isinstance(predictor, KNNLambdaPredictor):
-        raise NotImplementedError(
-            f"{type(predictor).__name__}: only the KNN predictor is ported "
-            f"(ROADMAP Queue 1 item 3)")
-    return knn_rank_audited_ref(X, predictor.X_db, predictor.lam_db, u, a,
-                                b, gamma, k=predictor.k, m2=m2, eps=eps,
-                                tol=tol)
+    """Predict-then-rank+audit for the ported families, each lambda-hat
+    from the plain version of its kernel's arithmetic (mean and linear:
+    the affine prologue; KNN: the sweep's order). Returns (vals, idx,
+    utility, exposure, compliant, lam)."""
+    if isinstance(predictor, KNNLambdaPredictor):
+        return knn_rank_audited_ref(X, predictor.X_db, predictor.lam_db, u,
+                                    a, b, gamma, k=predictor.k, m2=m2,
+                                    eps=eps, tol=tol)
+    if isinstance(predictor, (LinearLambdaPredictor, MeanLambdaPredictor)):
+        W, c, relu = affine_params(predictor, X.shape[1], a.shape[1])
+        return linear_rank_audited_ref(u, a, b, X, W, c, gamma, m2, eps,
+                                       tol, relu)
+    raise NotImplementedError(
+        f"{type(predictor).__name__}: only the mean, linear and KNN "
+        f"families are ported (the MLP is ROADMAP Queue 1 item 3)")

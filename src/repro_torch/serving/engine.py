@@ -5,10 +5,13 @@ Each RankRequest is routed to a shape Bucket and queued; a queue flushes
 at the bucket's capacity, when its oldest request has waited
 max_wait_ms (`poll`), or on `drain`. A flush packs the batch into the
 bucket's host staging arrays, copies them to the device, and makes ONE
-dispatcher call, kernels.ops.predict_rank_audited, whose route the
-bucket's tag fixes: the rank+audit kernel for lambda-carrying requests,
-the KNN kernel for a registered KNN predictor. The batch's outputs come
-home in one copy per output and the futures resolve inline.
+dispatcher call into kernels.ops, whose route the bucket's tag fixes:
+the rank+audit kernel for lambda-carrying requests, the KNN kernel for
+a registered KNN predictor, the affine kernel (`linear_rank_audited`)
+for a mean or linear predictor, whose W and c the engine pads to the
+bucket's K once, when the bucket's staging is allocated. The batch's
+outputs come home in one copy per output and the futures resolve
+inline.
 
 Not in this slice: the async pipeline worker, admission control, the
 adaptive lattice, lambda refresh and predictor swaps, the replica fleet
@@ -24,10 +27,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.predictors import KNNLambdaPredictor
+from repro_torch.core.predictors import LinearLambdaPredictor
 from repro_torch.core.ranking import RankingOutput
 from repro_torch.device import resolve_device
-from repro_torch.kernels import build, ops
+from repro_torch.kernels import build, ops, ref
 from repro_torch.serving.buckets import (
     Bucket,
     alloc_staging,
@@ -93,7 +96,9 @@ class ServingEngine:
         self.eps = float(eps)
         self.clock = clock
         self.metrics = EngineMetrics()
-        self._predictors: dict[str, KNNLambdaPredictor] = {}
+        self._predictors: dict = {}
+        self._d_cov: dict[str, int] = {}
+        self._affine: dict[Bucket, tuple] = {}
         self._queues: dict[Bucket, list] = {}
         self._staging: dict[Bucket, dict] = {}
         self._launches: dict[Bucket, int] = {}
@@ -103,20 +108,27 @@ class ServingEngine:
 
     # -- predictors ---------------------------------------------------------
 
-    def register_predictor(self, tag: str, predictor: KNNLambdaPredictor,
-                           *, d_cov: int) -> None:
-        """Attach a fitted KNN predictor under `tag`. Its tensors move to
-        the engine's device once, here, and stay there."""
+    def register_predictor(self, tag: str, predictor, *, d_cov: int) -> None:
+        """Attach a fitted KNN, linear or mean predictor under `tag`. Its
+        tensors move to the engine's device once, here, and stay there;
+        it prices `predictor.num_constraints` constraints."""
         if tag == LAM_TAG:
             raise ValueError(f"{LAM_TAG!r} is reserved for raw-lam requests")
-        if not isinstance(predictor, KNNLambdaPredictor):
-            raise ops.unported(predictor)
-        if predictor.X_db.shape[1] != d_cov:
-            raise ValueError(f"predictor takes d={predictor.X_db.shape[1]} "
-                             f"covariates, not d_cov={d_cov}")
+        if predictor is None:
+            raise ValueError("register_predictor needs a fitted predictor")
+        if ops.route_of(predictor) == "knn":   # raises for an unported one
+            d_pred = predictor.X_db.shape[1]
+        elif isinstance(predictor, LinearLambdaPredictor):
+            d_pred = predictor.W.shape[1]
+        else:
+            d_pred = d_cov          # the mean family ignores covariates
+        if d_pred != d_cov:
+            raise ValueError(f"predictor takes d={d_pred} covariates, not "
+                             f"d_cov={d_cov}")
         if predictor.device != self.device:
             predictor = predictor.to(self.device)
         self._predictors[tag] = predictor
+        self._d_cov[tag] = int(d_cov)
 
     # -- bucketing ----------------------------------------------------------
 
@@ -135,19 +147,21 @@ class ServingEngine:
         return bucket_for(m1=req.u.shape[0], m2=req.m2, K=K, tag=tag,
                           batch=self.max_batch)
 
-    def _dcov(self, bucket: Bucket) -> int | None:
-        if bucket.tag == LAM_TAG:
-            return None
-        return int(self._predictors[bucket.tag].X_db.shape[1])
-
     def _staging_for(self, bucket: Bucket) -> dict:
+        """The bucket's host staging arrays, allocated on first use, with
+        the bucket's launch count and, for an affine predictor, its W and
+        c padded to the bucket's K (on the engine's device, where the
+        predictor lies)."""
         staged = self._staging.get(bucket)
         if staged is None:
             staged = self._staging[bucket] = alloc_staging(
-                bucket, d_cov=self._dcov(bucket))
+                bucket, d_cov=self._d_cov.get(bucket.tag))
             predictor = self._predictors.get(bucket.tag)
             self._launches[bucket] = ops.kernel_launch_count(
                 predictor, bucket.m2, device=self.device)
+            if ops.route_of(predictor) == "affine":
+                self._affine[bucket] = ref.affine_params(
+                    predictor, self._d_cov[bucket.tag], bucket.K)
         return staged
 
     def _call(self, bucket: Bucket, staged: dict) -> RankingOutput:
@@ -162,7 +176,8 @@ class ServingEngine:
             X, predictor = t["X"], self._predictors[bucket.tag]
         return ops.predict_rank_audited(
             X, predictor, t["u"], t["a"], t["b"], t["gamma"],
-            m2=bucket.m2, eps=self.eps, device=dev)
+            m2=bucket.m2, eps=self.eps, affine=self._affine.get(bucket),
+            device=dev)
 
     def warmup(self, sample) -> dict:
         """Build the kernels and run one phantom batch per bucket that

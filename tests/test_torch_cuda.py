@@ -14,8 +14,11 @@ import pytest
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.fused_rank import rank_audited_cuda
-from repro_torch.kernels.knn_topk import knn_rank_audited_cuda
+from repro_torch.kernels.fused_rank import (
+    linear_rank_audited_cuda,
+    rank_audited_cuda,
+)
+from repro_torch.kernels.knn_topk import knn_lambda_cuda, knn_rank_audited_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -62,3 +65,45 @@ def test_knn_rank_audited_kernel_equals_plain(card, n_db, K_pred):
     for gt, w in zip(got, ref.knn_rank_audited_ref(*args, k=10, m2=64)):
         assert torch.equal(gt, w)
     assert torch.equal(got[5][3, :K_pred], lam_db[n_db - 1])
+
+
+def _t(x, dev):
+    return torch.tensor(np.ascontiguousarray(x), dtype=torch.float32,
+                        device=dev)
+
+
+@pytest.mark.parametrize("n,m1,K,m2,d,relu", [
+    (32, 1024, 8, 64, 20, True), (32, 1024, 8, 64, 20, False),
+    (5, 700, 5, 50, 1, True), (16, 5000, 8, 128, 10, False),
+    (3, 64, 1, 1, 300, True)])
+def test_linear_rank_audited_kernel_equals_plain(card, n, m1, K, m2, d,
+                                                 relu):
+    rng = np.random.default_rng(m1 + d)
+    u, a, b, _, g = _rank(rng, n, m1, K, m2, card)
+    X = _t(rng.normal(size=(n, d)), card)
+    X[n - 1] = 0.0                               # a phantom row
+    W = _t(rng.normal(size=(K, d)) * 0.3, card)
+    c = _t(rng.normal(size=(K,)) * 0.5, card)
+    args = (u, a, b, X, W, c, g)
+    got = linear_rank_audited_cuda(*args, m2=m2, relu=relu)
+    for gt, w in zip(got, ref.linear_rank_audited_ref(*args, m2,
+                                                      relu=relu)):
+        assert torch.equal(gt, w)
+    assert (got[5] < 0).any() != relu
+
+
+@pytest.mark.parametrize("n_db,K_pred,B", [(5001, 5, 32), (600, 8, 7),
+                                           (70000, 5, 40)])
+def test_knn_lambda_kernel_equals_plain_and_the_fused_kernel(card, n_db,
+                                                             K_pred, B):
+    rng = np.random.default_rng(n_db)
+    X_db = _t(rng.normal(size=(n_db, 20)), card)
+    lam_db = _t(np.abs(rng.normal(size=(n_db, K_pred))), card)
+    X = _t(rng.normal(size=(B, 20)), card)
+    X[3] = X_db[n_db - 1]                        # an exact match
+    got = knn_lambda_cuda(X, X_db, lam_db, k=10)
+    assert torch.equal(got, ref.knn_lambda_ref(X, X_db, lam_db, 10))
+    assert torch.equal(got[3], lam_db[n_db - 1])
+    u, a, b, _, g = _rank(rng, B, 1024, 8, 64, card)
+    fused = knn_rank_audited_cuda(X, X_db, lam_db, u, a, b, g, k=10, m2=64)
+    assert torch.equal(fused[5][:, :K_pred], got)

@@ -1,8 +1,8 @@
 """The port's serving engine against repro.serving.ServingEngine on the
-same mixed stream of lambda-given and KNN requests, both under a frozen
-clock (batch composition is then a pure function of the stream). The
-JAX engine runs executor='xla' (the use_kernel=False route) at
-pipeline_depth=0.
+same mixed streams of lambda-given, KNN, linear and mean requests, both
+under a frozen clock (batch composition is then a pure function of the
+stream). The JAX engine runs executor='xla' (the use_kernel=False
+route) at pipeline_depth=0.
 
 Per request: perm and compliant match exactly; utility and exposure
 within rtol=1e-5, atol=1e-5.
@@ -14,6 +14,8 @@ import pytest
 
 from conftest import FrozenClock
 from repro.core.predictors import KNNLambdaPredictor as JaxKNN
+from repro.core.predictors import LinearLambdaPredictor as JaxLinear
+from repro.core.predictors import MeanLambdaPredictor as JaxMean
 from repro.core.predictors import predictor_state
 from repro.serving import RankRequest as JaxRequest
 from repro.serving import ServingEngine as JaxEngine
@@ -25,15 +27,17 @@ RTOL, ATOL = 1e-5, 1e-5
 D, K_PRED = 20, 5
 
 
-def _stream(seed, n_requests):
-    """Mixed stream: lambda-given requests (K=5, m2=50) and KNN requests
-    (K=5 or 3, m2=50 or 8), m1 jittered; returns request kwargs."""
+def _stream(seed, n_requests, kinds=3):
+    """Mixed stream: lambda-given requests (kind 0: K=5, m2=50), KNN
+    requests (kind 1: K=5, m2=50; kind 2: K=3, m2=8) and, with kinds=5,
+    linear (kind 3: K=5, m2=50) and mean (kind 4: K=3, m2=8) requests,
+    m1 jittered; returns request kwargs."""
     rng = np.random.default_rng(seed)
     out = []
     for rid in range(n_requests):
-        kind = rng.integers(0, 3)
-        m2 = 8 if kind == 2 else 50
-        K = 3 if kind == 2 else 5
+        kind = rng.integers(0, kinds)
+        m2 = 8 if kind in (2, 4) else 50
+        K = 3 if kind in (2, 4) else 5
         m1 = int(rng.integers(max(m2, 200), 513))
         gamma = (1.0 / np.log2(np.arange(2, m2 + 2))).astype(np.float32)
         kw = dict(rid=rid, m2=m2, gamma=gamma,
@@ -44,7 +48,7 @@ def _stream(seed, n_requests):
             kw["lam"] = rng.exponential(0.5, K).astype(np.float32)
         else:
             kw["X"] = rng.normal(size=D).astype(np.float32)
-            kw["tag"] = "knn"
+            kw["tag"] = {1: "knn", 2: "knn", 3: "linear", 4: "mean"}[kind]
         out.append(kw)
     return out
 
@@ -56,27 +60,38 @@ def _knn(seed=3, n_db=400):
                                   jnp.float32), k=10)
 
 
-def _serve_both(stream, max_batch):
+def _jax_predictors():
+    """KNN over a 400-row db; linear fitted on it, shifted so that some
+    predictions clamp; mean fitted on it shifted below 0 on some
+    constraints (a negative price the mean route must keep)."""
     jknn = _knn()
+    return {"knn": jknn,
+            "linear": JaxLinear.fit(jknn.X_db, jknn.lam_db - 0.8),
+            "mean": JaxMean.fit(jknn.X_db,
+                                jknn.lam_db - jnp.asarray([0.9, 0.0, 0.0,
+                                                           0.0, 0.0]))}
+
+
+def _serve_both(stream, max_batch, tags=("knn",)):
+    jpreds = {t: p for t, p in _jax_predictors().items() if t in tags}
     jeng = JaxEngine(max_batch=max_batch, max_wait_ms=1e9, executor="xla",
                      pipeline_depth=0, clock=FrozenClock())
-    jeng.register_predictor("knn", jknn, d_cov=D)
+    for tag, jp in jpreds.items():
+        jeng.register_predictor(tag, jp, d_cov=D)
     want = {r.rid: r for r in jeng.serve_stream(
         [JaxRequest(**kw) for kw in stream])}
     eng = ServingEngine(max_batch=max_batch, max_wait_ms=1e9,
                         clock=FrozenClock(), device="cpu")
-    state = {f: np.asarray(v) for f, v in predictor_state(jknn).items()}
-    eng.register_predictor("knn", from_numpy(state, k=10, device="cpu"),
-                           d_cov=D)
+    for tag, jp in jpreds.items():
+        state = {f: np.asarray(v) for f, v in predictor_state(jp).items()}
+        eng.register_predictor(tag, from_numpy(state, k=10, device="cpu"),
+                               d_cov=D)
     got = {r.rid: r for r in eng.serve_stream(
         [RankRequest(**kw) for kw in stream])}
     return eng, got, want
 
 
-@pytest.mark.parametrize("max_batch,n_requests", [(8, 29), (4, 16)])
-def test_engine_matches_jax_engine_on_a_mixed_stream(max_batch, n_requests):
-    stream = _stream(max_batch, n_requests)
-    eng, got, want = _serve_both(stream, max_batch)
+def _assert_streams_match(got, want, n_requests):
     assert sorted(got) == sorted(want) == list(range(n_requests))
     for rid, w in want.items():
         g = got[rid]
@@ -87,12 +102,40 @@ def test_engine_matches_jax_engine_on_a_mixed_stream(max_batch, n_requests):
         np.testing.assert_allclose(g.exposure, w.exposure, rtol=RTOL,
                                    atol=ATOL)
         assert g.bucket == w.bucket
+
+
+@pytest.mark.parametrize("max_batch,n_requests", [(8, 29), (4, 16)])
+def test_engine_matches_jax_engine_on_a_mixed_stream(max_batch, n_requests):
+    stream = _stream(max_batch, n_requests)
+    eng, got, want = _serve_both(stream, max_batch)
+    _assert_streams_match(got, want, n_requests)
     m = eng.metrics
     assert m.results == m.requests == n_requests
     assert m.executable_calls == m.batches
     assert m.kernel_launches == 0              # the CPU runs the plain path
     assert m.drain_flushes >= 1 and m.capacity_flushes >= 1
     assert 0.0 < m.summary()["compliance"] <= 1.0
+
+
+@pytest.mark.parametrize("max_batch,n_requests", [(8, 41), (4, 23)])
+def test_engine_matches_jax_engine_on_a_four_route_stream(max_batch,
+                                                          n_requests):
+    """KNN, linear, mean and lambda-given requests in one stream."""
+    stream = _stream(100 + max_batch, n_requests, kinds=5)
+    assert {kw.get("tag", "_lam") for kw in stream} == {
+        "_lam", "knn", "linear", "mean"}
+    eng, got, want = _serve_both(stream, max_batch,
+                                 tags=("knn", "linear", "mean"))
+    _assert_streams_match(got, want, n_requests)
+    assert eng.metrics.kernel_launches == 0     # the CPU runs the plain path
+    affine = {b for b in eng._staging if b.tag in ("linear", "mean")}
+    assert set(eng._affine) == affine and affine
+    for bucket, (W, c, relu) in eng._affine.items():
+        assert W.shape[0] == c.shape[0] == bucket.K
+        assert relu == (bucket.tag == "linear")
+    held = {b: W for b, (W, _, _) in eng._affine.items()}
+    eng.serve_stream([RankRequest(**kw) for kw in stream])
+    assert all(eng._affine[b][0] is W for b, W in held.items())
 
 
 def test_bucket_geometry_pads_the_serve_online_cell():

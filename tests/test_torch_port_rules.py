@@ -5,14 +5,26 @@ CPU, and kernel_launch_count reports each route's launches."""
 import ast
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.predictors import KNNLambdaPredictor, from_numpy
+from repro.core.predictors import MLPLambdaPredictor as JaxMLP
+from repro_torch.core import ranking
+from repro_torch.core.constraints import make_constraints
+from repro_torch.core.predictors import (
+    KNNLambdaPredictor,
+    LinearLambdaPredictor,
+    MeanLambdaPredictor,
+    from_numpy,
+)
 from repro_torch.kernels import ops
-from repro_torch.kernels.fused_rank import rank_audited_cuda
-from repro_torch.kernels.knn_topk import knn_rank_audited_cuda
+from repro_torch.kernels.fused_rank import (
+    linear_rank_audited_cuda,
+    rank_audited_cuda,
+)
+from repro_torch.kernels.knn_topk import knn_lambda_cuda, knn_rank_audited_cuda
 from repro_torch.serving.engine import ServingEngine
 
 REPO = Path(__file__).resolve().parent.parent
@@ -46,12 +58,28 @@ def _small():
     return {k: torch.tensor(v, dtype=torch.float32) for k, v in t.items()}
 
 
+def _families(t):
+    return {"knn": KNNLambdaPredictor.fit(t["X_db"], t["lam_db"], k=5,
+                                          device="cpu"),
+            "linear": LinearLambdaPredictor.fit(t["X_db"], t["lam_db"],
+                                                device="cpu"),
+            "mean": MeanLambdaPredictor.fit(t["X_db"], t["lam_db"],
+                                            device="cpu")}
+
+
 def _default_device_calls():
     t = _small()
-    knn = KNNLambdaPredictor.fit(t["X_db"], t["lam_db"], k=5, device="cpu")
+    fam = _families(t)
+    knn = fam["knn"]
     rank = (t["u"], t["a"], t["b"], t["lam"], t["gamma"])
     knn_args = (t["X"], t["X_db"], t["lam_db"], t["u"], t["a"], t["b"],
                 t["gamma"])
+    W, c = fam["linear"].W, fam["linear"].c
+    linear_args = (t["u"], t["a"], t["b"], t["X"], W, c, t["gamma"])
+    train = (t["X"], t["u"], t["a"], t["b"][0], t["gamma"][0])
+    pipe = ranking.fit_pipeline(*train, m2=8, num_iters=2, knn_k=1,
+                                device="cpu")
+    hold = (t["X"], t["u"], t["a"], t["b"][0])
     return {
         "ServingEngine": lambda: ServingEngine(),
         "ops.predict_rank_audited": lambda: ops.predict_rank_audited(
@@ -68,6 +96,38 @@ def _default_device_calls():
             t["X_db"], t["lam_db"]),
         "from_numpy": lambda: from_numpy(
             {"X_db": np.ones((20, 4)), "lam_db": np.ones((20, 3))}, k=5),
+        "from_numpy(linear)": lambda: from_numpy(
+            {"W": np.ones((3, 4)), "c": np.ones(3)}),
+        "from_numpy(mean)": lambda: from_numpy({"mean_lam": np.ones(3)}),
+        "LinearLambdaPredictor.fit": lambda: LinearLambdaPredictor.fit(
+            t["X_db"], t["lam_db"]),
+        "MeanLambdaPredictor.fit": lambda: MeanLambdaPredictor.fit(
+            t["X_db"], t["lam_db"]),
+        "linear_rank_audited_cuda": lambda: linear_rank_audited_cuda(
+            *linear_args, m2=8),
+        "knn_lambda_cuda": lambda: knn_lambda_cuda(
+            t["X"], t["X_db"], t["lam_db"], k=5),
+        "ops.knn_lambda": lambda: ops.knn_lambda(
+            t["X"], t["X_db"], t["lam_db"], k=5),
+        "ops.linear_rank_audited": lambda: ops.linear_rank_audited(
+            t["X"], W, c, t["u"], t["a"], t["b"], t["gamma"], relu=True,
+            m2=8),
+        "ops.predict_rank_audited(linear)": lambda: ops.predict_rank_audited(
+            t["X"], fam["linear"], t["u"], t["a"], t["b"], t["gamma"],
+            m2=8),
+        "ops.predict_rank_audited(knn_chain)":
+            lambda: ops.predict_rank_audited(
+                t["X"], knn, t["u"], t["a"], t["b"], t["gamma"], m2=8,
+                knn_chain=True),
+        "make_constraints": lambda: make_constraints(
+            [np.ones(4)], [1.0], [1.0]),
+        "offline_solve": lambda: ranking.offline_solve(
+            *train[1:], m2=8, num_iters=2),
+        "fit_pipeline": lambda: ranking.fit_pipeline(
+            *train, m2=8, num_iters=2, knn_k=1),
+        "serve": lambda: ranking.serve(pipe, *hold, predictor="linear"),
+        "rank_with_strategy": lambda: ranking.rank_with_strategy(
+            pipe, "none", *hold),
     }
 
 
@@ -80,14 +140,35 @@ def test_default_device_raises_without_cuda(name):
 
 
 def test_kernel_launch_count_by_route():
-    t = _small()
-    knn = KNNLambdaPredictor.fit(t["X_db"], t["lam_db"], k=5, device="cpu")
+    """Launches per micro-batch on an assumed card: lambda given 1,
+    linear 1, mean 1, KNN 2, the KNN chain 3 (knn_lambda's two, then
+    rank_audited); 0 where the plain path runs."""
+    fam = _families(_small())
+    knn = fam["knn"]
     assert ops.kernel_launch_count(None, 64) == 1
+    assert ops.kernel_launch_count(fam["linear"], 64) == 1
+    assert ops.kernel_launch_count(fam["mean"], 64) == 1
     assert ops.kernel_launch_count(knn, 64) == 2
+    assert ops.kernel_launch_count(knn, 64, knn_chain=True) == 3
     assert ops.kernel_launch_count(None, 128) == 1
     assert ops.kernel_launch_count(None, 129) == 0
     assert ops.kernel_launch_count(knn, 129) == 0
+    assert ops.kernel_launch_count(fam["linear"], 129) == 0
     assert ops.kernel_launch_count(knn, 64, device="cpu") == 0
+    assert ops.kernel_launch_count(fam["mean"], 64, device="cpu") == 0
+
+
+def test_mlp_predictor_raises_not_implemented():
+    t = _small()
+    mlp = JaxMLP.fit(jnp.asarray(t["X_db"].numpy()),
+                     jnp.asarray(t["lam_db"].numpy()), num_steps=2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        ops.kernel_launch_count(mlp, 64)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        ops.predict_rank_audited(t["X"], mlp, t["u"], t["a"], t["b"],
+                                 t["gamma"], m2=8, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        ServingEngine(device="cpu").register_predictor("mlp", mlp, d_cov=4)
 
 
 def test_unported_routes_raise_not_implemented():
