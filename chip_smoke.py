@@ -3,30 +3,41 @@
   python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero before a result is printed):
-  1. build the four CUDA kernels from src/repro_torch/kernels/csrc with
-     nvcc, one process per source, all started together;
+  1. build the six CUDA kernels from src/repro_torch/kernels/csrc with
+     nvcc, one process per source, all started together, and print each
+     one's registers and spills;
   2. hold each kernel against its plain PyTorch version on the card at
      the engine bucket of the paper's serve_online cell (B=32, m1=1024,
      K=8, m2=64, d=20, n_db=1,048,576, k=10; the affine kernel with a
      K_pred=5 predictor padded to K=8), at m2=128 and at a ragged n_db:
      perm and compliant exact, utility/exposure within rtol=1e-5,
-     atol=1e-5, lambda-hat within rtol=1e-5, atol=1e-6; and knn_lambda's
-     lambda-hat bitwise equal to knn_rank_audited's;
+     atol=1e-5, lambda-hat within rtol=1e-5, atol=1e-6; knn_lambda's
+     lambda-hat bitwise equal to knn_rank_audited's. The two quantized
+     kernels likewise, over the int8 and the bf16 pack of the same db,
+     with idx and guard exact and knn_lambda_quant's lambda-hat and
+     guard bitwise knn_rank_audited_quant's; on a db the int8 pack holds
+     exactly (the 0.5 grid, 63.5 in every slab) the quantized outputs
+     equal knn_rank_audited's bitwise and an exact-match query returns
+     its row's lambda; the share of rows whose guard fired is logged;
   O. the offline stage at the paper-ranking offline_dual width: a
      MovieLens-like problem (Table 1a constraints, 8192 train users,
      m1=1024, K=5, m2=50, d=20) through fit_pipeline (300 dual
      iterations) on the card, then the Fig. 2 strategies on 8192
-     holdout users through the kernels (backend="kernel") and the
-     knn_chain route, each batch's perm held against its plain version;
-  3. serve 192 KNN, 64 linear, 64 mean and 64 lambda-given requests at
-     serve_online widths (m1 jittered in 512-1024) through
-     ServingEngine(device="cuda"), check every result against the plain
-     version on the same padded batch, and check that each wrapper's
-     launch counter equals the batches of its route times the route's
-     launches;
-  4. time the four kernels (CUDA events, medians) at the bucket shape and
-     at a large batch, beside the plain version, a library yardstick
-     that only this script calls, and the card's bound.
+     holdout users through the kernels (backend="kernel"), the knn_chain
+     route, and the fitted KNN predictor quantized to int8 and to bf16
+     (fused and chain), each batch's perm held against its plain version;
+  3. serve 192 KNN, 64 int8 KNN, 32 bf16 KNN, 64 linear, 64 mean and 64
+     lambda-given requests at serve_online widths (m1 jittered in
+     512-1024) through ServingEngine(device="cuda"), check every result
+     against the plain version on the same padded batch, and check that
+     each wrapper's launch counter equals the batches of its route times
+     the route's launches;
+  4. time the six kernels (CUDA events, medians) at the bucket shape and
+     at a large batch (the quantized ones in both modes), beside the
+     plain version, a library yardstick that only this script calls,
+     and the card's bound; then split each KNN lambda-hat kernel's
+     device time at the bucket between its sweep and its merge
+     (torch.profiler).
 The launch counters are set to 0 just before the offline phase's
 holdout path and the serving path and read just after each.
 Prints the kernel table as one JSON line, the card's name and power
@@ -48,6 +59,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+DOT_OP_PER_S = {"int8": 1979e12, "bf16": 989e12}  # dense tensor-core peaks
 D, K_PRED, KNN_K, EPS = 20, 5, 10, 1e-4
 N_DB = 1_048_576
 BUCKET = dict(B=32, m1=1024, K=8, m2=64)
@@ -57,7 +69,11 @@ OFFLINE = dict(n=8192, m1=1024, K=5, m2=50, iters=300, n_items=4096)
 TOL = dict(rtol=1e-5, atol=1e-5)
 LAM_TOL = dict(rtol=1e-5, atol=1e-6)
 KERNELS = ("rank_audited", "knn_rank_audited", "linear_rank_audited",
-           "knn_lambda")
+           "knn_lambda", "knn_lambda_quant", "knn_rank_audited_quant")
+MODES = ("int8", "bf16")
+QUANT_EXTRA = 8
+SERVE_MIX = {"knn": 192, "knn_int8": 64, "knn_bf16": 32, "linear": 64,
+             "mean": 64, "_lam": 64}
 
 
 def fail(msg: str):
@@ -140,6 +156,29 @@ def time_ms(fn, reps, groups=5):
     return float(np.median(times))
 
 
+def device_split(fns, reps=5):
+    """ms per call of each kernel that each function launches, by kernel
+    name, from torch.profiler's device times; the reason instead where
+    the profiler gives none."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for label, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            out[label] = {
+                ev.key.split("(")[0].replace("void ", ""):
+                    ev.device_time_total / 1e3 / reps
+                for ev in prof.key_averages() if ev.device_time_total > 0}
+        except (RuntimeError, AssertionError) as exc:
+            out[label] = f"not measured: {str(exc)[:120]}"
+    return out
+
+
 def rank_work(B, m1, K, m2):
     """(bytes, fp32 flops) of rank+audit: inputs read once, outputs
     written once; the score axpy and the audit sums."""
@@ -171,9 +210,35 @@ def knn_work(B, n_db, m1, K, m2):
     return rb + sb + 4 * B * (K - K_PRED), rf + sf
 
 
-def bound(nbytes, flops):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound(nbytes, flops, dot_ops=0, mode="int8"):
+    """The least time in ms for the work and what bounds it: bytes at the
+    memory rate against operations, fp32 flops at the fp32 rate plus
+    `dot_ops` of a quantized dot at the tensor-core peak of `mode`."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_f = flops / FP32_FLOP_PER_S + dot_ops / DOT_OP_PER_S[mode]
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def quant_sweep_work(B, n_db, mode):
+    """(bytes, fp32 flops, dot ops) of the quantized KNN predictor: the
+    pack (1 or 2 bytes a coordinate, 4 for each row's y2, 4 for each
+    slab's scale) and the queries read once, the k winners' lambda rows
+    read, lambda-hat and the guard written; the dot's 2d operations a
+    (query, row) pair, and its fp32 epilogue, 5 operations a pair in
+    int8 (scale product, scaling, subtract, add, clamp) and 4 in bf16."""
+    n_pad = -(-n_db // 512) * 512
+    width = 1 if mode == "int8" else 2
+    nbytes = (n_pad * D * width + 4 * n_pad + 4 * (n_pad // 512)
+              + 4 * (B * D + B * KNN_K * K_PRED + B * K_PRED + B))
+    return (nbytes, B * n_pad * (5 if mode == "int8" else 4),
+            2 * B * n_pad * D)
+
+
+def quant_knn_work(B, n_db, m1, K, m2, mode):
+    """The quantized KNN stage: the quantized sweep, then rank+audit."""
+    rb, rf = rank_work(B, m1, K, m2)
+    sb, sf, dot = quant_sweep_work(B, n_db, mode)
+    return rb + sb + 4 * B * (K - K_PRED), rf + sf, dot
 
 
 def reset_counters(wrappers):
@@ -220,22 +285,27 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this script needs a card")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import ranking
-    from repro_torch.core.predictors import KNNLambdaPredictor
+    from repro_torch.core.predictors import KNNLambdaPredictor, pack_knn_db
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.common import quantize_query
     from repro_torch.kernels.fused_rank import (
         linear_rank_audited_cuda,
         rank_audited_cuda,
     )
     from repro_torch.kernels.knn_topk import (
         knn_lambda_cuda,
+        knn_lambda_quant_cuda,
         knn_rank_audited_cuda,
+        knn_rank_audited_quant_cuda,
     )
     from repro_torch.serving.engine import RankRequest, ServingEngine
 
     wrappers = {"rank_audited": rank_audited_cuda,
                 "knn_rank_audited": knn_rank_audited_cuda,
                 "linear_rank_audited": linear_rank_audited_cuda,
-                "knn_lambda": knn_lambda_cuda}
+                "knn_lambda": knn_lambda_cuda,
+                "knn_lambda_quant": knn_lambda_quant_cuda,
+                "knn_rank_audited_quant": knn_rank_audited_quant_cuda}
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -302,8 +372,77 @@ def main() -> int:
                 if not torch.equal(lam_hat, got[5][:, :K_PRED]):
                     fail(f"knn_lambda n_db={n_db}: lambda-hat differs from "
                          f"knn_rank_audited's")
+    # the quantized kernels over the int8 and bf16 packs of the same db
+    packs = {(mode, n_db): pack_knn_db(X_db[:n_db], mode=mode, device=dev)
+             for mode in MODES for n_db in (N_DB, N_DB - 4093)}
+    guard_share = {}
+    for mm2 in (m2, 128):
+        u, a, b, lam, g = rank_inputs(gen, dev, B, m1, K, mm2)
+        xq = torch.randn((B, D), generator=gen, device=dev)
+        for (mode, n_db), pack in packs.items():
+            ldb = lam_db[:n_db]
+            name = f"knn_rank_audited_quant {mode} m2={mm2} n_db={n_db}"
+            got = knn_rank_audited_quant_cuda(xq, *pack, ldb, u, a, b, g,
+                                              k=KNN_K, mode=mode, m2=mm2,
+                                              eps=EPS)
+            torch.cuda.synchronize()
+            want = ref.knn_rank_audited_quant_ref(
+                xq, *pack, ldb, u, a, b, g, k=KNN_K, mode=mode, m2=mm2,
+                eps=EPS)
+            e = compare(name, got, want, lam_at=5)
+            if not torch.equal(got[6], want[6]):
+                fail(f"{name}: guard differs from the plain version")
+            if mm2 != m2:
+                continue
+            err["knn_rank_audited_quant"] = max(
+                err["knn_rank_audited_quant"], e)
+            lam_hat, guard = knn_lambda_quant_cuda(xq, *pack, ldb, k=KNN_K,
+                                                   mode=mode)
+            torch.cuda.synchronize()
+            plain = want[5][:, :K_PRED]
+            if not torch.allclose(lam_hat, plain, **LAM_TOL) or \
+                    not torch.equal(guard, want[6]):
+                fail(f"knn_lambda_quant {mode} n_db={n_db}: differs from "
+                     f"the plain version")
+            err["knn_lambda_quant"] = max(
+                err["knn_lambda_quant"],
+                float((lam_hat - plain).abs().max()))
+            if not (torch.equal(lam_hat, got[5][:, :K_PRED])
+                    and torch.equal(guard, got[6])):
+                fail(f"knn_lambda_quant {mode} n_db={n_db}: lambda-hat or "
+                     f"guard differs from knn_rank_audited_quant's")
+            if n_db == N_DB:
+                guard_share[mode] = float(guard.float().mean())
+    # a db the int8 pack holds exactly: the 0.5 grid, 63.5 in every slab
+    X_ll = torch.round((torch.rand((N_DB, D), generator=gen, device=dev)
+                        * 126.0 - 63.0) * 2.0) / 2.0
+    X_ll[::512] = 63.5
+    u, a, b, lam, g = rank_inputs(gen, dev, B, m1, K, m2)
+    xq = torch.round(torch.randn((B, D), generator=gen, device=dev)
+                     * 20.0) / 2.0
+    xq[0] = X_ll[N_DB - 1]                       # an exact match
+    want = knn_rank_audited_cuda(xq, X_ll, lam_db, u, a, b, g, k=KNN_K,
+                                 m2=m2, eps=EPS)
+    for mode in MODES:
+        pack = pack_knn_db(X_ll, mode=mode, device=dev)
+        if mode == "int8" and not bool((pack[1] == 0.5).all()):
+            fail("the 0.5-grid db did not pack at scale 0.5")
+        got = knn_rank_audited_quant_cuda(xq, *pack, lam_db, u, a, b, g,
+                                          k=KNN_K, mode=mode, m2=m2, eps=EPS)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got[:6], want)):
+            fail(f"lossless {mode} pack: knn_rank_audited_quant differs from "
+                 f"knn_rank_audited")
+        if not torch.equal(got[5][0, :K_PRED], lam_db[N_DB - 1]):
+            fail(f"lossless {mode} pack: exact-match query did not return "
+                 f"its row's lambda")
+    del X_ll
     log(f"phase 2: kernels equal their plain versions, max abs err {err}; "
-        f"knn_lambda's lambda-hat is bitwise knn_rank_audited's")
+        f"knn_lambda's lambda-hat is bitwise knn_rank_audited's, "
+        f"knn_lambda_quant's lambda-hat and guard bitwise "
+        f"knn_rank_audited_quant's; on the lossless pack both modes equal "
+        f"knn_rank_audited bitwise; guard fired on {guard_share} of rows "
+        f"at n_db={N_DB}")
 
     # -- offline phase: fit_pipeline, then the Fig. 2 strategies -----------
     o = OFFLINE
@@ -334,6 +473,17 @@ def main() -> int:
                                      b_off, gamma_off, m2=o["m2"],
                                      eps=pipe.eps, knn_chain=True,
                                      device=dev)
+    # the fitted KNN predictor over its int8 and bf16 pack, fused and chain
+    qchains = {}
+    for mode in MODES:
+        name = f"knn_{mode}"
+        pipe = ranking.with_predictor(
+            pipe, name, pipe.predictors["knn"].quantized(mode, device=dev))
+        fig2[name] = ranking.rank_with_strategy(
+            pipe, name, X_h, u_h, a_h, b_off, backend="kernel", device=dev)
+        qchains[name] = ops.predict_rank_audited(
+            X_h, pipe.predictors[name], u_h, a_h, b_off, gamma_off,
+            m2=o["m2"], eps=pipe.eps, knn_chain=True, device=dev)
     torch.cuda.synchronize()
     offline_launches = read_counters(wrappers)
     for strategy, out in fig2.items():
@@ -349,11 +499,13 @@ def main() -> int:
                out.lam)
         compare(f"offline holdout {strategy}", got, want,
                 lam_at=None if strategy in ("none", "optimal") else 5)
-    if not (torch.equal(chain.perm, fig2["knn"].perm)
-            and torch.equal(chain.lam, fig2["knn"].lam)):
-        fail("offline: the knn_chain route differs from the fused KNN route")
-    expect = {"rank_audited": 3, "linear_rank_audited": 2,
-              "knn_rank_audited": 2, "knn_lambda": 2}
+    for name, out in [("knn", chain)] + list(qchains.items()):
+        if not (torch.equal(out.perm, fig2[name].perm)
+                and torch.equal(out.lam, fig2[name].lam)):
+            fail(f"offline: the {name} chain differs from its fused route")
+    expect = {"rank_audited": 5, "linear_rank_audited": 2,
+              "knn_rank_audited": 2, "knn_lambda": 2,
+              "knn_rank_audited_quant": 4, "knn_lambda_quant": 4}
     if offline_launches != expect:
         fail(f"offline launch counters {offline_launches} != {expect}")
     opt_util = float(fig2["optimal"].utility.mean())
@@ -372,9 +524,11 @@ def main() -> int:
     knn = KNNLambdaPredictor(X_db=X_db, lam_db=lam_db, k=KNN_K)
     predictors = {"knn": knn, "linear": pipe.predictors["linear"],
                   "mean": pipe.predictors["mean"]}
+    for mode in MODES:
+        predictors[f"knn_{mode}"] = knn.quantized(mode, device=dev)
     gamma50 = (1.0 / np.log2(np.arange(2, 52))).astype(np.float32)
-    kinds = rng.permutation(["knn"] * 192 + ["linear"] * 64 + ["mean"] * 64
-                            + ["_lam"] * 64)
+    kinds = rng.permutation([kind for kind, count in SERVE_MIX.items()
+                             for _ in range(count)])
     reqs = []
     for rid, kind in enumerate(kinds):
         mm1 = int(rng.integers(512, 1025))
@@ -417,7 +571,7 @@ def main() -> int:
     by_rid = {r.rid: r for r in results}
     if sorted(by_rid) != list(range(len(reqs))):
         fail(f"served {len(by_rid)} of {len(reqs)} requests")
-    n_batches = {"_lam": 0, "knn": 0, "linear": 0, "mean": 0}
+    n_batches = {tag: 0 for tag in SERVE_MIX}
     for bucket, staged, rids, out in eng.captured:
         n_batches[bucket.tag] += 1
         t = {k: torch.tensor(v, device=dev) for k, v in staged.items()}
@@ -452,12 +606,17 @@ def main() -> int:
               "knn_rank_audited": n_batches["knn"] * per_batch["knn"],
               "linear_rank_audited": n_batches["linear"] * per_batch["linear"]
               + n_batches["mean"] * per_batch["mean"],
-              "knn_lambda": 0}
+              "knn_lambda": 0,
+              "knn_rank_audited_quant":
+                  n_batches["knn_int8"] * per_batch["knn_int8"]
+                  + n_batches["knn_bf16"] * per_batch["knn_bf16"],
+              "knn_lambda_quant": 0}
     if serve_launches != expect or eng.metrics.kernel_launches != sum(
-            expect.values()):
+            expect.values()) or per_batch["knn_int8"] != 2:
         fail(f"launch counters {serve_launches} != batches x route launches "
              f"{expect} (metrics {eng.metrics.kernel_launches})")
-    for name in ("rank_audited", "knn_rank_audited", "linear_rank_audited"):
+    for name in ("rank_audited", "knn_rank_audited", "linear_rank_audited",
+                 "knn_rank_audited_quant"):
         if serve_launches[name] == 0:
             fail(f"{name} never launched on the serving path")
     summary = eng.metrics.summary()
@@ -465,7 +624,7 @@ def main() -> int:
         f"{summary['batches']} batches {n_batches}, buckets "
         f"{warm['buckets']}, launches {serve_launches}, compliance "
         f"{summary['compliance']}, latency_ms {summary['latency_ms']}")
-    del eng, X_all, u_all, a_all, pipe, fig2, chain
+    del eng, X_all, u_all, a_all, pipe, fig2, chain, qchains
 
     # -- phase 4: timing ---------------------------------------------------
     timing = {}
@@ -520,8 +679,71 @@ def main() -> int:
             plain_ms=time_ms(lambda: ref.knn_lambda_ref(xq, X_db, lam_db,
                                                         KNN_K), 1, groups=3),
             library_ms=library_ms, bound_ms=bms, bound_by=by)
+    library = {}
+    for mode in MODES:
+        pack = packs[(mode, N_DB)]
+        n_pad = pack[0].shape[0]
+        if mode == "int8":
+            # the int8 product wants whole 8-byte rows: pad d to 24
+            db8 = torch.zeros((n_pad, 24), dtype=torch.int8, device=dev)
+            db8[:, :D] = pack[0]
+            library[mode] = ("torch._int_mm on the int8 query and db padded "
+                             "to d=24, then torch.topk(k+8)")
+        else:
+            y2b = pack[2][:, 0].to(torch.bfloat16)
+            library[mode] = ("torch.addmm on bf16 operands, then "
+                             "torch.topk(k+8)")
+        for label, Bt in (("bucket", B), ("large", LARGE_KNN_B)):
+            u, a, b, lam, g = rank_inputs(gen, dev, Bt, m1, K, m2)
+            xq = torch.randn((Bt, D), generator=gen, device=dev)
+            reps = 10 if Bt == B else 2
+            if mode == "int8":
+                q8 = torch.zeros((Bt, 24), dtype=torch.int8, device=dev)
+                q8[:, :D] = quantize_query(xq)[0].to(torch.int8)
+                lib_fn = lambda: torch.topk(  # noqa: E731
+                    torch._int_mm(q8, db8.t()), KNN_K + QUANT_EXTRA)
+            else:
+                xb = xq.to(torch.bfloat16)
+                lib_fn = lambda: torch.topk(  # noqa: E731
+                    torch.addmm(y2b, xb, pack[0].T, alpha=-2.0),
+                    KNN_K + QUANT_EXTRA, largest=False)
+            try:
+                library_ms = time_ms(lib_fn, reps)
+            except RuntimeError as exc:        # the reason it would not run
+                library_ms = None
+                library[mode] += f" (did not run: {str(exc)[:160]})"
+            bms, by = bound(*quant_knn_work(Bt, N_DB, m1, K, m2, mode),
+                            mode=mode)
+            timing[("knn_rank_audited_quant", label, mode)] = dict(
+                batch=Bt,
+                ms=time_ms(lambda: knn_rank_audited_quant_cuda(
+                    xq, *pack, lam_db, u, a, b, g, k=KNN_K, mode=mode, m2=m2,
+                    eps=EPS), reps),
+                plain_ms=time_ms(lambda: ref.knn_rank_audited_quant_ref(
+                    xq, *pack, lam_db, u, a, b, g, k=KNN_K, mode=mode, m2=m2,
+                    eps=EPS), 1, groups=3),
+                library_ms=library_ms, bound_ms=bms, bound_by=by)
+            bms, by = bound(*quant_sweep_work(Bt, N_DB, mode), mode=mode)
+            timing[("knn_lambda_quant", label, mode)] = dict(
+                batch=Bt,
+                ms=time_ms(lambda: knn_lambda_quant_cuda(
+                    xq, *pack, lam_db, k=KNN_K, mode=mode), reps),
+                plain_ms=time_ms(lambda: ref.knn_lambda_quant_ref(
+                    xq, *pack, lam_db, KNN_K, mode=mode), 1, groups=3),
+                library_ms=library_ms, bound_ms=bms, bound_by=by)
+        if mode == "int8":
+            del db8
     for key, tm in timing.items():
-        log(f"phase 4: {key[0]} {key[1]} {json.dumps(tm)}")
+        log(f"phase 4: {' '.join(key)} {json.dumps(tm)}")
+    # where a KNN lambda-hat kernel's time goes: the sweep against the merge
+    xq = torch.randn((B, D), generator=gen, device=dev)
+    split = device_split({
+        "f32": lambda: knn_lambda_cuda(xq, X_db, lam_db, k=KNN_K),
+        **{mode: (lambda mode=mode: knn_lambda_quant_cuda(
+            xq, *packs[(mode, N_DB)], lam_db, k=KNN_K, mode=mode))
+           for mode in MODES}})
+    log(f"phase 4: device ms per call by kernel at the bucket "
+        f"{json.dumps(split)}")
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"rank_audited": (csrc + "rank_audited.cu",
@@ -531,18 +753,32 @@ def main() -> int:
                "linear_rank_audited": (csrc + "linear_rank_audited.cu",
                                        "src/repro/kernels/fused_rank.py:384"),
                "knn_lambda": (csrc + "knn_lambda.cu",
-                              "src/repro/kernels/knn_topk.py:253")}
+                              "src/repro/kernels/knn_topk.py:253"),
+               "knn_lambda_quant": (csrc + "knn_lambda_quant.cu",
+                                    "src/repro/kernels/knn_topk.py:426"),
+               "knn_rank_audited_quant": (
+                   csrc + "knn_rank_audited_quant.cu",
+                   "src/repro/kernels/knn_topk.py:731")}
     rows = []
     for name, (source, replaces) in sources.items():
-        main_t = timing[(name, "bucket")]
+        quant = name.endswith("_quant")
+        # a quantized kernel's headline numbers are its int8 mode's
+        main_t = timing[(name, "bucket") + (("int8",) if quant else ())]
         shape = {"batch": B, "m1": m1, "K": K, "m2": m2}
         if name == "linear_rank_audited":
             shape.update(d=D, K_pred=K_PRED)
         elif name == "knn_lambda":
             shape = {"batch": B, "n_db": N_DB, "d": D, "k": KNN_K,
                      "K_pred": K_PRED}
+        elif name == "knn_lambda_quant":
+            shape = {"batch": B, "n_db": N_DB, "d": D, "k": KNN_K,
+                     "k_keep": KNN_K + QUANT_EXTRA, "K_pred": K_PRED,
+                     "mode": "int8"}
         elif name == "knn_rank_audited":
             shape.update(n_db=N_DB, d=D, k=KNN_K)
+        elif name == "knn_rank_audited_quant":
+            shape.update(n_db=N_DB, d=D, k=KNN_K,
+                         k_keep=KNN_K + QUANT_EXTRA, mode="int8")
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -552,8 +788,19 @@ def main() -> int:
             "max_abs_err": err[name], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
             "bound_by": main_t["bound_by"],
-            "library_ms": main_t["library_ms"], "shape": shape,
-            "large": timing[(name, "large")]})
+            "library_ms": main_t["library_ms"], "shape": shape})
+        if quant:
+            rows[-1].update(
+                modes={mode: {label: timing[(name, label, mode)]
+                              for label in ("bucket", "large")}
+                       for mode in MODES},
+                library=library, guard_share_at_n_db=guard_share)
+            if name == "knn_lambda_quant":
+                rows[-1]["split_ms"] = {m: split[m] for m in MODES}
+        else:
+            rows[-1]["large"] = timing[(name, "large")]
+            if name == "knn_lambda":
+                rows[-1]["split_ms"] = split["f32"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

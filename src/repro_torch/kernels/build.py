@@ -20,7 +20,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("rank_audited", "knn_rank_audited", "linear_rank_audited",
-           "knn_lambda")
+           "knn_lambda", "knn_lambda_quant", "knn_rank_audited_quant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -35,6 +35,10 @@ SIGNATURES = {
     "linear_rank_audited": ("linear_rank_audited_launch",
                             [_P] * 13 + [_I] * 7 + [_F, _F, _P]),
     "knn_lambda": ("knn_lambda_launch", [_P] * 6 + [_I] * 8 + [_P]),
+    "knn_lambda_quant": ("knn_lambda_quant_launch",
+                         [_P] * 9 + [_I] * 12 + [_P]),
+    "knn_rank_audited_quant": ("knn_rank_audited_quant_launch",
+                               [_P] * 18 + [_I] * 16 + [_F, _F, _P]),
 }
 
 _lock = threading.Lock()

@@ -26,15 +26,15 @@
 __global__ void __launch_bounds__(knn::kBlock) knn_lambda_kernel(
     const float* __restrict__ xq, const float* __restrict__ xdb,
     const float* __restrict__ lamdb, const float* __restrict__ ws_d2,
-    const int* __restrict__ ws_idx, int D, int k, int Kpred, int n_chunks,
-    float* lam_out) {
+    const int* __restrict__ ws_idx, int N, int D, int k, int Kpred,
+    int n_chunks, float* lam_out) {
   extern __shared__ float smem[];
   __shared__ float nw[knn::kKMax];
   __shared__ int ni[knn::kKMax];
   const size_t row = blockIdx.x;
   knn::merge_idw(xq, xdb, ws_d2, ws_idx, row, D, k, n_chunks, smem, nw, ni);
   for (int t = threadIdx.x; t < Kpred; t += blockDim.x)
-    lam_out[row * Kpred + t] = knn::idw_lam(lamdb, nw, ni, k, Kpred, t);
+    lam_out[row * Kpred + t] = knn::idw_lam(lamdb, nw, ni, k, Kpred, t, N);
 }
 
 // Launches A then B' on `stream`. Returns the first nonzero
@@ -52,7 +52,7 @@ extern "C" int knn_lambda_launch(const void* xq, const void* xdb,
   const size_t smem = (size_t)knn::merge_smem_floats(k) * sizeof(float);
   knn_lambda_kernel<<<B, knn::kBlock, smem, s>>>(
       (const float*)xq, (const float*)xdb, (const float*)lamdb,
-      (const float*)ws_d2, (const int*)ws_idx, D, k, Kpred, n_chunks,
+      (const float*)ws_d2, (const int*)ws_idx, N, D, k, Kpred, n_chunks,
       (float*)lam_out);
   return (int)cudaGetLastError();
 }

@@ -36,7 +36,7 @@ __global__ void __launch_bounds__(rk::kBlock) knn_rank_audited_kernel(
     const float* __restrict__ lamdb, const float* __restrict__ ws_d2,
     const int* __restrict__ ws_idx, const float* __restrict__ u,
     const float* __restrict__ a, const float* __restrict__ b,
-    const float* __restrict__ gamma, int D, int k, int Kpred,
+    const float* __restrict__ gamma, int N, int D, int k, int Kpred,
     int n_chunks, int m1, int K, int m2, int P, float c, float tol,
     float* vals, int* idx, float* util, float* expo, int* comp,
     float* lam_out) {
@@ -50,8 +50,8 @@ __global__ void __launch_bounds__(rk::kBlock) knn_rank_audited_kernel(
   knn::merge_idw(xq, xdb, ws_d2, ws_idx, row, D, k, n_chunks, smem, nw, ni);
   if (tid < K) {
     // bucket-padded constraint rows beyond the predictor's width get 0
-    const float lam = tid < Kpred ? knn::idw_lam(lamdb, nw, ni, k, Kpred, tid)
-                                  : 0.0f;
+    const float lam =
+        tid < Kpred ? knn::idw_lam(lamdb, nw, ni, k, Kpred, tid, N) : 0.0f;
     lam_out[row * K + tid] = lam;
     coef[tid] = __fmul_rn(c, lam);
   }
@@ -81,7 +81,7 @@ extern "C" int knn_rank_audited_launch(
   knn_rank_audited_kernel<<<B, rk::kBlock, smem, s>>>(
       (const float*)xq, (const float*)xdb, (const float*)lamdb,
       (const float*)ws_d2, (const int*)ws_idx, (const float*)u,
-      (const float*)a, (const float*)b, (const float*)gamma, D, k, Kpred,
+      (const float*)a, (const float*)b, (const float*)gamma, N, D, k, Kpred,
       n_chunks, m1, K, m2, P, c, tol, (float*)vals, (int*)idx, (float*)util,
       (float*)expo, (int*)comp, (float*)lam_out);
   return (int)cudaGetLastError();

@@ -21,10 +21,14 @@
 //     a (B, n_chunks, k) workspace. The db is never padded: the ragged
 //     last chunk is masked here.
 //   merge_idw, one block per query: merges the partial lists (ties to
-//     the lowest global index), reads the k winners' |x|^2 and applies
-//     _idw_lambda's weights with the exact-match override
-//     (d2 <= 1e-6 (|q|^2 + |x|^2 + 1e-12)); idw_lam then forms one
-//     column of lambda-hat from the winners' lambda rows.
+//     the lowest global index, merge_lists), reads the k winners' |x|^2
+//     and applies _idw_lambda's weights with the exact-match override
+//     (d2 <= 1e-6 (|q|^2 + |x|^2 + 1e-12), idw_weights); idw_lam then
+//     forms one column of lambda-hat from the winners' lambda rows.
+//
+// The register lists are templated on their length, so the quantized
+// sweep (knn_quant_sweep.cuh) keeps its k + 8 survivors with the same
+// code, and merge_lists, idw_weights and idw_lam serve both sweeps.
 #pragma once
 
 #include <climits>
@@ -44,14 +48,14 @@ __device__ __forceinline__ bool nearer(float da, int ia, float db, int ib) {
   return da < db || (da == db && ia < ib);
 }
 
-// Insert (d, id) into the sorted register list (bd, bi) of length k and
-// refresh the list's last entry (wd, wi). Loops unroll over kKMax so the
-// list stays in registers.
-__device__ __forceinline__ void insert(float (&bd)[kKMax], int (&bi)[kKMax],
-                                       int k, float d, int id, float& wd,
-                                       int& wi) {
+// Insert (d, id) into the sorted register list (bd, bi) of length k <= KM
+// and refresh the list's last entry (wd, wi). Loops unroll over KM so
+// the list stays in registers.
+template <int KM>
+__device__ __forceinline__ void insert(float (&bd)[KM], int (&bi)[KM], int k,
+                                       float d, int id, float& wd, int& wi) {
 #pragma unroll
-  for (int j = 0; j < kKMax; ++j) {
+  for (int j = 0; j < KM; ++j) {
     if (j < k && nearer(d, id, bd[j], bi[j])) {
       const float td = bd[j];
       const int ti = bi[j];
@@ -60,15 +64,15 @@ __device__ __forceinline__ void insert(float (&bd)[kKMax], int (&bi)[kKMax],
     }
   }
 #pragma unroll
-  for (int j = 0; j < kKMax; ++j)
+  for (int j = 0; j < KM; ++j)
     if (j == k - 1) { wd = bd[j]; wi = bi[j]; }
 }
 
-__device__ __forceinline__ void init_list(float (&bd)[kKMax],
-                                          int (&bi)[kKMax], float& wd,
-                                          int& wi) {
+template <int KM>
+__device__ __forceinline__ void init_list(float (&bd)[KM], int (&bi)[KM],
+                                          float& wd, int& wi) {
 #pragma unroll
-  for (int j = 0; j < kKMax; ++j) { bd[j] = INFINITY; bi[j] = INT_MAX; }
+  for (int j = 0; j < KM; ++j) { bd[j] = INFINITY; bi[j] = INT_MAX; }
   wd = INFINITY;
   wi = INT_MAX;
 }
@@ -176,28 +180,25 @@ inline int launch_chunk_topk(const float* xq, const float* xdb, int B,
   return (int)cudaGetLastError();
 }
 
-// Floats of dynamic shared memory merge_idw needs.
+// Floats of dynamic shared memory merge_lists needs for lists of length
+// k (merge_idw: k; the quantized merge: its k + 8 survivors).
 __host__ __device__ inline int merge_smem_floats(int k) {
   return kBlock * k * 2;
 }
 
-// One query's merge + weighting, with the whole block: folds the
-// row's n_chunks partial lists into the k nearest (tree merge in `smem`,
-// merge_smem_floats(k) floats), then writes the k normalised weights to
-// nw and the neighbours' indices to ni (shared, kKMax each). Ends synced.
-__device__ inline void merge_idw(const float* __restrict__ xq,
-                                 const float* __restrict__ xdb,
-                                 const float* __restrict__ ws_d2,
-                                 const int* __restrict__ ws_idx, size_t row,
-                                 int D, int k, int n_chunks, float* smem,
-                                 float* nw, int* ni) {
-  __shared__ float nd[kKMax], ny2[kKMax];
-  __shared__ float x2_s;
+// Folds one query's n_chunks partial lists of length k <= KM (row `row`
+// of the workspace) into its k nearest, with the whole block: each
+// thread folds a strided share into its own register list, then a tree
+// merge in `smem` (merge_smem_floats(k) floats). Writes the k winners,
+// ascending by (d2, index), to od and oi (shared). Ends synced.
+template <int KM>
+__device__ inline void merge_lists(const float* __restrict__ ws_d2,
+                                   const int* __restrict__ ws_idx,
+                                   size_t row, int k, int n_chunks,
+                                   float* smem, float* od, int* oi) {
   const int tid = threadIdx.x;
-
-  // each thread folds a strided share of the partial lists into its own
-  float bd[kKMax];
-  int bi[kKMax];
+  float bd[KM];
+  int bi[KM];
   float wd;
   int wi;
   init_list(bd, bi, wd, wi);
@@ -212,7 +213,7 @@ __device__ inline void merge_idw(const float* __restrict__ xq,
   float* ld = smem;
   int* li = reinterpret_cast<int*>(ld + blockDim.x * k);
 #pragma unroll
-  for (int j = 0; j < kKMax; ++j)
+  for (int j = 0; j < KM; ++j)
     if (j < k) { ld[tid * k + j] = bd[j]; li[tid * k + j] = bi[j]; }
   __syncthreads();
   // tree merge of sorted lists: list t takes list t + half
@@ -220,16 +221,16 @@ __device__ inline void merge_idw(const float* __restrict__ xq,
     if (tid < half) {
       const float* ad = ld + tid * k;
       const int* ai = li + tid * k;
-      const float* od = ld + (tid + half) * k;
-      const int* oi = li + (tid + half) * k;
+      const float* pd = ld + (tid + half) * k;
+      const int* pi = li + (tid + half) * k;
       int p = 0, r = 0;
 #pragma unroll
-      for (int j = 0; j < kKMax; ++j) {
+      for (int j = 0; j < KM; ++j) {
         if (j < k) {
-          if (nearer(ad[p], ai[p], od[r], oi[r])) {
+          if (nearer(ad[p], ai[p], pd[r], pi[r])) {
             bd[j] = ad[p]; bi[j] = ai[p]; ++p;
           } else {
-            bd[j] = od[r]; bi[j] = oi[r]; ++r;
+            bd[j] = pd[r]; bi[j] = pi[r]; ++r;
           }
         }
       }
@@ -237,20 +238,21 @@ __device__ inline void merge_idw(const float* __restrict__ xq,
     __syncthreads();
     if (tid < half) {
 #pragma unroll
-      for (int j = 0; j < kKMax; ++j)
+      for (int j = 0; j < KM; ++j)
         if (j < k) { ld[tid * k + j] = bd[j]; li[tid * k + j] = bi[j]; }
     }
     __syncthreads();
   }
-  if (tid < k) { nd[tid] = ld[tid]; ni[tid] = li[tid]; }
+  if (tid < k) { od[tid] = ld[tid]; oi[tid] = li[tid]; }
   __syncthreads();
+}
 
-  // inverse-distance weights (predictors._idw_lambda, same order)
-  if (tid < k) ny2[tid] = sq_norm(xdb + (size_t)ni[tid] * D, D);
-  if (tid == blockDim.x - 1) x2_s = sq_norm(xq + row * D, D);
-  __syncthreads();
-  if (tid == 0) {
-    const float x2 = x2_s;
+// Inverse-distance weights of the k neighbours nd (d2, ascending) with
+// |x|^2 ny2 for a query with |q|^2 = x2 (predictors._idw_lambda, same
+// order): thread 0 writes the k normalised weights to nw. Ends synced.
+__device__ inline void idw_weights(float x2, const float* nd,
+                                   const float* ny2, int k, float* nw) {
+  if (threadIdx.x == 0) {
     bool any_exact = false;
     for (int j = 0; j < k; ++j) {
       const float scale2 = __fadd_rn(__fadd_rn(x2, ny2[j]), 1e-12f);
@@ -273,14 +275,38 @@ __device__ inline void merge_idw(const float* __restrict__ xq,
   __syncthreads();
 }
 
+// One query's merge + weighting of the f32 sweep, with the whole block:
+// the k nearest of the row's partial lists, their |x|^2 recomputed from
+// xdb, then the weights to nw and the neighbours' indices to ni
+// (shared, kKMax each). Ends synced.
+__device__ inline void merge_idw(const float* __restrict__ xq,
+                                 const float* __restrict__ xdb,
+                                 const float* __restrict__ ws_d2,
+                                 const int* __restrict__ ws_idx, size_t row,
+                                 int D, int k, int n_chunks, float* smem,
+                                 float* nw, int* ni) {
+  __shared__ float nd[kKMax], ny2[kKMax];
+  __shared__ float x2_s;
+  const int tid = threadIdx.x;
+  merge_lists<kKMax>(ws_d2, ws_idx, row, k, n_chunks, smem, nd, ni);
+  if (tid < k) ny2[tid] = sq_norm(xdb + (size_t)ni[tid] * D, D);
+  if (tid == blockDim.x - 1) x2_s = sq_norm(xq + row * D, D);
+  __syncthreads();
+  idw_weights(x2_s, nd, ny2, k, nw);
+}
+
 // Column t < Kpred of lambda-hat: the weighted sum of the k winners'
-// lambda rows (lamdb is (N, Kpred)), neighbour by neighbour.
+// lambda rows (lamdb is (n_rows, Kpred)), neighbour by neighbour; a
+// winner past the last row (a quantized pack's padding) prices 0.
 __device__ __forceinline__ float idw_lam(const float* __restrict__ lamdb,
                                          const float* nw, const int* ni,
-                                         int k, int Kpred, int t) {
-  float lam = __fmul_rn(nw[0], lamdb[(size_t)ni[0] * Kpred + t]);
-  for (int j = 1; j < k; ++j)
-    lam = __fadd_rn(lam, __fmul_rn(nw[j], lamdb[(size_t)ni[j] * Kpred + t]));
+                                         int k, int Kpred, int t,
+                                         int n_rows) {
+  float lam = 0.0f;
+  for (int j = 0; j < k; ++j) {
+    const float l = ni[j] < n_rows ? lamdb[(size_t)ni[j] * Kpred + t] : 0.0f;
+    lam = j == 0 ? __fmul_rn(nw[0], l) : __fadd_rn(lam, __fmul_rn(nw[j], l));
+  }
   return lam;
 }
 

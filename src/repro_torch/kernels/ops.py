@@ -10,13 +10,17 @@ Routes, with their launches per micro-batch on the card:
                   merge + weighting + rank + audit);
   KNN, knn_chain  `knn_lambda` (two launches) then `rank_audited` (one):
                   three launches where the TPU chain took two.
+A KNN predictor that carries a quantized db (`quant` "int8" or "bf16")
+takes the same routes through the quantized twins,
+`knn_rank_audited_quant` and `knn_lambda_quant`, with the same launch
+counts.
 Every entry point takes `device` (None = the card). On the card a route
 launches its kernel or raises; only `device="cpu"` runs the plain
 PyTorch versions. Nothing is padded per call beyond the affine
 predictor's W and c to the problem's K (the serving engine builds those
 once per bucket): the kernels mask ragged edges themselves, and the
-1M-row KNN database is passed as it lies. The MLP family and the
-quantized KNN database raise NotImplementedError (`unported`).
+1M-row KNN database (or its pack) is passed as it lies. The MLP family
+raises NotImplementedError (`unported`).
 """
 
 from __future__ import annotations
@@ -27,16 +31,24 @@ from repro_torch.core.predictors import (
     KNNLambdaPredictor,
     LinearLambdaPredictor,
     MeanLambdaPredictor,
+    check_pack,
+    pack_knn_db,
 )
 from repro_torch.core.ranking import AUDIT_TOL, RankingOutput
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
+from repro_torch.kernels.common import QUANT_EXTRA, QUANT_MODES
 from repro_torch.kernels.fused_rank import (
     MAX_KERNEL_M2,
     linear_rank_audited_cuda,
     rank_audited_cuda,
 )
-from repro_torch.kernels.knn_topk import knn_lambda_cuda, knn_rank_audited_cuda
+from repro_torch.kernels.knn_topk import (
+    knn_lambda_cuda,
+    knn_lambda_quant_cuda,
+    knn_rank_audited_cuda,
+    knn_rank_audited_quant_cuda,
+)
 
 
 def _f32(x, dev: torch.device) -> torch.Tensor:
@@ -87,13 +99,35 @@ def rank_audited(u, a, b, lam, gamma, *, m2: int, eps: float = 1e-4,
                          compliant=comp, lam=lam)
 
 
+def _quant_db(X_db, X_q, q_scale, y2_q, *, quant: str, dev):
+    """The packed db of the quantized sweep on `dev`: the caller's pack,
+    validated against the f32 db's row count, or X_db packed here at
+    the default slab when the caller hands no pack."""
+    if quant not in QUANT_MODES or quant == "off":
+        raise ValueError(f"quant must be 'int8' or 'bf16', got {quant!r}")
+    if X_q is None:
+        return pack_knn_db(X_db, mode=quant, device=dev)
+    X_q, q_scale, y2_q = (t.to(dev).contiguous()
+                          for t in (X_q, q_scale, y2_q))
+    check_pack(X_q, q_scale, y2_q, quant, n_train=X_db.shape[0])
+    return X_q, q_scale, y2_q
+
+
 def knn_rank_audited(X, X_db, lam_db, u, a, b, gamma, *, k: int = 10,
                      m2: int, eps: float = 1e-4, tol: float | None = None,
-                     device=None) -> RankingOutput:
+                     quant: str = "off", X_q=None, q_scale=None, y2_q=None,
+                     k_extra: int = QUANT_EXTRA, return_guard: bool = False,
+                     device=None):
     """The KNN online stage: lambda-hat = IDW-KNN(X) over (X_db, lam_db),
     zero for constraint rows beyond lam_db's width, then rank + audit.
     X_db and lam_db should already lie on `device` (a predictor's
-    tensors do): they are never copied or padded per call."""
+    tensors do): they are never copied or padded per call.
+
+    quant='int8'|'bf16' sweeps the packed db (X_q, q_scale, y2_q; packed
+    here from X_db when not given) with `knn_rank_audited_quant`: the
+    top-(k + k_extra) survivors are re-scored exactly in f32.
+    `return_guard` also returns the margin guard (n, 1) int32 (zeros
+    for the f32 db)."""
     dev = resolve_device(device)
     tol = AUDIT_TOL if tol is None else tol
     u, a, b, gamma = _rank_inputs(u, a, b, gamma, dev)
@@ -106,26 +140,51 @@ def knn_rank_audited(X, X_db, lam_db, u, a, b, gamma, *, k: int = 10,
     if X_db.shape[0] < k:
         raise ValueError(f"n_train={X_db.shape[0]} < k={k}")
     ref.check_pred_width(lam_db.shape[1], a.shape[1])
-    if _check_m2(m2, dev):
+    kernel = _check_m2(m2, dev)
+    guard = None
+    if quant != "off":
+        pack = _quant_db(X_db, X_q, q_scale, y2_q, quant=quant, dev=dev)
+        args = (X, *pack, lam_db, u, a, b, gamma)
+        kw = dict(k=k, k_extra=k_extra, mode=quant, m2=m2, eps=eps, tol=tol)
+        if kernel:
+            _, idx, util, expo, comp, lam, guard = \
+                knn_rank_audited_quant_cuda(*args, **kw, device=dev)
+        else:
+            _, idx, util, expo, comp, lam, guard = \
+                ref.knn_rank_audited_quant_ref(*args, **kw)
+    elif kernel:
         _, idx, util, expo, comp, lam = knn_rank_audited_cuda(
             X, X_db, lam_db, u, a, b, gamma, k=k, m2=m2, eps=eps, tol=tol,
             device=dev)
     else:
         _, idx, util, expo, comp, lam = ref.knn_rank_audited_ref(
             X, X_db, lam_db, u, a, b, gamma, k=k, m2=m2, eps=eps, tol=tol)
-    return RankingOutput(perm=idx, utility=util, exposure=expo,
-                         compliant=comp, lam=lam)
+    out = RankingOutput(perm=idx, utility=util, exposure=expo,
+                        compliant=comp, lam=lam)
+    if not return_guard:
+        return out
+    if guard is None:
+        guard = torch.zeros((n, 1), dtype=torch.int32, device=dev)
+    return out, guard
 
 
-def knn_lambda(X, X_db, lam_db, *, k: int = 10, device=None):
+def knn_lambda(X, X_db, lam_db, *, k: int = 10, quant: str = "off",
+               X_q=None, q_scale=None, y2_q=None,
+               k_extra: int = QUANT_EXTRA, device=None):
     """KNN lambda-hat (B, K_pred) of the queries X (B, d) over (X_db,
     lam_db): the `knn_lambda` kernel on the card, its plain version on
-    the CPU."""
+    the CPU. quant='int8'|'bf16' sweeps the packed db instead
+    (`knn_lambda_quant`, the pack as in knn_rank_audited)."""
     dev = resolve_device(device)
     X, X_db, lam_db = _f32(X, dev), _f32(X_db, dev), _f32(lam_db, dev)
     if X_db.shape[0] < k:
         raise ValueError(f"n_train={X_db.shape[0]} < k={k}")
-    return knn_lambda_cuda(X, X_db, lam_db, k=k, device=dev)
+    if quant == "off":
+        return knn_lambda_cuda(X, X_db, lam_db, k=k, device=dev)
+    pack = _quant_db(X_db, X_q, q_scale, y2_q, quant=quant, dev=dev)
+    lam, _ = knn_lambda_quant_cuda(X, *pack, lam_db, k=k, k_extra=k_extra,
+                                   mode=quant, device=dev)
+    return lam
 
 
 def linear_rank_audited(X, W, c, u, a, b, gamma, *, relu: bool, m2: int,
@@ -157,8 +216,8 @@ def unported(predictor) -> NotImplementedError:
     """The error for a predictor family the port does not serve yet."""
     return NotImplementedError(
         f"{type(predictor).__name__}: the mean, linear and KNN families "
-        f"are ported; the MLP is ROADMAP Queue 1 item 3, the quantized KNN "
-        f"database Queue 1 item 6")
+        f"(the KNN one also over its quantized db) are ported; the MLP is "
+        f"ROADMAP Queue 1 item 3")
 
 
 def route_of(predictor) -> str:
@@ -182,7 +241,9 @@ def predict_rank_audited(X, predictor, u, a, b, gamma, *, m2: int,
     `predictor=None` means X already holds the shadow prices (n, K) and
     runs `rank_audited`; mean and linear run `linear_rank_audited`; KNN
     runs `knn_rank_audited` on its own tensors, or with `knn_chain`
-    `knn_lambda` then `rank_audited` (the same lambda-hat, bitwise).
+    `knn_lambda` then `rank_audited` (the same lambda-hat, bitwise); a
+    KNN predictor with a quantized db takes the quantized twins of both
+    (its static `quant` picks the route).
     Any other family raises NotImplementedError. `affine` is an affine
     predictor's (W, c, relu) already padded to a's K rows
     (`ref.affine_params`), as the serving engine keeps them per bucket;
@@ -201,14 +262,17 @@ def predict_rank_audited(X, predictor, u, a, b, gamma, *, m2: int,
         W, c, relu = affine
         return linear_rank_audited(X, W, c, u, a, b, gamma, relu=relu,
                                    m2=m2, eps=eps, tol=tol, device=device)
+    quant = predictor.quant if predictor.X_q is not None else "off"
+    pack = dict(quant=quant, X_q=predictor.X_q, q_scale=predictor.q_scale,
+                y2_q=predictor.y2_q)
     if not knn_chain:
         return knn_rank_audited(X, predictor.X_db, predictor.lam_db, u, a,
                                 b, gamma, k=predictor.k, m2=m2, eps=eps,
-                                tol=tol, device=device)
+                                tol=tol, device=device, **pack)
     K = a.shape[-2]
     ref.check_pred_width(predictor.num_constraints, K)
     lam = knn_lambda(X, predictor.X_db, predictor.lam_db, k=predictor.k,
-                     device=device)
+                     device=device, **pack)
     lam = torch.nn.functional.pad(lam, (0, K - lam.shape[1]))
     return rank_audited(u, a, b, lam, gamma, m2=m2, eps=eps, tol=tol,
                         device=device)
@@ -218,7 +282,8 @@ def kernel_launch_count(predictor, m2: int, *, device=None,
                         knn_chain: bool = False) -> int:
     """Kernel launches one dispatcher call makes, by route: 1 for the
     lambda-given route (`predictor=None`) and for mean and linear, 2 for
-    KNN, 3 for KNN with `knn_chain`; 0 where the plain PyTorch path runs
+    KNN, 3 for KNN with `knn_chain`, over the f32 or the quantized db
+    alike; 0 where the plain PyTorch path runs
     (a CPU device, or m2 > MAX_KERNEL_M2). A count of the route, not a
     run: it needs no card."""
     dev = torch.device("cuda" if device is None else device)

@@ -17,9 +17,18 @@ from repro_torch.core.predictors import (
     LinearLambdaPredictor,
     MeanLambdaPredictor,
     _idw_lambda,
+    _quant_flush,
+    knn_quant_scan,
     knn_topk_scan,
+    quant_idw,
 )
 from repro_torch.core.ranking import AUDIT_TOL, audit_selected
+from repro_torch.kernels.common import (
+    QUANT_EXTRA,
+    dot_seq,
+    quant_d2_tile,
+    sq_norm_seq,
+)
 
 # distance elements a plain KNN chunk may hold (b * chunk), 64 MiB of f32
 _REF_CHUNK_ELEMS = 1 << 24
@@ -54,21 +63,11 @@ def rank_audited_ref(u, a, b, lam, gamma, m2: int, eps: float = 1e-4,
     return vals, order.to(torch.int32), utility, exposure, compliant
 
 
-def sq_norm_seq(x):
-    """|x|^2 over the last axis, summed coordinate by coordinate."""
-    acc = x[..., 0] * x[..., 0]
-    for d in range(1, x.shape[-1]):
-        acc = acc + x[..., d] * x[..., d]
-    return acc
-
-
 def d2_sequential(Xq, x2, db):
     """Expanded-form squared distances with the cross term summed
     coordinate by coordinate, each product and addition rounded on its
     own: the CUDA sweep's order. x2 (b, 1) must come from sq_norm_seq."""
-    cross = Xq[:, None, 0] * db[None, :, 0]
-    for d in range(1, Xq.shape[1]):
-        cross = cross + Xq[:, None, d] * db[None, :, d]
+    cross = dot_seq(Xq[:, None, :], db[None, :, :])
     y2 = sq_norm_seq(db)
     return torch.clamp_min(x2 - 2.0 * cross + y2[None, :], 0.0)
 
@@ -106,14 +105,64 @@ def knn_rank_audited_ref(X, X_db, lam_db, u, a, b, gamma, *, k: int,
     return (*rank_audited_ref(u, a, b, lam, gamma, m2, eps, tol), lam)
 
 
+def knn_quant_select_ref(xq, X_q, q_scale, y2_q, k: int, *,
+                         k_extra: int | None = None, mode: str = "int8"):
+    """The quantized selection from the whole (B, n_pad) quantized
+    distance matrix at once (counterpart of the JAX oracle of the same
+    name): the top-(k + k_extra) by stable sort, then the flush of
+    core.predictors.knn_quant_scan. Returns (d2 (B, k), idx (B, k),
+    guard (B, 1) i32), equal to knn_quant_scan's."""
+    k_extra = QUANT_EXTRA if k_extra is None else k_extra
+    slab = X_q.shape[0] // q_scale.shape[0]
+    rows = torch.arange(X_q.shape[0], device=xq.device)
+    d2q = quant_d2_tile(xq, X_q, q_scale[rows // slab, 0], y2_q[:, 0],
+                        mode=mode)
+    order = torch.sort(d2q, dim=-1, stable=True).indices[:, :k + k_extra]
+    return _quant_flush(xq, X_q, q_scale, y2_q, torch.gather(d2q, 1, order),
+                        order, k, mode)
+
+
+def knn_quant_lambda_ref(xq, X_q, q_scale, y2_q, lam_db, k: int, *,
+                         k_extra: int | None = None, mode: str = "int8"):
+    """lambda-hat (B, K) and guard (B, 1) through knn_quant_select_ref
+    (counterpart of the JAX oracle of the same name)."""
+    d2, idx, guard = knn_quant_select_ref(xq, X_q, q_scale, y2_q, k,
+                                          k_extra=k_extra, mode=mode)
+    return quant_idw(xq, X_q, y2_q, lam_db, d2, idx), guard
+
+
+def knn_lambda_quant_ref(xq, X_q, q_scale, y2_q, lam_db, k: int, *,
+                         k_extra: int = QUANT_EXTRA, mode: str = "int8"):
+    """The plain version of the knn_lambda_quant kernel: lambda-hat
+    (B, K_pred) and guard (B, 1) i32 through the chunked quantized scan
+    (core.predictors.knn_quant_scan), in the kernel's rounding order."""
+    d2, idx, guard = knn_quant_scan(X_q, q_scale, y2_q, xq, k=k,
+                                    k_extra=k_extra, mode=mode,
+                                    device=xq.device)
+    return quant_idw(xq, X_q, y2_q, lam_db, d2, idx), guard
+
+
+def knn_rank_audited_quant_ref(X, X_q, q_scale, y2_q, lam_db, u, a, b,
+                               gamma, *, k: int, mode: str, m2: int,
+                               k_extra: int = QUANT_EXTRA,
+                               eps: float = 1e-4, tol: float | None = None):
+    """The plain version of the knn_rank_audited_quant kernel:
+    knn_lambda_quant_ref's lambda-hat zero-padded to a's constraint
+    rows, then rank_audited_ref. Returns the five rank_audited_ref
+    outputs, lam (n, K) and guard (n, 1) i32."""
+    check_pred_width(lam_db.shape[1], a.shape[1])
+    lam, guard = knn_lambda_quant_ref(X, X_q, q_scale, y2_q, lam_db, k,
+                                      k_extra=k_extra, mode=mode)
+    lam = torch.nn.functional.pad(lam, (0, a.shape[1] - lam.shape[1]))
+    return (*rank_audited_ref(u, a, b, lam, gamma, m2, eps, tol), lam,
+            guard)
+
+
 def affine_lambda_ref(X, W, c, relu: bool):
     """lam_hat = X W^T + c (n, K), the dot over d taken coordinate by
     coordinate with every product and addition rounded on its own (the
     kernel's prologue order), then + c, then the clamp at 0 if `relu`."""
-    lam = X[:, 0, None] * W[None, :, 0]
-    for d in range(1, X.shape[1]):
-        lam = lam + X[:, d, None] * W[None, :, d]
-    lam = lam + c
+    lam = dot_seq(X[:, None, :], W[None, :, :]) + c
     return torch.clamp_min(lam, 0.0) if relu else lam
 
 
@@ -155,7 +204,13 @@ def predict_rank_audited_ref(X, predictor, u, a, b, gamma, m2: int,
     """Predict-then-rank+audit for the ported families, each lambda-hat
     from the plain version of its kernel's arithmetic (mean and linear:
     the affine prologue; KNN: the sweep's order). Returns (vals, idx,
-    utility, exposure, compliant, lam)."""
+    utility, exposure, compliant, lam); a quantized KNN predictor takes
+    the quantized plain version (its guard is dropped)."""
+    if isinstance(predictor, KNNLambdaPredictor) and predictor.X_q is not None:
+        return knn_rank_audited_quant_ref(
+            X, predictor.X_q, predictor.q_scale, predictor.y2_q,
+            predictor.lam_db, u, a, b, gamma, k=predictor.k,
+            mode=predictor.quant, m2=m2, eps=eps, tol=tol)[:6]
     if isinstance(predictor, KNNLambdaPredictor):
         return knn_rank_audited_ref(X, predictor.X_db, predictor.lam_db, u,
                                     a, b, gamma, k=predictor.k, m2=m2,

@@ -7,7 +7,8 @@ max_wait_ms (`poll`), or on `drain`. A flush packs the batch into the
 bucket's host staging arrays, copies them to the device, and makes ONE
 dispatcher call into kernels.ops, whose route the bucket's tag fixes:
 the rank+audit kernel for lambda-carrying requests, the KNN kernel for
-a registered KNN predictor, the affine kernel (`linear_rank_audited`)
+a registered KNN predictor (its quantized twin when the predictor
+carries an int8 or bf16 pack), the affine kernel (`linear_rank_audited`)
 for a mean or linear predictor, whose W and c the engine pads to the
 bucket's K once, when the bucket's staging is allocated. The batch's
 outputs come home in one copy per output and the futures resolve
@@ -109,9 +110,10 @@ class ServingEngine:
     # -- predictors ---------------------------------------------------------
 
     def register_predictor(self, tag: str, predictor, *, d_cov: int) -> None:
-        """Attach a fitted KNN, linear or mean predictor under `tag`. Its
-        tensors move to the engine's device once, here, and stay there;
-        it prices `predictor.num_constraints` constraints."""
+        """Attach a fitted KNN (f32 or quantized), linear or mean
+        predictor under `tag`. Its tensors, a KNN pack included, move to
+        the engine's device once, here, and stay there; it prices
+        `predictor.num_constraints` constraints."""
         if tag == LAM_TAG:
             raise ValueError(f"{LAM_TAG!r} is reserved for raw-lam requests")
         if predictor is None:

@@ -13,12 +13,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.predictors import pack_knn_db
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_rank import (
     linear_rank_audited_cuda,
     rank_audited_cuda,
 )
-from repro_torch.kernels.knn_topk import knn_lambda_cuda, knn_rank_audited_cuda
+from repro_torch.kernels.knn_topk import (
+    knn_lambda_cuda,
+    knn_lambda_quant_cuda,
+    knn_rank_audited_cuda,
+    knn_rank_audited_quant_cuda,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -107,3 +113,64 @@ def test_knn_lambda_kernel_equals_plain_and_the_fused_kernel(card, n_db,
     u, a, b, _, g = _rank(rng, B, 1024, 8, 64, card)
     fused = knn_rank_audited_cuda(X, X_db, lam_db, u, a, b, g, k=10, m2=64)
     assert torch.equal(fused[5][:, :K_pred], got)
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+@pytest.mark.parametrize("n_db,d,k,slab", [(5001, 20, 10, 512),
+                                           (600, 13, 5, 200),
+                                           (3000, 20, 16, 128)])
+def test_quant_kernels_equal_plain(card, mode, n_db, d, k, slab):
+    """Both quantized kernels against their plain versions: a ragged
+    pack (slab not dividing n_db), d = 13 (rows not whole words) and
+    k = 16 (24 survivors, past 48 KB of shared memory)."""
+    rng = np.random.default_rng(n_db + d)
+    X_db = _t(rng.normal(size=(n_db, d)), card)
+    lam_db = _t(np.abs(rng.normal(size=(n_db, 5))), card)
+    X = _t(rng.normal(size=(32, d)), card)
+    pack = pack_knn_db(X_db, mode=mode, slab=slab)
+    u, a, b, _, g = _rank(rng, 32, 1024, 8, 64, card)
+    got = knn_rank_audited_quant_cuda(X, *pack, lam_db, u, a, b, g, k=k,
+                                      mode=mode, m2=64)
+    want = ref.knn_rank_audited_quant_ref(X, *pack, lam_db, u, a, b, g,
+                                          k=k, mode=mode, m2=64)
+    for gt, w in zip(got, want):
+        assert torch.equal(gt, w)
+    lam, guard = knn_lambda_quant_cuda(X, *pack, lam_db, k=k, mode=mode)
+    want_lam, want_guard = ref.knn_lambda_quant_ref(X, *pack, lam_db, k,
+                                                    mode=mode)
+    assert torch.equal(lam, want_lam) and torch.equal(guard, want_guard)
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+def test_quant_chain_lambda_is_the_fused_kernels(card, mode):
+    rng = np.random.default_rng(7)
+    X_db = _t(rng.normal(size=(70000, 20)), card)
+    lam_db = _t(np.abs(rng.normal(size=(70000, 5))), card)
+    X = _t(rng.normal(size=(40, 20)), card)
+    pack = pack_knn_db(X_db, mode=mode)
+    u, a, b, _, g = _rank(rng, 40, 1024, 8, 64, card)
+    fused = knn_rank_audited_quant_cuda(X, *pack, lam_db, u, a, b, g, k=10,
+                                        mode=mode, m2=64)
+    lam, guard = knn_lambda_quant_cuda(X, *pack, lam_db, k=10, mode=mode)
+    assert torch.equal(fused[5][:, :5], lam)
+    assert torch.equal(fused[6], guard)
+
+
+def test_int8_lossless_pack_equals_the_f32_kernel(card):
+    """On the 0.5 grid with 63.5 in every slab the int8 pack holds the db
+    bitwise: knn_rank_audited_quant's outputs equal knn_rank_audited's."""
+    rng = np.random.default_rng(3)
+    X_db = np.round(rng.uniform(-63.0, 63.0, (5000, 20)) * 2.0) / 2.0
+    X_db[::512] = 63.5
+    X_db = _t(X_db, card)
+    lam_db = _t(np.abs(rng.normal(size=(5000, 5))), card)
+    X = _t(np.round(rng.uniform(-10, 10, (32, 20)) * 2.0) / 2.0, card)
+    X[4] = X_db[4999]
+    u, a, b, _, g = _rank(rng, 32, 1024, 8, 64, card)
+    pack = pack_knn_db(X_db, mode="int8")
+    got = knn_rank_audited_quant_cuda(X, *pack, lam_db, u, a, b, g, k=10,
+                                      mode="int8", m2=64)
+    want = knn_rank_audited_cuda(X, X_db, lam_db, u, a, b, g, k=10, m2=64)
+    for gt, w in zip(got[:6], want):
+        assert torch.equal(gt, w)
+    assert torch.equal(got[5][4, :5], lam_db[4999])

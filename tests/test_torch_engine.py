@@ -65,7 +65,8 @@ def _jax_predictors():
     predictions clamp; mean fitted on it shifted below 0 on some
     constraints (a negative price the mean route must keep)."""
     jknn = _knn()
-    return {"knn": jknn,
+    return {"knn": jknn, "knn_int8": jknn.quantized("int8"),
+            "knn_bf16": jknn.quantized("bf16"),
             "linear": JaxLinear.fit(jknn.X_db, jknn.lam_db - 0.8),
             "mean": JaxMean.fit(jknn.X_db,
                                 jknn.lam_db - jnp.asarray([0.9, 0.0, 0.0,
@@ -84,8 +85,10 @@ def _serve_both(stream, max_batch, tags=("knn",)):
                         clock=FrozenClock(), device="cpu")
     for tag, jp in jpreds.items():
         state = {f: np.asarray(v) for f, v in predictor_state(jp).items()}
-        eng.register_predictor(tag, from_numpy(state, k=10, device="cpu"),
-                               d_cov=D)
+        quant = getattr(jp, "quant", "off")
+        eng.register_predictor(tag, from_numpy(
+            state, k=10, device="cpu",
+            quant=None if quant == "off" else quant), d_cov=D)
     got = {r.rid: r for r in eng.serve_stream(
         [RankRequest(**kw) for kw in stream])}
     return eng, got, want
@@ -136,6 +139,25 @@ def test_engine_matches_jax_engine_on_a_four_route_stream(max_batch,
     held = {b: W for b, (W, _, _) in eng._affine.items()}
     eng.serve_stream([RankRequest(**kw) for kw in stream])
     assert all(eng._affine[b][0] is W for b, W in held.items())
+
+
+@pytest.mark.parametrize("max_batch,n_requests", [(8, 29), (4, 16)])
+def test_engine_matches_jax_engine_on_a_quantized_knn_stream(max_batch,
+                                                             n_requests):
+    """KNN requests over the int8 and the bf16 pack of one db, beside
+    lambda-given ones."""
+    stream = _stream(200 + max_batch, n_requests)
+    for i, kw in enumerate(stream):
+        if kw.get("tag") == "knn":
+            kw["tag"] = ("knn_int8", "knn_bf16")[i % 2]
+    assert {kw.get("tag", "_lam") for kw in stream} == {
+        "_lam", "knn_int8", "knn_bf16"}
+    eng, got, want = _serve_both(stream, max_batch,
+                                 tags=("knn_int8", "knn_bf16"))
+    _assert_streams_match(got, want, n_requests)
+    assert eng.metrics.kernel_launches == 0     # the CPU runs the plain path
+    assert {eng._predictors[t].quant for t in ("knn_int8", "knn_bf16")} == {
+        "int8", "bf16"}
 
 
 def test_bucket_geometry_pads_the_serve_online_cell():

@@ -123,10 +123,16 @@ def test_from_numpy_carries_the_jax_predictor_across():
     np.testing.assert_allclose(knn.predict(X).numpy(),
                                np.asarray(jknn.predict(jnp.asarray(X))),
                                rtol=LAM_RTOL, atol=LAM_ATOL)
+    jquant = jknn.quantized("int8")
     quant = {f: np.asarray(v) for f, v in jax_pred.predictor_state(
-        jknn.quantized("int8")).items()}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        pred.from_numpy(quant, k=10, device=CPU)
+        jquant).items()}
+    qknn = pred.from_numpy(quant, k=10, device=CPU)
+    assert qknn.quant == "int8" and qknn.X_q.dtype == torch.int8
+    np.testing.assert_array_equal(qknn.X_q.numpy(), quant["X_q"])
+    np.testing.assert_array_equal(qknn.q_scale.numpy(), quant["q_scale"])
+    np.testing.assert_allclose(qknn.predict(X).numpy(),
+                               np.asarray(jquant.predict(jnp.asarray(X))),
+                               rtol=LAM_RTOL, atol=LAM_ATOL)
 
 
 def _stage(seed, *, n, m1, K, K_pred, m2, n_db=600, d=20):

@@ -18,6 +18,8 @@ from repro_torch.core.predictors import (
     LinearLambdaPredictor,
     MeanLambdaPredictor,
     from_numpy,
+    knn_quant_scan,
+    pack_knn_db,
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_rank import (
@@ -59,8 +61,9 @@ def _small():
 
 
 def _families(t):
-    return {"knn": KNNLambdaPredictor.fit(t["X_db"], t["lam_db"], k=5,
-                                          device="cpu"),
+    knn = KNNLambdaPredictor.fit(t["X_db"], t["lam_db"], k=5, device="cpu")
+    return {"knn": knn,
+            "knn_int8": knn.quantized("int8", slab=8, device="cpu"),
             "linear": LinearLambdaPredictor.fit(t["X_db"], t["lam_db"],
                                                 device="cpu"),
             "mean": MeanLambdaPredictor.fit(t["X_db"], t["lam_db"],
@@ -115,6 +118,17 @@ def _default_device_calls():
         "ops.predict_rank_audited(linear)": lambda: ops.predict_rank_audited(
             t["X"], fam["linear"], t["u"], t["a"], t["b"], t["gamma"],
             m2=8),
+        "pack_knn_db": lambda: pack_knn_db(t["X_db"], mode="int8"),
+        "KNNLambdaPredictor.quantized": lambda: knn.quantized("bf16"),
+        "knn_quant_scan": lambda: knn_quant_scan(
+            fam["knn_int8"].X_q, fam["knn_int8"].q_scale,
+            fam["knn_int8"].y2_q, t["X"], k=5),
+        "ops.knn_lambda(quant)": lambda: ops.knn_lambda(
+            t["X"], t["X_db"], t["lam_db"], k=5, quant="int8"),
+        "ops.predict_rank_audited(knn_int8)":
+            lambda: ops.predict_rank_audited(
+                t["X"], fam["knn_int8"], t["u"], t["a"], t["b"],
+                t["gamma"], m2=8),
         "ops.predict_rank_audited(knn_chain)":
             lambda: ops.predict_rank_audited(
                 t["X"], knn, t["u"], t["a"], t["b"], t["gamma"], m2=8,
@@ -142,9 +156,15 @@ def test_default_device_raises_without_cuda(name):
 def test_kernel_launch_count_by_route():
     """Launches per micro-batch on an assumed card: lambda given 1,
     linear 1, mean 1, KNN 2, the KNN chain 3 (knn_lambda's two, then
-    rank_audited); 0 where the plain path runs."""
+    rank_audited), over the f32 or the quantized db alike; 0 where the
+    plain path runs."""
     fam = _families(_small())
     knn = fam["knn"]
+    for quant in (fam["knn_int8"], knn.quantized("bf16", device="cpu")):
+        assert ops.kernel_launch_count(quant, 64) == 2
+        assert ops.kernel_launch_count(quant, 64, knn_chain=True) == 3
+        assert ops.kernel_launch_count(quant, 64, device="cpu") == 0
+        assert ops.kernel_launch_count(quant, 129) == 0
     assert ops.kernel_launch_count(None, 64) == 1
     assert ops.kernel_launch_count(fam["linear"], 64) == 1
     assert ops.kernel_launch_count(fam["mean"], 64) == 1
