@@ -3,7 +3,7 @@
   python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero before a result is printed):
-  1. build the six CUDA kernels from src/repro_torch/kernels/csrc with
+  1. build the nine CUDA kernels from src/repro_torch/kernels/csrc with
      nvcc, one process per source, all started together, and print each
      one's registers and spills;
   2. hold each kernel against its plain PyTorch version on the card at
@@ -19,6 +19,16 @@ Phases (any failure exits non-zero before a result is printed):
      exactly (the 0.5 grid, 63.5 in every slab) the quantized outputs
      equal knn_rank_audited's bitwise and an exact-match query returns
      its row's lambda; the share of rows whose guard fired is logged;
+     the kernel library's three: fused_rank at the bucket (m2 64 and
+     128) and at kernel_bench's retrieval shape (64 x m1=100,000, K=5,
+     m2=50), bitwise its plain version and rank_audited's (vals, idx);
+     knn_topk at B=32 and 1024 over n_db=1,048,576, a ragged n_db and
+     d=256 with k=16 over 100,003 rows, (d2, idx) bitwise;
+     knn_predict_kernel's lambda-hat against the knn_lambda kernel's
+     within rtol=1e-5, atol=1e-6; embedding_bag at kernel_bench's shape
+     (V=1,000,000, D=64, 4096 bags x 32, weights, ~10% padding) with an
+     f32 and a bf16 table, bitwise; and m2=256 through ops.fused_rank
+     and ops.rank_audited on the card by the sort route, no launch;
   O. the offline stage at the paper-ranking offline_dual width: a
      MovieLens-like problem (Table 1a constraints, 8192 train users,
      m1=1024, K=5, m2=50, d=20) through fit_pipeline (300 dual
@@ -32,14 +42,20 @@ Phases (any failure exits non-zero before a result is printed):
      against the plain version on the same padded batch, and check that
      each wrapper's launch counter equals the batches of its route times
      the route's launches;
-  4. time the six kernels (CUDA events, medians) at the bucket shape and
-     at a large batch (the quantized ones in both modes), beside the
-     plain version, a library yardstick that only this script calls,
-     and the card's bound; then split each KNN lambda-hat kernel's
-     device time at the bucket between its sweep and its merge
-     (torch.profiler).
+  L. the kernel library path: the entry points of repro_torch.kernels
+     (ops.fused_rank, ops.knn_topk, ops.knn_predict_kernel,
+     ops.embedding_bag) on phase 2's inputs, each output equal to phase
+     2's plain version, with 1 launch per fused_rank and embedding_bag
+     call and 2 per knn_topk and knn_predict_kernel call;
+  4. time the nine kernels (CUDA events, medians) at the bucket shape and
+     at a large batch (the quantized ones in both modes, embedding_bag
+     with both tables), beside the plain version, a library yardstick
+     that only this script calls, and the card's bound; then split each
+     KNN lambda-hat kernel's device time at the bucket between its sweep
+     and its merge (torch.profiler).
 The launch counters are set to 0 just before the offline phase's
-holdout path and the serving path and read just after each.
+holdout path, the serving path and the kernel library path, and read
+just after each.
 Prints the kernel table as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 """
@@ -69,7 +85,12 @@ OFFLINE = dict(n=8192, m1=1024, K=5, m2=50, iters=300, n_items=4096)
 TOL = dict(rtol=1e-5, atol=1e-5)
 LAM_TOL = dict(rtol=1e-5, atol=1e-6)
 KERNELS = ("rank_audited", "knn_rank_audited", "linear_rank_audited",
-           "knn_lambda", "knn_lambda_quant", "knn_rank_audited_quant")
+           "knn_lambda", "knn_lambda_quant", "knn_rank_audited_quant",
+           "fused_rank", "knn_topk", "embedding_bag")
+# kernel_bench's shapes of the kernel library's entry points
+RETRIEVAL = dict(B=64, m1=100_000, K=5, m2=50)
+WIDE = dict(n_db=100_003, d=256, k=16)   # the JAX tests' widest knn_topk
+BAG = dict(V=1_000_000, D=64, n_bags=4096, bag=32)
 MODES = ("int8", "bf16")
 QUANT_EXTRA = 8
 SERVE_MIX = {"knn": 192, "knn_int8": 64, "knn_bf16": 32, "linear": 64,
@@ -187,6 +208,33 @@ def rank_work(B, m1, K, m2):
     return read + write, 2 * B * K * m1 + 2 * B * (K + 1) * m2
 
 
+def fused_work(B, m1, K, m2):
+    """(bytes, fp32 flops) of the top-m2 alone: u, a and lambda read
+    once, vals and idx written once; the score axpy."""
+    return 4 * (B * m1 + B * K * m1 + B * K) + 8 * B * m2, 2 * B * K * m1
+
+
+def topk_work(B, n_db, d, k=KNN_K):
+    """(bytes, fp32 flops) of the KNN top-k: the db and the queries read
+    once, (d2, idx) written; distances B * n_db * (2d+3) plus |x|^2 per
+    db row."""
+    return (4 * (n_db * d + B * d) + 8 * B * k,
+            B * n_db * (2 * d + 3) + 2 * n_db * d)
+
+
+def bag_work(table, idx):
+    """(bytes, fp32 flops) of the bag on this run's indices: each distinct
+    row a valid slot names read once, the indices and weights read, the
+    output written; a product and a sum per valid slot and column."""
+    n_bags, bag = idx.shape
+    V, width = table.shape
+    valid = idx[idx >= 0]
+    rows = int(torch.unique(valid).numel())
+    item = table.element_size()
+    return (rows * width * item + 8 * n_bags * bag + n_bags * width * item,
+            2 * int(valid.numel()) * width)
+
+
 def linear_work(B, m1, K, m2):
     """rank+audit, with X, W and c read in place of lambda, lambda-hat
     written, and the prologue's 2 B K d flops."""
@@ -288,7 +336,9 @@ def main() -> int:
     from repro_torch.core.predictors import KNNLambdaPredictor, pack_knn_db
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.common import quantize_query
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
     from repro_torch.kernels.fused_rank import (
+        fused_rank_cuda,
         linear_rank_audited_cuda,
         rank_audited_cuda,
     )
@@ -297,6 +347,7 @@ def main() -> int:
         knn_lambda_quant_cuda,
         knn_rank_audited_cuda,
         knn_rank_audited_quant_cuda,
+        knn_topk_cuda,
     )
     from repro_torch.serving.engine import RankRequest, ServingEngine
 
@@ -305,7 +356,9 @@ def main() -> int:
                 "linear_rank_audited": linear_rank_audited_cuda,
                 "knn_lambda": knn_lambda_cuda,
                 "knn_lambda_quant": knn_lambda_quant_cuda,
-                "knn_rank_audited_quant": knn_rank_audited_quant_cuda}
+                "knn_rank_audited_quant": knn_rank_audited_quant_cuda,
+                "fused_rank": fused_rank_cuda, "knn_topk": knn_topk_cuda,
+                "embedding_bag": embedding_bag_cuda}
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -437,12 +490,97 @@ def main() -> int:
             fail(f"lossless {mode} pack: exact-match query did not return "
                  f"its row's lambda")
     del X_ll
+    # the kernel library: fused_rank, knn_topk, knn_predict_kernel and
+    # embedding_bag; `lib` keeps each case's inputs and plain outputs for
+    # the library path (phase L)
+    lib = {}
+    for label, sh in (("bucket", BUCKET), ("bucket_m2_128",
+                                           dict(BUCKET, m2=128)),
+                      ("retrieval", RETRIEVAL)):
+        u, a, b, lam, g = rank_inputs(gen, dev, sh["B"], sh["m1"], sh["K"],
+                                      sh["m2"])
+        got = fused_rank_cuda(u, a, lam, m2=sh["m2"], eps=EPS)
+        audited = rank_audited_cuda(u, a, b, lam, g, m2=sh["m2"], eps=EPS)
+        torch.cuda.synchronize()
+        want = ref.fused_rank_ref(u, a, lam, sh["m2"], EPS)
+        for name, other in (("its plain version", want),
+                            ("rank_audited's", audited[:2])):
+            if not (torch.equal(got[0], other[0])
+                    and torch.equal(got[1], other[1])):
+                fail(f"fused_rank {label}: (vals, idx) differ from {name}")
+        err["fused_rank"] = max(err["fused_rank"],
+                                float((got[0] - want[0]).abs().max()))
+        if label != "bucket_m2_128":
+            lib[("fused_rank", label)] = ((u, a, lam), dict(m2=sh["m2"]),
+                                          want)
+    # m2 above the kernels' limit: the sort route, on the card, no launch
+    u, a, b, lam, g = rank_inputs(gen, dev, B, m1, K, 256)
+    before = read_counters(wrappers)
+    big = ops.fused_rank(u, a, lam, m2=256, eps=EPS)
+    big_ra = ops.rank_audited(u, a, b, lam, g, m2=256, eps=EPS)
+    want = ranking.rank_given_lambda(u, a, b, lam, g, m2=256, eps=EPS)
+    torch.cuda.synchronize()
+    if read_counters(wrappers) != before or \
+            ops.kernel_launch_count(None, 256) != 0:
+        fail("m2=256 launched a kernel")
+    if not (big[1].device == dev and torch.equal(big[1], want.perm)
+            and torch.equal(big_ra.perm, want.perm)
+            and torch.equal(big_ra.compliant, want.compliant)):
+        fail("m2=256: the sort route differs from rank_given_lambda")
+    X_wide = torch.randn((WIDE["n_db"], WIDE["d"]), generator=gen,
+                         device=dev)
+    for label, Bq, xdb, kk in (("bucket", B, X_db, KNN_K),
+                               ("large", LARGE_KNN_B, X_db, KNN_K),
+                               ("ragged", B, X_db[:N_DB - 4093], KNN_K),
+                               ("wide", B, X_wide, WIDE["k"])):
+        xq = torch.randn((Bq, xdb.shape[1]), generator=gen, device=dev)
+        xq[0] = xdb[xdb.shape[0] - 1]            # an exact match
+        got = knn_topk_cuda(xq, xdb, k=kk)
+        torch.cuda.synchronize()
+        want = ref.knn_topk_ref(xq, xdb, kk)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"knn_topk {label}: (d2, idx) differ from the plain version")
+        if int(got[1][0, 0]) != xdb.shape[0] - 1:
+            fail(f"knn_topk {label}: the exact match is not first")
+        err["knn_topk"] = max(err["knn_topk"],
+                              float((got[0] - want[0]).abs().max()))
+        lib[("knn_topk", label)] = ((xq, xdb), dict(k=kk), want)
+    xq = lib[("knn_topk", "bucket")][0][0]
+    lam_hat = knn_lambda_cuda(xq, X_db, lam_db, k=KNN_K)
+    lam_pk = ops.knn_predict_kernel(X_db, lam_db, xq, k=KNN_K)
+    torch.cuda.synchronize()
+    if not torch.allclose(lam_pk, lam_hat, **LAM_TOL):
+        fail(f"knn_predict_kernel: lambda-hat outside {LAM_TOL} of the "
+             f"knn_lambda kernel's")
+    pk_err = float((lam_pk - lam_hat).abs().max())
+    lib[("knn_predict_kernel", "bucket")] = ((X_db, lam_db, xq),
+                                             dict(k=KNN_K), lam_hat)
+    table32 = torch.randn((BAG["V"], BAG["D"]), generator=gen, device=dev)
+    bag_idx = torch.randint(0, BAG["V"], (BAG["n_bags"], BAG["bag"]),
+                            generator=gen, device=dev, dtype=torch.int32)
+    pad = torch.rand(bag_idx.shape, generator=gen, device=dev) < 0.1
+    bag_idx = torch.where(pad, torch.full_like(bag_idx, -1), bag_idx)
+    bag_w = torch.randn(bag_idx.shape, generator=gen, device=dev)
+    for label, table in (("f32", table32),
+                         ("bf16", table32.to(torch.bfloat16))):
+        got = embedding_bag_cuda(table, bag_idx, bag_w)
+        torch.cuda.synchronize()
+        want = ref.embedding_bag_ref(table, bag_idx, bag_w)
+        if got.dtype != table.dtype or not torch.equal(got, want):
+            fail(f"embedding_bag {label}: differs from the plain version")
+        err["embedding_bag"] = max(
+            err["embedding_bag"],
+            float((got.float() - want.float()).abs().max()))
+        lib[("embedding_bag", label)] = ((table, bag_idx, bag_w), {}, want)
     log(f"phase 2: kernels equal their plain versions, max abs err {err}; "
         f"knn_lambda's lambda-hat is bitwise knn_rank_audited's, "
         f"knn_lambda_quant's lambda-hat and guard bitwise "
         f"knn_rank_audited_quant's; on the lossless pack both modes equal "
         f"knn_rank_audited bitwise; guard fired on {guard_share} of rows "
-        f"at n_db={N_DB}")
+        f"at n_db={N_DB}; fused_rank's (vals, idx) are rank_audited's; "
+        f"m2=256 took the sort route with no launch; knn_predict_kernel "
+        f"within {pk_err} of knn_lambda; padded bag slots "
+        f"{float(pad.float().mean())}")
 
     # -- offline phase: fit_pipeline, then the Fig. 2 strategies -----------
     o = OFFLINE
@@ -505,7 +643,8 @@ def main() -> int:
             fail(f"offline: the {name} chain differs from its fused route")
     expect = {"rank_audited": 5, "linear_rank_audited": 2,
               "knn_rank_audited": 2, "knn_lambda": 2,
-              "knn_rank_audited_quant": 4, "knn_lambda_quant": 4}
+              "knn_rank_audited_quant": 4, "knn_lambda_quant": 4,
+              "fused_rank": 0, "knn_topk": 0, "embedding_bag": 0}
     if offline_launches != expect:
         fail(f"offline launch counters {offline_launches} != {expect}")
     opt_util = float(fig2["optimal"].utility.mean())
@@ -610,7 +749,8 @@ def main() -> int:
               "knn_rank_audited_quant":
                   n_batches["knn_int8"] * per_batch["knn_int8"]
                   + n_batches["knn_bf16"] * per_batch["knn_bf16"],
-              "knn_lambda_quant": 0}
+              "knn_lambda_quant": 0, "fused_rank": 0, "knn_topk": 0,
+              "embedding_bag": 0}
     if serve_launches != expect or eng.metrics.kernel_launches != sum(
             expect.values()) or per_batch["knn_int8"] != 2:
         fail(f"launch counters {serve_launches} != batches x route launches "
@@ -625,6 +765,41 @@ def main() -> int:
         f"{warm['buckets']}, launches {serve_launches}, compliance "
         f"{summary['compliance']}, latency_ms {summary['latency_ms']}")
     del eng, X_all, u_all, a_all, pipe, fig2, chain, qchains
+
+    # -- phase L: the kernel library's entry points --------------------------
+    entry = {"fused_rank": ops.fused_rank, "knn_topk": ops.knn_topk,
+             "knn_predict_kernel": ops.knn_predict_kernel,
+             "embedding_bag": ops.embedding_bag}
+    torch.cuda.synchronize()
+    reset_counters(wrappers)
+    t0 = time.perf_counter()
+    lib_out = {key: entry[key[0]](*args, **kw)
+               for key, (args, kw, _) in lib.items()}
+    torch.cuda.synchronize()
+    lib_s = time.perf_counter() - t0
+    lib_launches = read_counters(wrappers)
+    for key, out in lib_out.items():
+        want = lib[key][2]
+        if key[0] == "knn_predict_kernel":
+            ok = torch.allclose(out, want, **LAM_TOL)
+        elif key[0] == "embedding_bag":
+            ok = torch.equal(out, want)
+        else:
+            ok = torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+        if not ok:
+            fail(f"library path {' '.join(key)}: the output differs from "
+                 f"phase 2's plain version")
+    calls = {name: sum(k[0] == name for k in lib) for name in entry}
+    expect = dict.fromkeys(wrappers, 0)
+    expect.update(fused_rank=calls["fused_rank"],
+                  knn_topk=2 * (calls["knn_topk"]
+                                + calls["knn_predict_kernel"]),
+                  embedding_bag=calls["embedding_bag"])
+    if lib_launches != expect:
+        fail(f"library path launch counters {lib_launches} != {expect}")
+    log(f"phase L: {len(lib_out)} entry-point calls {calls} in "
+        f"{lib_s:.3f} s, outputs equal to the plain versions, launches "
+        f"{lib_launches}")
 
     # -- phase 4: timing ---------------------------------------------------
     timing = {}
@@ -733,8 +908,56 @@ def main() -> int:
                 library_ms=library_ms, bound_ms=bms, bound_by=by)
         if mode == "int8":
             del db8
+    # the kernel library's three kernels, on phase 2's inputs
+    for label in ("bucket", "retrieval"):
+        (u, a, lam), kw, _ = lib[("fused_rank", label)]
+        Bt, m1t = u.shape
+        reps = 20 if label == "bucket" else 3
+        bms, by = bound(*fused_work(Bt, m1t, a.shape[1], kw["m2"]))
+        timing[("fused_rank", label)] = dict(
+            batch=Bt, m1=m1t,
+            ms=time_ms(lambda: fused_rank_cuda(u, a, lam, eps=EPS, **kw),
+                       reps),
+            plain_ms=time_ms(lambda: ref.fused_rank_ref(u, a, lam,
+                                                        kw["m2"], EPS),
+                             2, groups=3),
+            library_ms=time_ms(lambda: torch.topk(torch.baddbmm(
+                u[:, None], lam[:, None], a, alpha=c_eps)[:, 0], kw["m2"]),
+                reps),
+            bound_ms=bms, bound_by=by)
+    for label in ("bucket", "large"):
+        (xq, xdb), kw, _ = lib[("knn_topk", label)]
+        reps = 10 if label == "bucket" else 2
+        bms, by = bound(*topk_work(xq.shape[0], N_DB, D))
+        timing[("knn_topk", label)] = dict(
+            batch=xq.shape[0],
+            ms=time_ms(lambda: knn_topk_cuda(xq, xdb, **kw), reps),
+            plain_ms=time_ms(lambda: ref.knn_topk_ref(xq, xdb, KNN_K), 1,
+                             groups=3),
+            library_ms=time_ms(lambda: torch.topk(
+                torch.addmm(y2, xq, X_db.T, alpha=-2.0), KNN_K,
+                largest=False), reps),
+            bound_ms=bms, bound_by=by)
+    (Xd, ld, xq), kw, _ = lib[("knn_predict_kernel", "bucket")]
+    predict_ms = time_ms(lambda: ops.knn_predict_kernel(Xd, ld, xq, **kw), 10)
+    # the yardstick sums w * row over the slots with w = 0 at a padded
+    # slot (the JAX oracle's function), its weights in the table's type
+    bag_in = torch.where(pad, torch.zeros_like(bag_idx), bag_idx).long()
+    for label in ("f32", "bf16"):
+        (table, idx, w), _, _ = lib[("embedding_bag", label)]
+        w_lib = torch.where(pad, torch.zeros_like(w), w).to(table.dtype)
+        bms, by = bound(*bag_work(table, idx))
+        timing[("embedding_bag", label)] = dict(
+            bags=idx.shape[0],
+            ms=time_ms(lambda: embedding_bag_cuda(table, idx, w), 20),
+            plain_ms=time_ms(lambda: ref.embedding_bag_ref(table, idx, w),
+                             2, groups=3),
+            library_ms=time_ms(lambda: torch.nn.functional.embedding_bag(
+                bag_in, table, per_sample_weights=w_lib, mode="sum"), 20),
+            bound_ms=bms, bound_by=by)
     for key, tm in timing.items():
         log(f"phase 4: {' '.join(key)} {json.dumps(tm)}")
+    log(f"phase 4: knn_predict_kernel at the bucket {predict_ms} ms")
     # where a KNN lambda-hat kernel's time goes: the sweep against the merge
     xq = torch.randn((B, D), generator=gen, device=dev)
     split = device_split({
@@ -758,12 +981,21 @@ def main() -> int:
                                     "src/repro/kernels/knn_topk.py:426"),
                "knn_rank_audited_quant": (
                    csrc + "knn_rank_audited_quant.cu",
-                   "src/repro/kernels/knn_topk.py:731")}
+                   "src/repro/kernels/knn_topk.py:731"),
+               "fused_rank": (csrc + "fused_rank.cu",
+                              "src/repro/kernels/fused_rank.py:128"),
+               "knn_topk": (csrc + "knn_topk.cu",
+                            "src/repro/kernels/knn_topk.py:129"),
+               "embedding_bag": (csrc + "embedding_bag.cu",
+                                 "src/repro/kernels/embedding_bag.py:76")}
+    main_key = {"fused_rank": ("fused_rank", "bucket"),
+                "embedding_bag": ("embedding_bag", "f32")}
     rows = []
     for name, (source, replaces) in sources.items():
         quant = name.endswith("_quant")
         # a quantized kernel's headline numbers are its int8 mode's
-        main_t = timing[(name, "bucket") + (("int8",) if quant else ())]
+        main_t = timing[main_key.get(
+            name, (name, "bucket") + (("int8",) if quant else ()))]
         shape = {"batch": B, "m1": m1, "K": K, "m2": m2}
         if name == "linear_rank_audited":
             shape.update(d=D, K_pred=K_PRED)
@@ -779,12 +1011,19 @@ def main() -> int:
         elif name == "knn_rank_audited_quant":
             shape.update(n_db=N_DB, d=D, k=KNN_K,
                          k_keep=KNN_K + QUANT_EXTRA, mode="int8")
+        elif name == "knn_topk":
+            shape = {"batch": B, "n_db": N_DB, "d": D, "k": KNN_K}
+        elif name == "embedding_bag":
+            shape = dict(BAG, table="f32", padded_share=float(
+                pad.float().mean()))
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": offline_launches[name] + serve_launches[name],
+            "launches": (offline_launches[name] + serve_launches[name]
+                         + lib_launches[name]),
             "launches_by_path": {"offline_holdout": offline_launches[name],
-                                 "serving": serve_launches[name]},
+                                 "serving": serve_launches[name],
+                                 "kernel_library": lib_launches[name]},
             "max_abs_err": err[name], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
             "bound_by": main_t["bound_by"],
@@ -797,10 +1036,16 @@ def main() -> int:
                 library=library, guard_share_at_n_db=guard_share)
             if name == "knn_lambda_quant":
                 rows[-1]["split_ms"] = {m: split[m] for m in MODES}
+        elif name == "fused_rank":
+            rows[-1]["retrieval"] = timing[(name, "retrieval")]
+        elif name == "embedding_bag":
+            rows[-1]["bf16"] = timing[(name, "bf16")]
         else:
             rows[-1]["large"] = timing[(name, "large")]
             if name == "knn_lambda":
                 rows[-1]["split_ms"] = split["f32"]
+            if name == "knn_topk":
+                rows[-1]["knn_predict_kernel_ms"] = predict_ms
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -91,7 +91,8 @@ def _check_backend(backend: str) -> None:
 
 
 def rank_given_lambda(u, a, b, lam, gamma, *, m2: int, eps: float = 1e-4,
-                      backend: str = "torch") -> RankingOutput:
+                      backend: str = "torch",
+                      tol: float = AUDIT_TOL) -> RankingOutput:
     """s = u + (1+eps) lam @ a; top-m2 by s; audit the selection.
 
     backend='torch' is the oracle body of repro.core.ranking.
@@ -103,7 +104,7 @@ def rank_given_lambda(u, a, b, lam, gamma, *, m2: int, eps: float = 1e-4,
     if backend == "kernel":
         from repro_torch.kernels.ops import rank_audited  # deferred: no cycle
 
-        return rank_audited(u, a, b, lam, gamma, m2=m2, eps=eps,
+        return rank_audited(u, a, b, lam, gamma, m2=m2, eps=eps, tol=tol,
                             device=u.device)
     n = u.shape[0]
     if a.dim() == 2:
@@ -117,7 +118,8 @@ def rank_given_lambda(u, a, b, lam, gamma, *, m2: int, eps: float = 1e-4,
     idx = perm.long()
     u_sel = torch.gather(u, 1, idx)
     a_sel = torch.gather(a, 2, idx[:, None, :].expand(-1, a.shape[1], -1))
-    utility, exposure, compliant = audit_selected(u_sel, a_sel, gamma, b)
+    utility, exposure, compliant = audit_selected(u_sel, a_sel, gamma, b,
+                                                  tol=tol)
     return RankingOutput(perm=perm, utility=utility, exposure=exposure,
                          compliant=compliant, lam=lam)
 

@@ -20,7 +20,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("rank_audited", "knn_rank_audited", "linear_rank_audited",
-           "knn_lambda", "knn_lambda_quant", "knn_rank_audited_quant")
+           "knn_lambda", "knn_lambda_quant", "knn_rank_audited_quant",
+           "fused_rank", "knn_topk", "embedding_bag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -39,6 +40,9 @@ SIGNATURES = {
                          [_P] * 9 + [_I] * 12 + [_P]),
     "knn_rank_audited_quant": ("knn_rank_audited_quant_launch",
                                [_P] * 18 + [_I] * 16 + [_F, _F, _P]),
+    "fused_rank": ("fused_rank_launch", [_P] * 5 + [_I] * 5 + [_F, _P]),
+    "knn_topk": ("knn_topk_launch", [_P] * 6 + [_I] * 7 + [_P]),
+    "embedding_bag": ("embedding_bag_launch", [_P] * 4 + [_I] * 4 + [_P]),
 }
 
 _lock = threading.Lock()

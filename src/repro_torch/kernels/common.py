@@ -28,7 +28,8 @@ MAX_KERNEL_K = 32    # constraint rows a kernel takes (the largest K tier)
 KNN_QTILE = 32       # queries per block of the KNN distance sweep
 KNN_CHUNK = 2048     # database rows per block of the KNN distance sweep
 KNN_MAX_K = 16       # neighbours a KNN kernel keeps per query
-KNN_MAX_D = 128      # covariate width the KNN sweep's shared tiles hold
+KNN_MAX_D = 256      # covariate width the f32 KNN sweep's shared tiles hold
+KNN_QUANT_MAX_D = 128  # covariate width of the quantized merge's rows
 
 # -- the quantized KNN database ------------------------------------------
 QUANT_MODES = ("off", "bf16", "int8")

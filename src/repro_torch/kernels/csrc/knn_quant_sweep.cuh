@@ -210,18 +210,6 @@ inline size_t quant_sweep_smem(int D, int KK, int st, bool int8) {
          sizeof(float);
 }
 
-// Raise a kernel's dynamic shared-memory limit to `bytes` when its
-// static and dynamic shared memory together may pass the default 48 KB
-// (the kernels' static arrays take at most a few KB); returns
-// cudaGetLastError().
-template <typename F>
-inline int allow_smem(F* kernel, size_t bytes) {
-  if (bytes > 40 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)bytes);
-  return (int)cudaGetLastError();
-}
-
 // Starts launch A' on `stream`; returns cudaGetLastError().
 inline int launch_quant_chunk_topk(const float* xq, const void* xdbq,
                                    const float* q_scale, const float* y2q,

@@ -1,13 +1,15 @@
-// Shared KNN device code of the port's two KNN kernels (knn_lambda.cu,
-// knn_rank_audited.cu): the database sweep (launch A) and the per-query
-// merge + inverse-distance weighting. Both kernels run this code
-// verbatim, so on the same queries and db their lambda-hat agree bitwise.
+// Shared KNN device code of the port's f32 KNN kernels (knn_topk.cu,
+// knn_lambda.cu, knn_rank_audited.cu): the database sweep (launch A),
+// the per-query merge of its partial lists and the inverse-distance
+// weighting. The kernels run this code verbatim, so on the same queries
+// and db they select the same neighbours and their lambda-hat agree
+// bitwise.
 //
 // Replaces the shared bodies of the TPU kernels in
-// src/repro/kernels/knn_topk.py (_db_slab_merge, _idw_lambda_flush),
-// whose grid swept the train db slab by slab on one core with a running
-// top-k in VMEM. Blocks here run in parallel and in no order, so the
-// sweep is split across blocks:
+// src/repro/kernels/knn_topk.py (_knn_kernel, _db_slab_merge,
+// _idw_lambda_flush), whose grid swept the train db slab by slab on one
+// core with a running top-k in VMEM. Blocks here run in parallel and in
+// no order, so the sweep is split across blocks:
 //
 //   Launch A, grid (query tiles x db chunks): a block holds kQT queries
 //     in shared memory and streams its chunk of db rows through shared
@@ -166,7 +168,21 @@ __global__ void __launch_bounds__(kBlock) chunk_topk_kernel(
   }
 }
 
-// Starts launch A on `stream`; returns cudaGetLastError().
+// Raise a kernel's dynamic shared-memory limit to `bytes` when its
+// static and dynamic shared memory together may pass the default 48 KB
+// (the kernels' static arrays take at most a few KB); returns
+// cudaGetLastError().
+template <typename F>
+inline int allow_smem(F* kernel, size_t bytes) {
+  if (bytes > 40 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)bytes);
+  return (int)cudaGetLastError();
+}
+
+// Starts launch A on `stream`; returns cudaGetLastError(). From d = 128
+// on the tiles pass 48 KB (kernels/knn_topk.py's sweep_tile budgets
+// 96 KB), which the opt-in attribute allows.
 inline int launch_chunk_topk(const float* xq, const float* xdb, int B,
                              int N, int D, int k, int chunk, int st,
                              int n_chunks, float* ws_d2, int* ws_idx,
@@ -174,6 +190,8 @@ inline int launch_chunk_topk(const float* xq, const float* xdb, int B,
   const int tile = st * (D + 1), lists = kQT * kSub * k * 2;
   const size_t smem =
       (size_t)(kQT * (D + 1) + (tile > lists ? tile : lists)) * sizeof(float);
+  const int err = allow_smem(chunk_topk_kernel, smem);
+  if (err) return err;
   dim3 grid((B + kQT - 1) / kQT, n_chunks);
   chunk_topk_kernel<<<grid, kBlock, smem, stream>>>(
       xq, xdb, B, N, D, k, chunk, st, n_chunks, ws_d2, ws_idx);

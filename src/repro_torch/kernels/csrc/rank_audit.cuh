@@ -1,9 +1,11 @@
-// Shared rank + audit routine of the port's two CUDA kernels.
+// Shared rank + audit routine of the port's CUDA rank kernels.
 //
 // Replaces the bodies of the TPU kernel fused_rank.rank_audited_pallas
 // (src/repro/kernels/fused_rank.py: _merge_scored_tile, _audit_flush),
 // which kept a running top-m2 in VMEM with u and a riding along as
-// payload. Here one 256-thread block ranks one row:
+// payload, and of fused_rank_pallas (_fused_rank_kernel), the same top-m2
+// without the payload. Here one 256-thread block ranks one row
+// (rank_row) and, for the audited kernels, audits it (audit_row):
 //
 //   * s = u + (1+eps) * sum_k lam_k a_k is formed in the Pallas kernel's
 //     order, an unrolled axpy over k (s starts at u and adds
@@ -66,18 +68,16 @@ __device__ inline void bitonic_sort(float* key, int* idx, int P) {
   }
 }
 
-// Ranks and audits one row with the whole block. coef (shared, K
-// entries) holds (1+eps) * lam_k; key/idx are P-entry shared buffers.
-// u: (m1,), a: (K, m1), b: (K,), gamma: (m2,) of this row. Requires
+// Ranks one row with the whole block: the tile stream and the bitonic
+// sort. coef (shared, K entries) holds (1+eps) * lam_k; key/idx are
+// P-entry shared buffers. u: (m1,), a: (K, m1) of this row. Requires
 // 1 <= m2 <= m1, m2 < P <= kSortMax, K <= kMaxK. The caller has synced
-// after writing coef.
-__device__ inline void rank_audit_row(
+// after writing coef. Writes the top-m2 to vals and out_idx and leaves
+// them in the first m2 slots of key/idx; ends synced.
+__device__ inline void rank_row(
     const float* __restrict__ u, const float* __restrict__ a,
-    const float* coef, const float* __restrict__ b,
-    const float* __restrict__ gamma, int m1, int K, int m2, int P,
-    float tol, float* key, int* idx, float* vals, int* out_idx,
-    float* util, float* expo, int* comp) {
-  __shared__ float expo_s[kMaxK];
+    const float* coef, int m1, int K, int m2, int P, float* key, int* idx,
+    float* vals, int* out_idx) {
   for (int start = 0, tile = 0; start < m1; ++tile) {
     const int off = tile == 0 ? 0 : m2;
     const int width = P - off;
@@ -102,18 +102,30 @@ __device__ inline void rank_audit_row(
     vals[j] = key[j];
     out_idx[j] = idx[j];
   }
+}
+
+// The audit epilogue of a ranked row: the m2 winners' indices sel
+// (shared, from rank_row), u, a, b and gamma of this row. Thread t < K
+// sums exposure_t and thread K the utility, slot by slot; thread 0 then
+// writes compliant.
+__device__ inline void audit_row(
+    const float* __restrict__ u, const float* __restrict__ a,
+    const float* __restrict__ b, const float* __restrict__ gamma, int m1,
+    int K, int m2, float tol, const int* sel, float* util, float* expo,
+    int* comp) {
+  __shared__ float expo_s[kMaxK];
   const int t = threadIdx.x;
   if (t < K) {
     const float* ak = a + (size_t)t * m1;
     float e = 0.0f;
     for (int j = 0; j < m2; ++j)
-      e = __fadd_rn(e, __fmul_rn(ak[idx[j]], gamma[j]));
+      e = __fadd_rn(e, __fmul_rn(ak[sel[j]], gamma[j]));
     expo_s[t] = e;
     expo[t] = e;
   } else if (t == K) {
     float ut = 0.0f;
     for (int j = 0; j < m2; ++j)
-      ut = __fadd_rn(ut, __fmul_rn(u[idx[j]], gamma[j]));
+      ut = __fadd_rn(ut, __fmul_rn(u[sel[j]], gamma[j]));
     *util = ut;
   }
   __syncthreads();
@@ -123,6 +135,18 @@ __device__ inline void rank_audit_row(
       ok &= expo_s[k] >= __fsub_rn(b[k], tol) ? 1 : 0;
     *comp = ok;
   }
+}
+
+// Ranks and audits one row: rank_row, then audit_row. b: (K,), gamma:
+// (m2,) of this row; the rest as rank_row.
+__device__ inline void rank_audit_row(
+    const float* __restrict__ u, const float* __restrict__ a,
+    const float* coef, const float* __restrict__ b,
+    const float* __restrict__ gamma, int m1, int K, int m2, int P,
+    float tol, float* key, int* idx, float* vals, int* out_idx,
+    float* util, float* expo, int* comp) {
+  rank_row(u, a, coef, m1, K, m2, P, key, idx, vals, out_idx);
+  audit_row(u, a, b, gamma, m1, K, m2, tol, idx, util, expo, comp);
 }
 
 }  // namespace rk

@@ -1,11 +1,14 @@
-"""The rank + audit kernels' wrappers (counterparts of
-repro.kernels.fused_rank.rank_audited_pallas and
+"""The rank kernels' wrappers (counterparts of
+repro.kernels.fused_rank.fused_rank_pallas, rank_audited_pallas and
 linear_rank_audited_pallas), beside their plain versions.
 
-Both kernels (csrc/rank_audited.cu, csrc/linear_rank_audited.cu) rank
-one row per block; linear_rank_audited first forms lambda-hat = X W^T + c
-in its prologue. On a CPU tensor a wrapper runs the plain version
-(`ref.rank_audited_ref`, `ref.linear_rank_audited_ref`).
+All three kernels (csrc/fused_rank.cu, csrc/rank_audited.cu,
+csrc/linear_rank_audited.cu) rank one row per block with
+csrc/rank_audit.cuh's rank_row; the two audited ones then audit the
+row, and linear_rank_audited first forms lambda-hat = X W^T + c in its
+prologue. On a CPU tensor a wrapper runs the plain version
+(`ref.fused_rank_ref`, `ref.rank_audited_ref`,
+`ref.linear_rank_audited_ref`).
 """
 
 from __future__ import annotations
@@ -17,11 +20,15 @@ from repro_torch.core.ranking import AUDIT_TOL
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.common import MAX_KERNEL_K, SORT_MAX, check_tensor
-from repro_torch.kernels.ref import linear_rank_audited_ref, rank_audited_ref
+from repro_torch.kernels.ref import (
+    fused_rank_ref,
+    linear_rank_audited_ref,
+    rank_audited_ref,
+)
 
-__all__ = ["MAX_KERNEL_M2", "linear_rank_audited_cuda",
-           "linear_rank_audited_ref", "rank_audited_cuda",
-           "rank_audited_ref", "sort_width"]
+__all__ = ["MAX_KERNEL_M2", "fused_rank_cuda", "fused_rank_ref",
+           "linear_rank_audited_cuda", "linear_rank_audited_ref",
+           "rank_audited_cuda", "rank_audited_ref", "sort_width"]
 
 MAX_KERNEL_M2 = 128
 
@@ -34,7 +41,8 @@ def sort_width(m1: int, m2: int) -> int:
 
 
 def check_rank_args(u, a, b, lam, gamma, m2: int, dev: torch.device):
-    """Validate the rank+audit inputs of both kernels; returns (n, m1, K)."""
+    """Validate the rank inputs of the kernels; returns (n, m1, K). b and
+    gamma are None for the unaudited fused_rank."""
     n, m1 = u.shape
     K = a.shape[1]
     if not 1 <= m2 <= min(m1, MAX_KERNEL_M2):
@@ -46,11 +54,37 @@ def check_rank_args(u, a, b, lam, gamma, m2: int, dev: torch.device):
     f32 = torch.float32
     check_tensor("u", u, (n, m1), f32, dev)
     check_tensor("a", a, (n, K, m1), f32, dev)
-    check_tensor("b", b, (n, K), f32, dev)
-    check_tensor("gamma", gamma, (n, m2), f32, dev)
+    if b is not None:
+        check_tensor("b", b, (n, K), f32, dev)
+    if gamma is not None:
+        check_tensor("gamma", gamma, (n, m2), f32, dev)
     if lam is not None:
         check_tensor("lam", lam, (n, K), f32, dev)
     return n, m1, K
+
+
+def fused_rank_cuda(u, a, lam, *, m2: int, eps: float = 1e-4, device=None):
+    """Adjusted-score top-m2: u (n, m1), a (n, K, m1), lam (n, K), all f32
+    and contiguous on `device` (None = the card) -> (vals (n, m2) desc,
+    idx (n, m2) int32), ties to the lower item index. One launch per
+    call; every launch adds one to `fused_rank_cuda.launches`."""
+    dev = resolve_device(device)
+    n, m1, K = check_rank_args(u, a, None, lam, None, m2, dev)
+    if dev.type == "cpu":
+        return fused_rank_ref(u, a, lam, m2, eps)
+    vals = torch.empty((n, m2), dtype=torch.float32, device=dev)
+    idx = torch.empty((n, m2), dtype=torch.int32, device=dev)
+    if n:
+        build.launch(
+            "fused_rank", u.data_ptr(), a.data_ptr(), lam.data_ptr(),
+            vals.data_ptr(), idx.data_ptr(), n, m1, K, m2,
+            sort_width(m1, m2), float(np.float32(1.0 + eps)),
+            torch.cuda.current_stream(dev).cuda_stream)
+        fused_rank_cuda.launches += 1
+    return vals, idx
+
+
+fused_rank_cuda.launches = 0
 
 
 def rank_audited_cuda(u, a, b, lam, gamma, *, m2: int, eps: float = 1e-4,

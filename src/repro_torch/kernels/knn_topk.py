@@ -1,19 +1,21 @@
 """The KNN kernels' wrappers (counterparts of
-repro.kernels.knn_topk.knn_rank_audited_pallas, knn_lambda_pallas and
-their quantized twins), beside their plain versions.
+repro.kernels.knn_topk.knn_topk_pallas, knn_rank_audited_pallas,
+knn_lambda_pallas and the quantized twins of the last two), beside their
+plain versions.
 
 Each kernel is two launches: a distance sweep split across blocks by
 query tile and db chunk, then one block per query that merges the
-partial top-k lists and weights lambda-hat. knn_rank_audited
-(csrc/knn_rank_audited.cu) then ranks and audits the row; knn_lambda
-(csrc/knn_lambda.cu) writes lambda-hat only; both share
-csrc/knn_sweep.cuh. knn_rank_audited_quant and knn_lambda_quant are the
-same pair over the int8 or bf16 packed db (csrc/knn_quant_sweep.cuh):
-the sweep keeps k + k_extra survivors, which the merge re-scores
-exactly in f32, re-ranks to k and flags with the margin guard. On a CPU
-tensor a wrapper runs the plain version (`ref.knn_rank_audited_ref`,
-`ref.knn_lambda_ref`, `ref.knn_rank_audited_quant_ref`,
-`ref.knn_lambda_quant_ref`).
+partial top-k lists. knn_topk (csrc/knn_topk.cu) writes the merged
+(d2, idx); knn_lambda (csrc/knn_lambda.cu) weights lambda-hat and
+writes it; knn_rank_audited (csrc/knn_rank_audited.cu) weights it, then
+ranks and audits the row; all three share csrc/knn_sweep.cuh.
+knn_rank_audited_quant and knn_lambda_quant are the last two over the
+int8 or bf16 packed db (csrc/knn_quant_sweep.cuh): the sweep keeps
+k + k_extra survivors, which the merge re-scores exactly in f32,
+re-ranks to k and flags with the margin guard. On a CPU tensor a
+wrapper runs the plain version (`ref.knn_topk_ref`,
+`ref.knn_rank_audited_ref`, `ref.knn_lambda_ref`,
+`ref.knn_rank_audited_quant_ref`, `ref.knn_lambda_quant_ref`).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from repro_torch.kernels.common import (
     KNN_MAX_D,
     KNN_MAX_K,
     KNN_QTILE,
+    KNN_QUANT_MAX_D,
     KNN_QUANT_MAX_KEEP,
     MAX_KERNEL_K,
     QUANT_EXTRA,
@@ -42,15 +45,18 @@ from repro_torch.kernels.ref import (
     knn_lambda_ref,
     knn_rank_audited_quant_ref,
     knn_rank_audited_ref,
+    knn_topk_ref,
 )
 
 __all__ = ["knn_lambda_cuda", "knn_lambda_quant_cuda", "knn_lambda_ref",
            "knn_lambda_quant_ref", "knn_rank_audited_cuda",
            "knn_rank_audited_quant_cuda", "knn_rank_audited_quant_ref",
-           "knn_rank_audited_ref", "quant_sweep_tile", "sweep_tile"]
+           "knn_rank_audited_ref", "knn_topk_cuda", "knn_topk_ref",
+           "quant_sweep_tile", "sweep_tile"]
 
-_SMEM_FLOATS = 48 * 1024 // 4  # static shared-memory limit of one block
-_QUANT_SMEM_FLOATS = 96 * 1024 // 4  # the quantized sweep's dynamic budget
+# Dynamic shared memory a sweep block may use (the launchers raise the
+# kernel's limit past the default 48 KB with the opt-in attribute).
+_SMEM_FLOATS = 96 * 1024 // 4
 _KNN_SUB = 8                    # threads per query in the distance sweep
 
 
@@ -67,26 +73,66 @@ def sweep_tile(D: int, k: int) -> int:
     return st
 
 
-def _check_sweep(xq, xdb, lam_db, k: int, dev: torch.device):
-    """Validate the KNN sweep's inputs; returns (B, N, D, K_pred, st,
+def _check_sweep(xq, xdb, k: int, dev: torch.device):
+    """Validate the f32 KNN sweep's inputs; returns (B, N, D, st,
     n_chunks), the tile and grid only on the card."""
     N, D = xdb.shape
-    B, k_pred = xq.shape[0], lam_db.shape[1]
+    B = xq.shape[0]
     if not 1 <= k <= min(N, KNN_MAX_K):
         raise ValueError(f"the kernel needs 1 <= k <= min(n_train, "
                          f"{KNN_MAX_K}), got k={k}, n_train={N}")
     if D > KNN_MAX_D:
         raise ValueError(f"the kernel takes d <= {KNN_MAX_D}, got {D}")
-    f32 = torch.float32
-    check_tensor("xq", xq, (B, D), f32, dev)
-    check_tensor("xdb", xdb, (N, D), f32, dev)
-    check_tensor("lam_db", lam_db, (N, k_pred), f32, dev)
+    check_tensor("xq", xq, (B, D), torch.float32, dev)
+    check_tensor("xdb", xdb, (N, D), torch.float32, dev)
     if dev.type == "cpu":
-        return B, N, D, k_pred, 0, 0
+        return B, N, D, 0, 0
     n_chunks = -(-N // KNN_CHUNK)
     if n_chunks > 65535:                 # the sweep grid's y extent
         raise ValueError(f"n_train={N} exceeds {65535 * KNN_CHUNK} rows")
-    return B, N, D, k_pred, sweep_tile(D, k), n_chunks
+    return B, N, D, sweep_tile(D, k), n_chunks
+
+
+def _check_lam_db(lam_db, N: int, dev: torch.device) -> int:
+    """Validate the db's lambda rows (N, K_pred); returns K_pred."""
+    k_pred = lam_db.shape[1]
+    check_tensor("lam_db", lam_db, (N, k_pred), torch.float32, dev)
+    return k_pred
+
+
+def _workspace(B: int, n_chunks: int, k: int, dev: torch.device):
+    """The sweep's (B, n_chunks, k) partial lists: d2 f32, idx int32."""
+    return (torch.empty((B, n_chunks, k), dtype=torch.float32, device=dev),
+            torch.empty((B, n_chunks, k), dtype=torch.int32, device=dev))
+
+
+def knn_topk_cuda(xq, xdb, *, k: int = 10, device=None):
+    """The k nearest db rows of each query under squared L2: xq (B, D),
+    xdb (N, D), f32 or bf16 (a bf16 operand is widened to f32 first, as
+    the TPU kernel widens each tile), contiguous on `device` (None = the
+    card) -> (d2 (B, k) ascending f32, idx (B, k) int32), ties to the
+    lower index. Two launches per call; each adds one to
+    `knn_topk_cuda.launches`."""
+    dev = resolve_device(device)
+    xq, xdb = (x.float() if x.dtype == torch.bfloat16 else x
+               for x in (xq, xdb))
+    B, N, D, st, n_chunks = _check_sweep(xq, xdb, k, dev)
+    if dev.type == "cpu":
+        return knn_topk_ref(xq, xdb, k)
+    ws_d2, ws_idx = _workspace(B, n_chunks, k, dev)
+    d2 = torch.empty((B, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if B:
+        build.launch(
+            "knn_topk", xq.data_ptr(), xdb.data_ptr(), ws_d2.data_ptr(),
+            ws_idx.data_ptr(), d2.data_ptr(), idx.data_ptr(), B, N, D, k,
+            KNN_CHUNK, st, n_chunks,
+            torch.cuda.current_stream(dev).cuda_stream)
+        knn_topk_cuda.launches += 2
+    return d2, idx
+
+
+knn_topk_cuda.launches = 0
 
 
 def knn_lambda_cuda(xq, xdb, lam_db, *, k: int = 10, device=None):
@@ -94,16 +140,15 @@ def knn_lambda_cuda(xq, xdb, lam_db, *, k: int = 10, device=None):
     and contiguous on `device` (None = the card) -> lam (B, K_pred). Two
     launches per call; each adds one to `knn_lambda_cuda.launches`."""
     dev = resolve_device(device)
-    B, N, D, k_pred, st, n_chunks = _check_sweep(xq, xdb, lam_db, k, dev)
+    B, N, D, st, n_chunks = _check_sweep(xq, xdb, k, dev)
+    k_pred = _check_lam_db(lam_db, N, dev)
     if not 1 <= k_pred <= MAX_KERNEL_K:
         raise ValueError(f"the kernel takes 1 <= K_pred <= {MAX_KERNEL_K}, "
                          f"got {k_pred}")
     if dev.type == "cpu":
         return knn_lambda_ref(xq, xdb, lam_db, k)
-    f32 = torch.float32
-    ws_d2 = torch.empty((B, n_chunks, k), dtype=f32, device=dev)
-    ws_idx = torch.empty((B, n_chunks, k), dtype=torch.int32, device=dev)
-    lam = torch.empty((B, k_pred), dtype=f32, device=dev)
+    ws_d2, ws_idx = _workspace(B, n_chunks, k, dev)
+    lam = torch.empty((B, k_pred), dtype=torch.float32, device=dev)
     if B:
         build.launch(
             "knn_lambda", xq.data_ptr(), xdb.data_ptr(), lam_db.data_ptr(),
@@ -132,14 +177,14 @@ def knn_rank_audited_cuda(xq, xdb, lam_db, u, a, b, gamma, *, k: int = 10,
     B, m1, K = check_rank_args(u, a, b, None, gamma, m2, dev)
     if xq.shape[0] != B:
         raise ValueError(f"xq carries {xq.shape[0]} rows, the problem {B}")
-    _, N, D, k_pred, st, n_chunks = _check_sweep(xq, xdb, lam_db, k, dev)
+    _, N, D, st, n_chunks = _check_sweep(xq, xdb, k, dev)
+    k_pred = _check_lam_db(lam_db, N, dev)
     check_pred_width(k_pred, K)
     if dev.type == "cpu":
         return knn_rank_audited_ref(xq, xdb, lam_db, u, a, b, gamma, k=k,
                                     m2=m2, eps=eps, tol=tol)
     f32 = torch.float32
-    ws_d2 = torch.empty((B, n_chunks, k), dtype=f32, device=dev)
-    ws_idx = torch.empty((B, n_chunks, k), dtype=torch.int32, device=dev)
+    ws_d2, ws_idx = _workspace(B, n_chunks, k, dev)
     vals = torch.empty((B, m2), dtype=f32, device=dev)
     idx = torch.empty((B, m2), dtype=torch.int32, device=dev)
     util = torch.empty((B,), dtype=f32, device=dev)
@@ -170,7 +215,7 @@ def quant_sweep_tile(D: int, k_keep: int, mode: str) -> int:
     D floats (widened) plus its y2; the tile's region later holds the
     KNN_QTILE * 8 survivor lists of k_keep pairs."""
     words = (D + 3) // 4
-    budget = _QUANT_SMEM_FLOATS - KNN_QTILE * (D + 2 + words)
+    budget = _SMEM_FLOATS - KNN_QTILE * (D + 2 + words)
     if KNN_QTILE * _KNN_SUB * k_keep * 2 > budget:
         raise ValueError(f"d={D}, k_keep={k_keep}: the quantized sweep's "
                          f"lists exceed its shared memory")
@@ -196,8 +241,8 @@ def _check_quant_sweep(xq, X_q, q_scale, y2_q, lam_db, k: int,
             f"k_extra >= 1 and k + k_extra <= min(n_pad, "
             f"{KNN_QUANT_MAX_KEEP}), got k={k}, k_extra={k_extra}, "
             f"n_train={n_train}, n_pad={n_pad}")
-    if D > KNN_MAX_D:
-        raise ValueError(f"the kernel takes d <= {KNN_MAX_D}, got {D}")
+    if D > KNN_QUANT_MAX_D:
+        raise ValueError(f"the kernel takes d <= {KNN_QUANT_MAX_D}, got {D}")
     f32 = torch.float32
     check_tensor("xq", xq, (B, D), f32, dev)
     check_tensor("X_q", X_q, (n_pad, D), X_q.dtype, dev)
@@ -231,8 +276,7 @@ def knn_lambda_quant_cuda(xq, X_q, q_scale, y2_q, lam_db, *, k: int = 10,
         return knn_lambda_quant_ref(xq, X_q, q_scale, y2_q, lam_db, k,
                                     k_extra=k_extra, mode=mode)
     kk = k + k_extra
-    ws_d2 = torch.empty((B, n_chunks, kk), dtype=torch.float32, device=dev)
-    ws_idx = torch.empty((B, n_chunks, kk), dtype=torch.int32, device=dev)
+    ws_d2, ws_idx = _workspace(B, n_chunks, kk, dev)
     lam = torch.empty((B, k_pred), dtype=torch.float32, device=dev)
     guard = torch.empty((B, 1), dtype=torch.int32, device=dev)
     if B:
@@ -276,8 +320,7 @@ def knn_rank_audited_quant_cuda(xq, X_q, q_scale, y2_q, lam_db, u, a, b,
             m2=m2, k_extra=k_extra, eps=eps, tol=tol)
     f32 = torch.float32
     kk = k + k_extra
-    ws_d2 = torch.empty((B, n_chunks, kk), dtype=f32, device=dev)
-    ws_idx = torch.empty((B, n_chunks, kk), dtype=torch.int32, device=dev)
+    ws_d2, ws_idx = _workspace(B, n_chunks, kk, dev)
     vals = torch.empty((B, m2), dtype=f32, device=dev)
     idx = torch.empty((B, m2), dtype=torch.int32, device=dev)
     util = torch.empty((B,), dtype=f32, device=dev)

@@ -2,7 +2,8 @@
 routes a micro-batch to its kernel by predictor and returns a complete
 RankingOutput.
 
-Routes, with their launches per micro-batch on the card:
+Routes of the online stage, with their launches per micro-batch on the
+card:
   predictor=None  lambda given: `rank_audited`, one launch;
   mean, linear    `linear_rank_audited`, one launch (lambda-hat = X W^T + c
                   in the prologue; mean is W = 0 with the clamp off);
@@ -14,6 +15,14 @@ A KNN predictor that carries a quantized db (`quant` "int8" or "bf16")
 takes the same routes through the quantized twins,
 `knn_rank_audited_quant` and `knn_lambda_quant`, with the same launch
 counts.
+The lambda-given route (`rank_audited`, and `fused_rank` without the
+audit) takes the JAX dispatcher's XLA route for m2 > MAX_KERNEL_M2,
+chosen by m2 alone and on every device: the einsum score, a stable
+sort and the audit as torch ops (no launch). The affine and KNN routes
+raise for such an m2 on the card.
+The kernel library's other entry points, as `repro.kernels` exports
+them: `knn_topk` (two launches), `knn_predict_kernel` (`knn_topk`, then
+the inverse-distance weighting as torch ops) and `embedding_bag` (one).
 Every entry point takes `device` (None = the card). On the card a route
 launches its kernel or raises; only `device="cpu"` runs the plain
 PyTorch versions. Nothing is padded per call beyond the affine
@@ -27,19 +36,27 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.assignment import rank_by_sort
 from repro_torch.core.predictors import (
     KNNLambdaPredictor,
     LinearLambdaPredictor,
     MeanLambdaPredictor,
+    _idw_lambda,
     check_pack,
     pack_knn_db,
 )
-from repro_torch.core.ranking import AUDIT_TOL, RankingOutput
+from repro_torch.core.ranking import (
+    AUDIT_TOL,
+    RankingOutput,
+    rank_given_lambda,
+)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.common import QUANT_EXTRA, QUANT_MODES
+from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.fused_rank import (
     MAX_KERNEL_M2,
+    fused_rank_cuda,
     linear_rank_audited_cuda,
     rank_audited_cuda,
 )
@@ -48,11 +65,20 @@ from repro_torch.kernels.knn_topk import (
     knn_lambda_quant_cuda,
     knn_rank_audited_cuda,
     knn_rank_audited_quant_cuda,
+    knn_topk_cuda,
 )
 
 
 def _f32(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+
+
+def _f32_or_bf16(x, dev: torch.device) -> torch.Tensor:
+    """x contiguous on `dev`: bf16 if it is bf16, f32 otherwise."""
+    x = torch.as_tensor(x, device=dev)
+    if x.dtype != torch.bfloat16:
+        x = x.to(torch.float32)
+    return x.contiguous()
 
 
 def _rank_inputs(u, a, b, gamma, dev):
@@ -71,30 +97,47 @@ def _rank_inputs(u, a, b, gamma, dev):
 
 
 def _check_m2(m2: int, dev: torch.device) -> bool:
-    """True when the kernels take m2; on the card a larger m2 raises."""
+    """True when the affine and KNN kernels take m2; on the card a larger
+    m2 raises (the lambda-given routes sort instead)."""
     if m2 <= MAX_KERNEL_M2:
         return True
     if dev.type == "cuda":
         raise NotImplementedError(
-            f"m2={m2} > {MAX_KERNEL_M2}: the full-sort route for large m2 "
-            f"is not ported to the card yet (ROADMAP Queue 1 item 4)")
+            f"m2={m2} > {MAX_KERNEL_M2}: the affine and KNN routes for "
+            f"large m2 are not ported to the card yet (ROADMAP Queue 1 "
+            f"item 4)")
     return False
+
+
+def fused_rank(u, a, lam, *, m2: int, eps: float = 1e-4, device=None):
+    """Adjusted-score top-m2: u (n, m1), a (n, K, m1), lam (n, K) ->
+    (vals (n, m2) desc f32, idx (n, m2) int32), ties to the lower item
+    index. The `fused_rank` kernel for m2 <= MAX_KERNEL_M2; above it the
+    oracle's einsum score and a stable sort, on any device."""
+    dev = resolve_device(device)
+    u, a, lam = _f32(u, dev), _f32(a, dev), _f32(lam, dev)
+    if m2 <= MAX_KERNEL_M2:
+        return fused_rank_cuda(u, a, lam, m2=m2, eps=eps, device=dev)
+    s = ref.dual_adjust_ref(u, a, lam, eps)
+    idx = rank_by_sort(s, m2)
+    return torch.gather(s, 1, idx.long()), idx
 
 
 def rank_audited(u, a, b, lam, gamma, *, m2: int, eps: float = 1e-4,
                  tol: float | None = None, device=None) -> RankingOutput:
     """Rank + audit with lambda given: u (n, m1), a (n, K, m1) or
-    (K, m1), b (n, K) or (K,), lam (n, K), gamma (n, m2) or (m2,)."""
+    (K, m1), b (n, K) or (K,), lam (n, K), gamma (n, m2) or (m2,). The
+    `rank_audited` kernel for m2 <= MAX_KERNEL_M2; above it
+    core.ranking.rank_given_lambda's torch body, on any device."""
     dev = resolve_device(device)
     tol = AUDIT_TOL if tol is None else tol
     u, a, b, gamma = _rank_inputs(u, a, b, gamma, dev)
     lam = _f32(lam, dev)
-    if _check_m2(m2, dev):
-        _, idx, util, expo, comp = rank_audited_cuda(
-            u, a, b, lam, gamma, m2=m2, eps=eps, tol=tol, device=dev)
-    else:
-        _, idx, util, expo, comp = ref.rank_audited_ref(
-            u, a, b, lam, gamma, m2, eps, tol)
+    if m2 > MAX_KERNEL_M2:
+        return rank_given_lambda(u, a, b, lam, gamma, m2=m2, eps=eps,
+                                 tol=tol)
+    _, idx, util, expo, comp = rank_audited_cuda(
+        u, a, b, lam, gamma, m2=m2, eps=eps, tol=tol, device=dev)
     return RankingOutput(perm=idx, utility=util, exposure=expo,
                          compliant=comp, lam=lam)
 
@@ -185,6 +228,49 @@ def knn_lambda(X, X_db, lam_db, *, k: int = 10, quant: str = "off",
     lam, _ = knn_lambda_quant_cuda(X, *pack, lam_db, k=k, k_extra=k_extra,
                                    mode=quant, device=dev)
     return lam
+
+
+def knn_topk(xq, xdb, *, k: int = 10, device=None):
+    """The k nearest rows of xdb (N, D) for each query xq (B, D) under
+    squared L2 -> (d2 (B, k) ascending f32, idx (B, k) int32), ties to
+    the lower index: the `knn_topk` kernel on the card, its plain
+    version on the CPU. A bf16 operand stays bf16 until the wrapper
+    widens it; any other type is taken as f32."""
+    dev = resolve_device(device)
+    return knn_topk_cuda(_f32_or_bf16(xq, dev), _f32_or_bf16(xdb, dev),
+                         k=k, device=dev)
+
+
+def knn_predict_kernel(X_db, lam_db, X, *, k: int = 10, device=None):
+    """Kernel-backed twin of core.predictors.knn_predict: X (B, d) or
+    (d,) -> lambda-hat (B, K) or (K,). `knn_topk` selects the k nearest
+    rows, then the inverse-distance weighting with the exact-match
+    override (core.predictors._idw_lambda) runs as torch ops on the
+    winners, as the JAX twin runs it in XLA."""
+    dev = resolve_device(device)
+    X, X_db, lam_db = _f32(X, dev), _f32(X_db, dev), _f32(lam_db, dev)
+    squeeze = X.dim() == 1
+    Xq = torch.atleast_2d(X)
+    d2, idx = knn_topk(Xq, X_db, k=k, device=dev)
+    idx = idx.long()
+    rows = X_db[idx]
+    out = _idw_lambda(d2, torch.sum(Xq * Xq, dim=-1, keepdim=True),
+                      torch.sum(rows * rows, dim=-1), lam_db[idx])
+    return out[0] if squeeze else out
+
+
+def embedding_bag(table, indices, weights=None, *, device=None):
+    """Sum-mode EmbeddingBag: table (V, D) f32 or bf16 (any other type is
+    taken as f32), indices (n_bags, bag) with entries < 0 padding,
+    weights (n_bags, bag) or None -> (n_bags, D) in the table's type:
+    the `embedding_bag` kernel on the card, its plain version on the
+    CPU."""
+    dev = resolve_device(device)
+    indices = torch.as_tensor(indices, device=dev).to(torch.int32)
+    if weights is not None:
+        weights = _f32(weights, dev)
+    return embedding_bag_cuda(_f32_or_bf16(table, dev),
+                              indices.contiguous(), weights, device=dev)
 
 
 def linear_rank_audited(X, W, c, u, a, b, gamma, *, relu: bool, m2: int,
@@ -283,9 +369,9 @@ def kernel_launch_count(predictor, m2: int, *, device=None,
     """Kernel launches one dispatcher call makes, by route: 1 for the
     lambda-given route (`predictor=None`) and for mean and linear, 2 for
     KNN, 3 for KNN with `knn_chain`, over the f32 or the quantized db
-    alike; 0 where the plain PyTorch path runs
-    (a CPU device, or m2 > MAX_KERNEL_M2). A count of the route, not a
-    run: it needs no card."""
+    alike; 0 where the plain PyTorch path runs (a CPU device) and for
+    m2 > MAX_KERNEL_M2 (the lambda-given route sorts; the others raise
+    on the card). A count of the route, not a run: it needs no card."""
     dev = torch.device("cuda" if device is None else device)
     route = route_of(predictor)
     if dev.type != "cuda" or m2 > MAX_KERNEL_M2:

@@ -3,8 +3,9 @@
 The CPU tests run them, the kernel wrappers run them when their tensors
 lie on the CPU, and chip_smoke.py holds each kernel against them on the
 card. They repeat the kernels' arithmetic order (the score axpy, the
-sequential distance dot, the sequential audit and weighting sums), so a
-kernel and its plain version agree bitwise on perm and on lambda-hat.
+sequential distance dot, the sequential audit, weighting and bag sums),
+so a kernel and its plain version agree bitwise. dual_adjust_ref is the
+oracle's einsum score, which the dispatcher's large-m2 route ranks.
 """
 
 from __future__ import annotations
@@ -45,6 +46,22 @@ def score_axpy(u, a, lam, eps: float):
     return s
 
 
+def dual_adjust_ref(u, a, lam, eps: float = 0.0):
+    """Just the adjusted score s = u + (1+eps) lam @ a (no selection), as
+    the oracle forms it: one einsum over k."""
+    return u + (1.0 + eps) * torch.einsum("nk,nkm->nm", lam, a)
+
+
+def fused_rank_ref(u, a, lam, m2: int, eps: float = 1e-4):
+    """Adjusted-score top-m2: u (n, m1), a (n, K, m1), lam (n, K) ->
+    (vals (n, m2) desc, idx (n, m2) int32), s formed by score_axpy; ties
+    go to the lower item index (a stable sort). The plain version of the
+    fused_rank kernel."""
+    s = score_axpy(u, a, lam, eps)
+    order = torch.sort(-s, dim=-1, stable=True).indices[:, :m2]
+    return torch.gather(s, 1, order), order.to(torch.int32)
+
+
 def rank_audited_ref(u, a, b, lam, gamma, m2: int, eps: float = 1e-4,
                      tol: float | None = None):
     """Rank + audit: u (n, m1), a (n, K, m1), b (n, K), lam (n, K),
@@ -53,14 +70,13 @@ def rank_audited_ref(u, a, b, lam, gamma, m2: int, eps: float = 1e-4,
     index."""
     if tol is None:
         tol = AUDIT_TOL
-    s = score_axpy(u, a, lam, eps)
-    order = torch.sort(-s, dim=-1, stable=True).indices[:, :m2]
-    vals = torch.gather(s, 1, order)
+    vals, idx = fused_rank_ref(u, a, lam, m2, eps)
+    order = idx.long()
     u_sel = torch.gather(u, 1, order)
     a_sel = torch.gather(a, 2, order[:, None, :].expand(-1, a.shape[1], -1))
     utility, exposure, compliant = audit_selected(u_sel, a_sel, gamma, b,
                                                   tol=tol)
-    return vals, order.to(torch.int32), utility, exposure, compliant
+    return vals, idx, utility, exposure, compliant
 
 
 def d2_sequential(Xq, x2, db):
@@ -72,15 +88,28 @@ def d2_sequential(Xq, x2, db):
     return torch.clamp_min(x2 - 2.0 * cross + y2[None, :], 0.0)
 
 
+def knn_topk_ref(xq, xdb, k: int):
+    """The k nearest db rows of each query: xq (B, D), xdb (N, D), f32 or
+    bf16 (widened to f32) -> (d2 (B, k) ascending f32, idx (B, k) int32),
+    d2 = max(|q|^2 - 2 q.x + |x|^2, 0) in the sweep's order
+    (d2_sequential), selected by (d2, index) with the database streamed
+    in chunks. The plain version of the knn_topk kernel, and the
+    selection knn_lambda_ref weights."""
+    xq, xdb = xq.to(torch.float32), xdb.to(torch.float32)
+    chunk = max(1024, _REF_CHUNK_ELEMS // max(1, xq.shape[0]))
+    d2_top, idx = knn_topk_scan(xdb, xq, k=k, chunk=chunk,
+                                d2_fn=d2_sequential,
+                                x2=sq_norm_seq(xq)[:, None])
+    return d2_top, idx.to(torch.int32)
+
+
 def knn_lambda_ref(xq, xdb, lam_db, k: int):
     """Inverse-distance-weighted KNN lambda-hat (B, K) on the k nearest
-    rows by (d2, index), the database streamed in chunks: the plain
-    version of the knn_lambda kernel."""
-    chunk = max(1024, _REF_CHUNK_ELEMS // max(1, xq.shape[0]))
-    x2 = sq_norm_seq(xq)[:, None]
-    d2_top, idx = knn_topk_scan(xdb, xq, k=k, chunk=chunk,
-                                d2_fn=d2_sequential, x2=x2)
-    return _idw_lambda(d2_top, x2, sq_norm_seq(xdb[idx]), lam_db[idx])
+    rows of knn_topk_ref: the plain version of the knn_lambda kernel."""
+    d2_top, idx = knn_topk_ref(xq, xdb, k)
+    idx = idx.long()
+    return _idw_lambda(d2_top, sq_norm_seq(xq)[:, None],
+                       sq_norm_seq(xdb[idx]), lam_db[idx])
 
 
 def check_pred_width(k_pred: int, k_bucket: int) -> None:
@@ -222,3 +251,22 @@ def predict_rank_audited_ref(X, predictor, u, a, b, gamma, m2: int,
     raise NotImplementedError(
         f"{type(predictor).__name__}: only the mean, linear and KNN "
         f"families are ported (the MLP is ROADMAP Queue 1 item 3)")
+
+
+def embedding_bag_ref(table, indices, weights=None):
+    """Sum-mode EmbeddingBag: table (V, D) f32 or bf16, indices
+    (n_bags, bag) with entries < 0 padding, weights (n_bags, bag) f32 or
+    None (ones) -> (n_bags, D) in table.dtype, out[i] = sum_j w[i,j] *
+    table[indices[i,j]]. Accumulates in f32 slot by slot, acc + row * w
+    with each product and sum rounded on its own, and casts once at the
+    end: the embedding_bag kernel's order. A padded slot adds nothing
+    (the JAX oracle adds 0 * table[0]; the two differ only where
+    table[0] holds an inf or a NaN)."""
+    valid = indices >= 0
+    rows = table[indices.clamp_min(0).long()].to(torch.float32)
+    acc = torch.zeros((indices.shape[0], table.shape[1]),
+                      dtype=torch.float32, device=table.device)
+    for j in range(indices.shape[1]):
+        r = rows[:, j] if weights is None else rows[:, j] * weights[:, j, None]
+        acc = torch.where(valid[:, j, None], acc + r, acc)
+    return acc.to(table.dtype)

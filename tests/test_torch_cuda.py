@@ -13,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import ranking
 from repro_torch.core.predictors import pack_knn_db
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.fused_rank import (
+    fused_rank_cuda,
     linear_rank_audited_cuda,
     rank_audited_cuda,
 )
@@ -24,6 +27,7 @@ from repro_torch.kernels.knn_topk import (
     knn_lambda_quant_cuda,
     knn_rank_audited_cuda,
     knn_rank_audited_quant_cuda,
+    knn_topk_cuda,
 )
 
 pytestmark = pytest.mark.cuda
@@ -174,3 +178,90 @@ def test_int8_lossless_pack_equals_the_f32_kernel(card):
     for gt, w in zip(got[:6], want):
         assert torch.equal(gt, w)
     assert torch.equal(got[5][4, :5], lam_db[4999])
+
+
+@pytest.mark.parametrize("n,m1,K,m2", [(32, 1024, 8, 64), (5, 700, 5, 50),
+                                       (16, 5000, 8, 128), (3, 64, 1, 1),
+                                       (4, 100_000, 5, 50)])
+def test_fused_rank_kernel_equals_plain_and_rank_audited(card, n, m1, K,
+                                                          m2):
+    u, a, b, lam, g = _rank(np.random.default_rng(m1 + 1), n, m1, K, m2,
+                            card)
+    vals, idx = fused_rank_cuda(u, a, lam, m2=m2)
+    want = ref.fused_rank_ref(u, a, lam, m2)
+    assert torch.equal(vals, want[0]) and torch.equal(idx, want[1])
+    audited = rank_audited_cuda(u, a, b, lam, g, m2=m2)
+    assert torch.equal(vals, audited[0]) and torch.equal(idx, audited[1])
+
+
+@pytest.mark.parametrize("n_db,d,k,B", [(5001, 20, 10, 32), (600, 13, 5, 7),
+                                        (70_000, 256, 16, 40),
+                                        (4096, 128, 16, 33)])
+def test_knn_topk_kernel_equals_plain(card, n_db, d, k, B):
+    """d = 256 with k = 16 passes 48 KB of shared memory in the sweep;
+    the selection is the one knn_lambda weights."""
+    rng = np.random.default_rng(n_db + d)
+    X_db = _t(rng.normal(size=(n_db, d)), card)
+    X = _t(rng.normal(size=(B, d)), card)
+    X[1] = X_db[n_db - 1]                        # an exact match
+    d2, idx = knn_topk_cuda(X, X_db, k=k)
+    want = ref.knn_topk_ref(X, X_db, k)
+    assert torch.equal(d2, want[0]) and torch.equal(idx, want[1])
+    assert int(idx[1, 0]) == n_db - 1
+    lam_db = _t(np.abs(rng.normal(size=(n_db, 5))), card)
+    lam = knn_lambda_cuda(X, X_db, lam_db, k=k)
+    assert torch.equal(lam, ref.knn_lambda_ref(X, X_db, lam_db, k))
+
+
+def test_knn_topk_widens_bf16_operands(card):
+    rng = np.random.default_rng(2)
+    X_db = _t(rng.normal(size=(3000, 20)), card).to(torch.bfloat16)
+    X = _t(rng.normal(size=(32, 20)), card).to(torch.bfloat16)
+    got = knn_topk_cuda(X, X_db, k=10)
+    want = knn_topk_cuda(X.float(), X_db.float(), k=10)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V,D,nb,bag,weighted", [
+    (100_000, 64, 4096, 32, True), (50, 13, 5, 10, False),
+    (200, 200, 16, 1, True), (1000, 64, 3, 0, True)])
+def test_embedding_bag_kernel_equals_plain(card, dtype, V, D, nb, bag,
+                                           weighted):
+    rng = np.random.default_rng(V + D)
+    table = _t(rng.normal(size=(V, D)), card).to(dtype)
+    idx = torch.tensor(rng.integers(-V // 10 - 1, V, (nb, bag)),
+                       dtype=torch.int32, device=card)
+    w = _t(rng.normal(size=(nb, bag)), card) if weighted else None
+    got = embedding_bag_cuda(table, idx, w)
+    want = ref.embedding_bag_ref(table, idx, w)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_large_m2_takes_the_sort_route_on_the_card(card):
+    """m2 = 256 > MAX_KERNEL_M2: ops.fused_rank and ops.rank_audited
+    answer on the card with torch ops (rank_given_lambda's body) and
+    launch nothing."""
+    u, a, b, lam, g = _rank(np.random.default_rng(8), 4, 600, 3, 256, card)
+    before = (fused_rank_cuda.launches, rank_audited_cuda.launches)
+    vals, idx = ops.fused_rank(u, a, lam, m2=256)
+    out = ops.rank_audited(u, a, b, lam, g, m2=256)
+    want = ranking.rank_given_lambda(u, a, b, lam, g, m2=256)
+    assert (fused_rank_cuda.launches, rank_audited_cuda.launches) == before
+    assert idx.device == card and torch.equal(idx, want.perm)
+    assert torch.equal(out.perm, want.perm)
+    assert torch.equal(out.compliant, want.compliant)
+    assert ops.kernel_launch_count(None, 256) == 0
+
+
+def test_knn_predict_kernel_agrees_with_the_knn_lambda_kernel(card):
+    rng = np.random.default_rng(4)
+    X_db = _t(rng.normal(size=(20_000, 20)), card)
+    lam_db = _t(np.abs(rng.normal(size=(20_000, 5))), card)
+    X = _t(rng.normal(size=(32, 20)), card)
+    got = ops.knn_predict_kernel(X_db, lam_db, X, k=10)
+    want = knn_lambda_cuda(X, X_db, lam_db, k=10)
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+    one = ops.knn_predict_kernel(X_db, lam_db, X[0], k=10)
+    assert one.shape == (5,) and torch.allclose(one, want[0], rtol=1e-5,
+                                                atol=1e-6)

@@ -22,11 +22,17 @@ from repro_torch.core.predictors import (
     pack_knn_db,
 )
 from repro_torch.kernels import ops
+from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.fused_rank import (
+    fused_rank_cuda,
     linear_rank_audited_cuda,
     rank_audited_cuda,
 )
-from repro_torch.kernels.knn_topk import knn_lambda_cuda, knn_rank_audited_cuda
+from repro_torch.kernels.knn_topk import (
+    knn_lambda_cuda,
+    knn_rank_audited_cuda,
+    knn_topk_cuda,
+)
 from repro_torch.serving.engine import ServingEngine
 
 REPO = Path(__file__).resolve().parent.parent
@@ -83,6 +89,7 @@ def _default_device_calls():
     pipe = ranking.fit_pipeline(*train, m2=8, num_iters=2, knn_k=1,
                                 device="cpu")
     hold = (t["X"], t["u"], t["a"], t["b"][0])
+    bag = torch.tensor([[0, 3, -1], [19, 2, 2]], dtype=torch.int32)
     return {
         "ServingEngine": lambda: ServingEngine(),
         "ops.predict_rank_audited": lambda: ops.predict_rank_audited(
@@ -133,6 +140,19 @@ def _default_device_calls():
             lambda: ops.predict_rank_audited(
                 t["X"], knn, t["u"], t["a"], t["b"], t["gamma"], m2=8,
                 knn_chain=True),
+        "ops.fused_rank": lambda: ops.fused_rank(t["u"], t["a"], t["lam"],
+                                                 m2=8),
+        "ops.fused_rank(m2>128)": lambda: ops.fused_rank(
+            t["u"], t["a"], t["lam"], m2=129),
+        "ops.rank_audited(m2>128)": lambda: ops.rank_audited(*rank, m2=129),
+        "ops.knn_topk": lambda: ops.knn_topk(t["X"], t["X_db"], k=5),
+        "ops.knn_predict_kernel": lambda: ops.knn_predict_kernel(
+            t["X_db"], t["lam_db"], t["X"], k=5),
+        "ops.embedding_bag": lambda: ops.embedding_bag(t["X_db"], bag),
+        "fused_rank_cuda": lambda: fused_rank_cuda(t["u"], t["a"], t["lam"],
+                                                   m2=8),
+        "knn_topk_cuda": lambda: knn_topk_cuda(t["X"], t["X_db"], k=5),
+        "embedding_bag_cuda": lambda: embedding_bag_cuda(t["X_db"], bag),
         "make_constraints": lambda: make_constraints(
             [np.ones(4)], [1.0], [1.0]),
         "offline_solve": lambda: ranking.offline_solve(
@@ -201,3 +221,31 @@ def test_unported_routes_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         ops._check_m2(129, torch.device("cuda"))
     assert ops._check_m2(129, torch.device("cpu")) is False
+
+
+def test_large_m2_route_is_chosen_by_shape(monkeypatch):
+    """m2 > MAX_KERNEL_M2 on the lambda-given routes sorts the einsum
+    score before any wrapper is reached, as JAX's use_kernel = m2 <=
+    MAX_KERNEL_M2 chooses; a kernel shape reaches the wrapper. No
+    launch is counted there."""
+    def refuse(*args, **kw):
+        raise AssertionError("a kernel wrapper was reached")
+
+    monkeypatch.setattr(ops, "rank_audited_cuda", refuse)
+    monkeypatch.setattr(ops, "fused_rank_cuda", refuse)
+    rng = np.random.default_rng(1)
+    u, a = rng.normal(size=(2, 300)), rng.random((2, 3, 300))
+    lam, b = rng.random((2, 3)), np.zeros((2, 3))
+    g = np.ones(200)
+    vals, idx = ops.fused_rank(u, a, lam, m2=200, device="cpu")
+    assert idx.shape == (2, 200) and (vals[:, :-1] >= vals[:, 1:]).all()
+    out = ops.rank_audited(u, a, b, lam, g, m2=200, device="cpu")
+    assert torch.equal(out.perm, idx)
+    out = ops.predict_rank_audited(torch.tensor(lam), None, u, a, b, g,
+                                   m2=200, device="cpu")
+    assert torch.equal(out.perm, idx)
+    assert ops.kernel_launch_count(None, 200) == 0
+    with pytest.raises(AssertionError, match="wrapper was reached"):
+        ops.fused_rank(u, a, lam, m2=128, device="cpu")
+    with pytest.raises(AssertionError, match="wrapper was reached"):
+        ops.rank_audited(u, a, b, lam, g[:128], m2=128, device="cpu")
