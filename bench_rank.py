@@ -1,0 +1,79 @@
+"""Times the rank kernels of one checkout of the port on one CUDA card.
+
+  python3 bench_rank.py [--tree DIR] [--seed N] [--out FILE]
+
+Imports repro_torch from DIR/src (default: this checkout), builds its
+CUDA kernels there, and runs chip_smoke.rank_timings over
+chip_smoke.RANK_CASES: fused_rank at the bucket and at 64 x m1 =
+100,000; rank_audited at the bucket, at B = 8192 and at the paper's
+serve_retrieval cell (256 x m1 = 1,048,576); linear_rank_audited at the
+bucket and at B = 8192; knn_rank_audited at serve_retrieval. Each case
+reports the kernel's ms, its plain version's, a library yardstick's,
+the card's bound and whether the outputs equal the plain version's bit
+for bit. Prints the card's name and power limit, then one JSON line,
+also written to FILE.
+
+To compare two checkouts, run both in one call on one card, in turns:
+the parent, this tree, this tree, the parent (each in its own process,
+since both packages are named repro_torch).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import torch
+
+HERE = Path(__file__).resolve().parent
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", type=Path, default=HERE)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false", flush=True)
+        return 1
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs
+    sys.path.insert(0, str(args.tree.resolve() / "src"))
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.fused_rank import (
+        fused_rank_cuda,
+        linear_rank_audited_cuda,
+        rank_audited_cuda,
+    )
+    from repro_torch.kernels.knn_topk import knn_rank_audited_cuda
+
+    build.build_all()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    timing = cs.rank_timings(SimpleNamespace(
+        fused_rank_cuda=fused_rank_cuda, rank_audited_cuda=rank_audited_cuda,
+        linear_rank_audited_cuda=linear_rank_audited_cuda,
+        knn_rank_audited_cuda=knn_rank_audited_cuda, ref=ref), gen, dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    line = json.dumps({"tree": str(args.tree), "card": smi,
+                       "cases": {" ".join(key): row
+                                 for key, row in timing.items()}})
+    print(smi)
+    print(line, flush=True)
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(line + "\n")
+    return 0 if all(row["bitwise"] for row in timing.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

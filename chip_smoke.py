@@ -27,8 +27,15 @@ Phases (any failure exits non-zero before a result is printed):
      knn_predict_kernel's lambda-hat against the knn_lambda kernel's
      within rtol=1e-5, atol=1e-6; embedding_bag at kernel_bench's shape
      (V=1,000,000, D=64, 4096 bags x 32, weights, ~10% padding) with an
-     f32 and a bf16 table, bitwise; and m2=256 through ops.fused_rank
-     and ops.rank_audited on the card by the sort route, no launch;
+     f32 and a bf16 table, bitwise; the rank kernels (fused_rank,
+     rank_audited, linear_rank_audited) bitwise at K=64, on rows whose
+     scores rise with the item index (every candidate passes the
+     filter), tie or fall, at the bucket and split over a cluster
+     (4 x m1=100,000); rank_audited, knn_rank_audited and fused_rank
+     bitwise at the paper's serve_retrieval cell (B=256,
+     m1=1,048,576, K=5, m2=50, n_db=65,536, d=20, k=10); and m2=256
+     through ops.fused_rank and ops.rank_audited on the card by the
+     sort route, no launch;
   O. the offline stage at the paper-ranking offline_dual width: a
      MovieLens-like problem (Table 1a constraints, 8192 train users,
      m1=1024, K=5, m2=50, d=20) through fit_pipeline (300 dual
@@ -37,11 +44,14 @@ Phases (any failure exits non-zero before a result is printed):
      route, and the fitted KNN predictor quantized to int8 and to bf16
      (fused and chain), each batch's perm held against its plain version;
   3. serve 192 KNN, 64 int8 KNN, 32 bf16 KNN, 64 linear, 64 mean and 64
-     lambda-given requests at serve_online widths (m1 jittered in
-     512-1024) through ServingEngine(device="cuda"), check every result
-     against the plain version on the same padded batch, and check that
-     each wrapper's launch counter equals the batches of its route times
-     the route's launches;
+     lambda-given requests at serve_online widths (m2=50, m1 jittered in
+     512-1024), and 32 KNN, 32 int8 KNN and 32 linear requests at
+     m2=500 (the 512 bucket: lambda-hat, then the sort route), through
+     ServingEngine(device="cuda"), check every result against the plain
+     version on the same padded batch (for m2=500 the route's plain
+     lambda-hat and rank_given_lambda), and check that each wrapper's
+     launch counter equals the sum over batches of the route's
+     kernel_launch_count;
   L. the kernel library path: the entry points of repro_torch.kernels
      (ops.fused_rank, ops.knn_topk, ops.knn_predict_kernel,
      ops.embedding_bag) on phase 2's inputs, each output equal to phase
@@ -49,10 +59,13 @@ Phases (any failure exits non-zero before a result is printed):
      call and 2 per knn_topk and knn_predict_kernel call;
   4. time the nine kernels (CUDA events, medians) at the bucket shape and
      at a large batch (the quantized ones in both modes, embedding_bag
-     with both tables), beside the plain version, a library yardstick
-     that only this script calls, and the card's bound; then split each
-     KNN lambda-hat kernel's device time at the bucket between its sweep
-     and its merge (torch.profiler).
+     with both tables; fused_rank at 64 x m1=100,000; rank_audited and
+     knn_rank_audited also at serve_retrieval), beside the plain
+     version, a library yardstick that only this script calls, and the
+     card's bound; then split each KNN lambda-hat kernel's device time
+     at the bucket between its sweep and its merge (torch.profiler).
+     The rank kernels' timings are rank_timings, which bench_rank.py
+     runs on two checkouts for a before/after pair.
 The launch counters are set to 0 just before the offline phase's
 holdout path, the serving path and the kernel library path, and read
 just after each.
@@ -69,6 +82,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -89,12 +103,19 @@ KERNELS = ("rank_audited", "knn_rank_audited", "linear_rank_audited",
            "fused_rank", "knn_topk", "embedding_bag")
 # kernel_bench's shapes of the kernel library's entry points
 RETRIEVAL = dict(B=64, m1=100_000, K=5, m2=50)
+# the paper's serve_retrieval cell (src/repro/configs/paper.py): 6.44 GB
+# of u and a
+SERVE_RETRIEVAL = dict(B=256, m1=1_048_576, K=5, m2=50, n_db=65_536)
+WIDE_K = 64                   # the engine's K tier after 32
 WIDE = dict(n_db=100_003, d=256, k=16)   # the JAX tests' widest knn_topk
 BAG = dict(V=1_000_000, D=64, n_bags=4096, bag=32)
 MODES = ("int8", "bf16")
 QUANT_EXTRA = 8
-SERVE_MIX = {"knn": 192, "knn_int8": 64, "knn_bf16": 32, "linear": 64,
-             "mean": 64, "_lam": 64}
+# (route tag, m2) -> requests; m2 = 500 lands in the 512 bucket, above
+# the rank kernels' m2 <= 128
+SERVE_MIX = {("knn", 50): 192, ("knn_int8", 50): 64, ("knn_bf16", 50): 32,
+             ("linear", 50): 64, ("mean", 50): 64, ("_lam", 50): 64,
+             ("knn", 500): 32, ("knn_int8", 500): 32, ("linear", 500): 32}
 
 
 def fail(msg: str):
@@ -139,7 +160,8 @@ def knn_db(gen, dev, n_db):
 
 def compare(name, got, want, lam_at=None):
     """perm/compliant exact, floats within tolerance; returns the max
-    abs difference over the float outputs."""
+    abs difference over the float outputs (vals skipped where the plain
+    side has none)."""
     vals, idx, util, expo, comp = got[:5]
     w_vals, w_idx, w_util, w_expo, w_comp = want[:5]
     if not torch.equal(idx, w_idx):
@@ -148,7 +170,9 @@ def compare(name, got, want, lam_at=None):
     if not torch.equal(comp, w_comp):
         fail(f"{name}: compliant differs from the plain version")
     err = 0.0
-    pairs = [(vals, w_vals, TOL), (util, w_util, TOL), (expo, w_expo, TOL)]
+    pairs = [(util, w_util, TOL), (expo, w_expo, TOL)]
+    if w_vals is not None:
+        pairs.append((vals, w_vals, TOL))
     if lam_at is not None:
         pairs.append((got[lam_at], want[lam_at], LAM_TOL))
     for g, w, tol in pairs:
@@ -175,6 +199,22 @@ def time_ms(fn, reps, groups=5):
         e.synchronize()
         times.append(s.elapsed_time(e) / reps)
     return float(np.median(times))
+
+
+def time_auto(fn, budget_ms=100.0, groups=5):
+    """time_ms with as many back-to-back calls per group as fill about
+    budget_ms (1 to 50), from one probe call."""
+    probe = time_ms(fn, 1, groups=1)
+    return time_ms(fn, max(1, min(50, int(budget_ms / max(probe, 1e-3)))),
+                   groups)
+
+
+def bitwise(got, want):
+    """Every output of a kernel equals its plain version's, bit for bit."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return len(got) == len(want) and all(
+        torch.equal(g, w) for g, w in zip(got, want))
 
 
 def device_split(fns, reps=5):
@@ -289,6 +329,85 @@ def quant_knn_work(B, n_db, m1, K, m2, mode):
     return rb + sb + 4 * B * (K - K_PRED), rf + sf, dot
 
 
+RANK_CASES = (
+    ("fused_rank", "bucket", BUCKET), ("fused_rank", "retrieval", RETRIEVAL),
+    ("rank_audited", "bucket", BUCKET),
+    ("rank_audited", "large", dict(BUCKET, B=LARGE_RANK_B)),
+    ("rank_audited", "serve_retrieval", SERVE_RETRIEVAL),
+    ("linear_rank_audited", "bucket", BUCKET),
+    ("linear_rank_audited", "large", dict(BUCKET, B=LARGE_RANK_B)),
+    ("knn_rank_audited", "serve_retrieval", SERVE_RETRIEVAL))
+
+
+def rank_timings(k, gen, dev, cases=RANK_CASES):
+    """Times the rank kernels of the namespace `k` (fused_rank_cuda,
+    rank_audited_cuda, linear_rank_audited_cuda, knn_rank_audited_cuda
+    and the module ref) at each (kernel, label, shape) of `cases`, on
+    inputs drawn from `gen`: the kernel, its plain version and a library
+    yardstick (torch.topk on the scores at the bucket and the large
+    batch, torch.baddbmm + torch.topk where the score is part of the
+    call, plus torch.addmm + torch.topk for KNN's lambda-hat), beside the
+    card's bound; `bitwise` says whether the kernel's outputs equal the
+    plain version's. bench_rank.py runs this for two checkouts."""
+    out = {}
+    c_eps = float(np.float32(1.0 + EPS))
+    for name, label, sh in cases:
+        B, m1, K, m2 = sh["B"], sh["m1"], sh["K"], sh["m2"]
+        u, a, b, lam, g = rank_inputs(gen, dev, B, m1, K, m2)
+        row = dict(batch=B, m1=m1, K=K, m2=m2)
+
+        def lib_rank():
+            return torch.topk(torch.baddbmm(u[:, None], lam[:, None], a,
+                                            alpha=c_eps)[:, 0], m2)
+        if name == "fused_rank":
+            fn = lambda: k.fused_rank_cuda(u, a, lam, m2=m2, eps=EPS)  # noqa: E731
+            plain = lambda: k.ref.fused_rank_ref(u, a, lam, m2, EPS)  # noqa: E731
+            lib, work = lib_rank, fused_work(B, m1, K, m2)
+        elif name == "rank_audited":
+            fn = lambda: k.rank_audited_cuda(u, a, b, lam, g, m2=m2,  # noqa: E731
+                                             eps=EPS)
+            plain = lambda: k.ref.rank_audited_ref(u, a, b, lam, g, m2,  # noqa: E731
+                                                   EPS)
+            lib, work = lib_rank, rank_work(B, m1, K, m2)
+            if label != "serve_retrieval":
+                s = u + c_eps * torch.einsum("nk,nkm->nm", lam, a)
+                lib = lambda: torch.topk(s, m2)  # noqa: E731
+        elif name == "linear_rank_audited":
+            X, W, c = affine_inputs(gen, dev, B, K, True)
+            fn = lambda: k.linear_rank_audited_cuda(  # noqa: E731
+                u, a, b, X, W, c, g, m2=m2, eps=EPS)
+            plain = lambda: k.ref.linear_rank_audited_ref(  # noqa: E731
+                u, a, b, X, W, c, g, m2, EPS)
+            lib = lambda: torch.topk(torch.baddbmm(  # noqa: E731
+                u[:, None], torch.addmm(c, X, W.T)[:, None], a,
+                alpha=c_eps)[:, 0], m2)
+            work = linear_work(B, m1, K, m2)
+        else:
+            X_db, lam_db = knn_db(gen, dev, sh["n_db"])
+            xq = torch.randn((B, D), generator=gen, device=dev)
+            y2 = (X_db * X_db).sum(1)
+            fn = lambda: k.knn_rank_audited_cuda(  # noqa: E731
+                xq, X_db, lam_db, u, a, b, g, k=KNN_K, m2=m2, eps=EPS)
+            plain = lambda: k.ref.knn_rank_audited_ref(  # noqa: E731
+                xq, X_db, lam_db, u, a, b, g, k=KNN_K, m2=m2, eps=EPS)
+            lib = lambda: (torch.topk(torch.addmm(  # noqa: E731
+                y2, xq, X_db.T, alpha=-2.0), KNN_K, largest=False),
+                lib_rank())
+            work = knn_work(B, sh["n_db"], m1, K, m2)
+            row.update(n_db=sh["n_db"], d=D, k=KNN_K)
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        row["bitwise"] = bitwise(got, want)
+        del got, want
+        bms, by = bound(*work)
+        row.update(ms=time_auto(fn), plain_ms=time_auto(plain, groups=3),
+                   library_ms=time_auto(lib), bound_ms=bms, bound_by=by)
+        out[(name, label)] = row
+        del u, a, b, lam, g
+        torch.cuda.empty_cache()
+    return out
+
+
 def reset_counters(wrappers):
     for w in wrappers.values():
         w.launches = 0
@@ -338,6 +457,7 @@ def main() -> int:
     from repro_torch.kernels.common import quantize_query
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda
     from repro_torch.kernels.fused_rank import (
+        MAX_KERNEL_M2,
         fused_rank_cuda,
         linear_rank_audited_cuda,
         rank_audited_cuda,
@@ -359,6 +479,38 @@ def main() -> int:
                 "knn_rank_audited_quant": knn_rank_audited_quant_cuda,
                 "fused_rank": fused_rank_cuda, "knn_topk": knn_topk_cuda,
                 "embedding_bag": embedding_bag_cuda}
+    def route_wrapper(pred, m2r):
+        """The wrapper whose counter a dispatcher call of this route and
+        m2 moves (kernel_launch_count says by how much)."""
+        route = ops.route_of(pred)
+        quant = route == "knn" and pred.X_q is not None
+        if route == "knn" and m2r > MAX_KERNEL_M2:
+            return "knn_lambda_quant" if quant else "knn_lambda"
+        if route == "knn":
+            return "knn_rank_audited_quant" if quant else "knn_rank_audited"
+        return "rank_audited" if route == "lam" else "linear_rank_audited"
+
+    def plain_large_m2(pred, t, m2r):
+        """The dispatcher's route for m2 > MAX_KERNEL_M2 on the plain
+        versions: lambda-hat (KNN's sweep order, or the affine
+        prologue's), zero-padded to the K tier, then
+        rank_given_lambda. No vals: the route ranks without them."""
+        X, Kt = t["X"], t["a"].shape[1]
+        if not isinstance(pred, KNNLambdaPredictor):
+            W, c, relu = ref.affine_params(pred, X.shape[1], Kt)
+            lam = ref.affine_lambda_ref(X, W, c, relu)
+        elif pred.X_q is None:
+            lam = ref.knn_lambda_ref(X, pred.X_db, pred.lam_db, pred.k)
+        else:
+            lam = ref.knn_lambda_quant_ref(X, pred.X_q, pred.q_scale,
+                                           pred.y2_q, pred.lam_db, pred.k,
+                                           mode=pred.quant)[0]
+        lam = torch.nn.functional.pad(lam, (0, Kt - lam.shape[1]))
+        out = ranking.rank_given_lambda(t["u"], t["a"], t["b"], lam,
+                                        t["gamma"], m2=m2r, eps=EPS)
+        return (None, out.perm, out.utility, out.exposure, out.compliant,
+                out.lam)
+
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -513,6 +665,77 @@ def main() -> int:
         if label != "bucket_m2_128":
             lib[("fused_rank", label)] = ((u, a, lam), dict(m2=sh["m2"]),
                                           want)
+    # K = 64, the engine's tier after 32: coef in dynamic shared memory
+    u, a, b, lam, g = rank_inputs(gen, dev, B, m1, WIDE_K, m2)
+    X, W, c = affine_inputs(gen, dev, B, WIDE_K, True)
+    wide = {"rank_audited": (rank_audited_cuda(u, a, b, lam, g, m2=m2,
+                                               eps=EPS),
+                             ref.rank_audited_ref(u, a, b, lam, g, m2, EPS)),
+            "linear_rank_audited": (
+                linear_rank_audited_cuda(u, a, b, X, W, c, g, m2=m2, eps=EPS),
+                ref.linear_rank_audited_ref(u, a, b, X, W, c, g, m2, EPS)),
+            "fused_rank": (fused_rank_cuda(u, a, lam, m2=m2, eps=EPS),
+                           ref.fused_rank_ref(u, a, lam, m2, EPS))}
+    torch.cuda.synchronize()
+    for name, (got, want) in wide.items():
+        if not bitwise(got, want):
+            fail(f"{name} K={WIDE_K}: differs from the plain version")
+    # the filter's worst case (scores rising with the item index: every
+    # candidate is staged), a row of exact ties and falling scores, on
+    # the bucket and on rows split over a cluster (4 x m1 = 100,000);
+    # lam = 0 and W = c = 0 leave s = u
+    for Bw, m1w in ((B, m1), (4, RETRIEVAL["m1"])):
+        u0, a, b, lam, g = rank_inputs(gen, dev, Bw, m1w, K, m2)
+        lam.zero_()
+        X, W, c = affine_inputs(gen, dev, Bw, K, True)
+        W.zero_()
+        c.zero_()
+        ramp = torch.arange(m1w, device=dev, dtype=torch.float32) / m1w
+        for label, row in (("rising", ramp), ("ties", torch.ones_like(ramp)),
+                           ("falling", 1.0 - ramp)):
+            u = (u0[:, :1] + row).contiguous()
+            pairs = {
+                "rank_audited": (
+                    rank_audited_cuda(u, a, b, lam, g, m2=m2, eps=EPS),
+                    ref.rank_audited_ref(u, a, b, lam, g, m2, EPS)),
+                "linear_rank_audited": (
+                    linear_rank_audited_cuda(u, a, b, X, W, c, g, m2=m2,
+                                             eps=EPS),
+                    ref.linear_rank_audited_ref(u, a, b, X, W, c, g, m2,
+                                                EPS)),
+                "fused_rank": (fused_rank_cuda(u, a, lam, m2=m2, eps=EPS),
+                               ref.fused_rank_ref(u, a, lam, m2, EPS))}
+            torch.cuda.synchronize()
+            for name, (got, want) in pairs.items():
+                if not bitwise(got, want):
+                    fail(f"{name} {label} rows {Bw} x {m1w}: differs from "
+                         f"the plain version")
+            first = {"rising": m1w - 1, "ties": 0, "falling": 0}[label]
+            if int(pairs["fused_rank"][0][1][0, 0]) != first:
+                fail(f"fused_rank {label}: item {first} is not first")
+    # the paper's serve_retrieval cell: 256 x m1 = 1,048,576, K = 5,
+    # m2 = 50 (6.44 GB of u and a), KNN over 65,536 rows
+    sr = SERVE_RETRIEVAL
+    u, a, b, lam, g = rank_inputs(gen, dev, sr["B"], sr["m1"], sr["K"],
+                                  sr["m2"])
+    xdb, ldb = knn_db(gen, dev, sr["n_db"])
+    xq = torch.randn((sr["B"], D), generator=gen, device=dev)
+    for name, got, want in (
+            ("rank_audited",
+             rank_audited_cuda(u, a, b, lam, g, m2=sr["m2"], eps=EPS),
+             ref.rank_audited_ref(u, a, b, lam, g, sr["m2"], EPS)),
+            ("knn_rank_audited",
+             knn_rank_audited_cuda(xq, xdb, ldb, u, a, b, g, k=KNN_K,
+                                   m2=sr["m2"], eps=EPS),
+             ref.knn_rank_audited_ref(xq, xdb, ldb, u, a, b, g, k=KNN_K,
+                                      m2=sr["m2"], eps=EPS)),
+            ("fused_rank", fused_rank_cuda(u, a, lam, m2=sr["m2"], eps=EPS),
+             ref.fused_rank_ref(u, a, lam, sr["m2"], EPS))):
+        torch.cuda.synchronize()
+        if not bitwise(got, want):
+            fail(f"{name} at serve_retrieval: differs from the plain version")
+    del u, a, b, lam, g, u0, xdb, ldb, got, want, wide, pairs
+    torch.cuda.empty_cache()
     # m2 above the kernels' limit: the sort route, on the card, no launch
     u, a, b, lam, g = rank_inputs(gen, dev, B, m1, K, 256)
     before = read_counters(wrappers)
@@ -578,6 +801,8 @@ def main() -> int:
         f"knn_rank_audited_quant's; on the lossless pack both modes equal "
         f"knn_rank_audited bitwise; guard fired on {guard_share} of rows "
         f"at n_db={N_DB}; fused_rank's (vals, idx) are rank_audited's; "
+        f"the rank kernels bitwise at K={WIDE_K}, on rising, tied and "
+        f"falling rows and at serve_retrieval {SERVE_RETRIEVAL}; "
         f"m2=256 took the sort route with no launch; knn_predict_kernel "
         f"within {pk_err} of knn_lambda; padded bag slots "
         f"{float(pad.float().mean())}")
@@ -665,16 +890,16 @@ def main() -> int:
                   "mean": pipe.predictors["mean"]}
     for mode in MODES:
         predictors[f"knn_{mode}"] = knn.quantized(mode, device=dev)
-    gamma50 = (1.0 / np.log2(np.arange(2, 52))).astype(np.float32)
-    kinds = rng.permutation([kind for kind, count in SERVE_MIX.items()
-                             for _ in range(count)])
+    kinds = [kind for kind, count in SERVE_MIX.items() for _ in range(count)]
     reqs = []
-    for rid, kind in enumerate(kinds):
+    for rid, i in enumerate(rng.permutation(len(kinds))):
+        kind, m2r = kinds[i]
+        gam = (1.0 / np.log2(np.arange(2, m2r + 2))).astype(np.float32)
         mm1 = int(rng.integers(512, 1025))
-        kw = dict(rid=rid, m2=50, gamma=gamma50,
+        kw = dict(rid=rid, m2=m2r, gamma=gam,
                   u=rng.uniform(1.0, 5.0, mm1).astype(np.float32),
                   a=(rng.random((K_PRED, mm1)) < 0.15).astype(np.float32),
-                  b=np.full(K_PRED, 0.06 * gamma50.sum(), np.float32))
+                  b=np.full(K_PRED, 0.06 * gam.sum(), np.float32))
         if kind == "_lam":
             kw.update(lam=rng.exponential(0.5, K_PRED).astype(np.float32))
         else:
@@ -710,11 +935,18 @@ def main() -> int:
     by_rid = {r.rid: r for r in results}
     if sorted(by_rid) != list(range(len(reqs))):
         fail(f"served {len(by_rid)} of {len(reqs)} requests")
-    n_batches = {tag: 0 for tag in SERVE_MIX}
+    n_batches = {kind: 0 for kind in SERVE_MIX}
+    expect = dict.fromkeys(wrappers, 0)
     for bucket, staged, rids, out in eng.captured:
-        n_batches[bucket.tag] += 1
+        big = bucket.m2 > MAX_KERNEL_M2
+        n_batches[(bucket.tag, 500 if big else 50)] += 1
+        pred = predictors.get(bucket.tag)
+        expect[route_wrapper(pred, bucket.m2)] += ops.kernel_launch_count(
+            pred, bucket.m2)
         t = {k: torch.tensor(v, device=dev) for k, v in staged.items()}
-        if bucket.tag == "_lam":
+        if big:
+            want = plain_large_m2(pred, t, bucket.m2)
+        elif bucket.tag == "_lam":
             want = ref.rank_audited_ref(t["u"], t["a"], t["b"], t["lam"],
                                         t["gamma"], bucket.m2, EPS)
         else:
@@ -739,26 +971,15 @@ def main() -> int:
             if not np.isfinite(res.utility) or \
                     not np.isfinite(res.exposure).all():
                 fail(f"request {rid}: non-finite audit")
-    per_batch = {tag: ops.kernel_launch_count(predictors.get(tag), 64)
-                 for tag in n_batches}
-    expect = {"rank_audited": n_batches["_lam"] * per_batch["_lam"],
-              "knn_rank_audited": n_batches["knn"] * per_batch["knn"],
-              "linear_rank_audited": n_batches["linear"] * per_batch["linear"]
-              + n_batches["mean"] * per_batch["mean"],
-              "knn_lambda": 0,
-              "knn_rank_audited_quant":
-                  n_batches["knn_int8"] * per_batch["knn_int8"]
-                  + n_batches["knn_bf16"] * per_batch["knn_bf16"],
-              "knn_lambda_quant": 0, "fused_rank": 0, "knn_topk": 0,
-              "embedding_bag": 0}
     if serve_launches != expect or eng.metrics.kernel_launches != sum(
-            expect.values()) or per_batch["knn_int8"] != 2:
+            expect.values()):
         fail(f"launch counters {serve_launches} != batches x route launches "
              f"{expect} (metrics {eng.metrics.kernel_launches})")
     for name in ("rank_audited", "knn_rank_audited", "linear_rank_audited",
-                 "knn_rank_audited_quant"):
+                 "knn_rank_audited_quant", "knn_lambda", "knn_lambda_quant"):
         if serve_launches[name] == 0:
             fail(f"{name} never launched on the serving path")
+    n_batches = {f"{tag}/m2={m2r}": n for (tag, m2r), n in n_batches.items()}
     summary = eng.metrics.summary()
     log(f"phase 3: served {len(results)} requests in {serve_s:.3f} s over "
         f"{summary['batches']} batches {n_batches}, buckets "
@@ -802,33 +1023,26 @@ def main() -> int:
         f"{lib_launches}")
 
     # -- phase 4: timing ---------------------------------------------------
-    timing = {}
-    c_eps = float(np.float32(1.0 + EPS))
+    # the rank kernels (rank_timings, which bench_rank.py also runs on
+    # another checkout)
+    timing = rank_timings(SimpleNamespace(
+        fused_rank_cuda=fused_rank_cuda, rank_audited_cuda=rank_audited_cuda,
+        linear_rank_audited_cuda=linear_rank_audited_cuda,
+        knn_rank_audited_cuda=knn_rank_audited_cuda, ref=ref), gen, dev)
+    # the rank kernels' device time alone (torch.profiler): the events
+    # above time back-to-back wrapper calls, the host's work included
+    rank_split_ms = {}
     for label, Bt in (("bucket", B), ("large", LARGE_RANK_B)):
         u, a, b, lam, g = rank_inputs(gen, dev, Bt, m1, K, m2)
-        reps = 20 if Bt == B else 5
-        s = u + c_eps * torch.einsum("nk,nkm->nm", lam, a)
-        bms, by = bound(*rank_work(Bt, m1, K, m2))
-        timing[("rank_audited", label)] = dict(
-            batch=Bt,
-            ms=time_ms(lambda: rank_audited_cuda(u, a, b, lam, g, m2=m2,
-                                                 eps=EPS), reps),
-            plain_ms=time_ms(lambda: ref.rank_audited_ref(
-                u, a, b, lam, g, m2, EPS), 2, groups=3),
-            library_ms=time_ms(lambda: torch.topk(s, m2), reps),
-            bound_ms=bms, bound_by=by)
         X, W, c = affine_inputs(gen, dev, Bt, K, True)
-        bms, by = bound(*linear_work(Bt, m1, K, m2))
-        timing[("linear_rank_audited", label)] = dict(
-            batch=Bt,
-            ms=time_ms(lambda: linear_rank_audited_cuda(
-                u, a, b, X, W, c, g, m2=m2, eps=EPS), reps),
-            plain_ms=time_ms(lambda: ref.linear_rank_audited_ref(
-                u, a, b, X, W, c, g, m2, EPS), 2, groups=3),
-            library_ms=time_ms(lambda: torch.topk(torch.baddbmm(
-                u[:, None], torch.addmm(c, X, W.T)[:, None], a,
-                alpha=c_eps)[:, 0], m2), reps),
-            bound_ms=bms, bound_by=by)
+        rank_split_ms.update(device_split({
+            f"rank_audited {label}": lambda: rank_audited_cuda(
+                u, a, b, lam, g, m2=m2, eps=EPS),
+            f"linear_rank_audited {label}": lambda: linear_rank_audited_cuda(
+                u, a, b, X, W, c, g, m2=m2, eps=EPS),
+            f"fused_rank {label}": lambda: fused_rank_cuda(u, a, lam, m2=m2,
+                                                           eps=EPS)}))
+    del u, a, b, lam, g, X, W, c
     y2 = (X_db * X_db).sum(1)
     for label, Bt in (("bucket", B), ("large", LARGE_KNN_B)):
         u, a, b, lam, g = rank_inputs(gen, dev, Bt, m1, K, m2)
@@ -908,23 +1122,7 @@ def main() -> int:
                 library_ms=library_ms, bound_ms=bms, bound_by=by)
         if mode == "int8":
             del db8
-    # the kernel library's three kernels, on phase 2's inputs
-    for label in ("bucket", "retrieval"):
-        (u, a, lam), kw, _ = lib[("fused_rank", label)]
-        Bt, m1t = u.shape
-        reps = 20 if label == "bucket" else 3
-        bms, by = bound(*fused_work(Bt, m1t, a.shape[1], kw["m2"]))
-        timing[("fused_rank", label)] = dict(
-            batch=Bt, m1=m1t,
-            ms=time_ms(lambda: fused_rank_cuda(u, a, lam, eps=EPS, **kw),
-                       reps),
-            plain_ms=time_ms(lambda: ref.fused_rank_ref(u, a, lam,
-                                                        kw["m2"], EPS),
-                             2, groups=3),
-            library_ms=time_ms(lambda: torch.topk(torch.baddbmm(
-                u[:, None], lam[:, None], a, alpha=c_eps)[:, 0], kw["m2"]),
-                reps),
-            bound_ms=bms, bound_by=by)
+    # knn_topk and embedding_bag, on phase 2's inputs
     for label in ("bucket", "large"):
         (xq, xdb), kw, _ = lib[("knn_topk", label)]
         reps = 10 if label == "bucket" else 2
@@ -958,6 +1156,8 @@ def main() -> int:
     for key, tm in timing.items():
         log(f"phase 4: {' '.join(key)} {json.dumps(tm)}")
     log(f"phase 4: knn_predict_kernel at the bucket {predict_ms} ms")
+    log(f"phase 4: rank kernels' device ms per call "
+        f"{json.dumps(rank_split_ms)}")
     # where a KNN lambda-hat kernel's time goes: the sweep against the merge
     xq = torch.randn((B, D), generator=gen, device=dev)
     split = device_split({
@@ -1038,10 +1238,19 @@ def main() -> int:
                 rows[-1]["split_ms"] = {m: split[m] for m in MODES}
         elif name == "fused_rank":
             rows[-1]["retrieval"] = timing[(name, "retrieval")]
+            rows[-1]["device_ms"] = {k: v for k, v in rank_split_ms.items()
+                                     if k.startswith(name)}
         elif name == "embedding_bag":
             rows[-1]["bf16"] = timing[(name, "bf16")]
         else:
             rows[-1]["large"] = timing[(name, "large")]
+            if name in ("rank_audited", "linear_rank_audited"):
+                rows[-1]["device_ms"] = {
+                    k: v for k, v in rank_split_ms.items()
+                    if k.split()[0] == name}
+            if (name, "serve_retrieval") in timing:
+                rows[-1]["serve_retrieval"] = timing[
+                    (name, "serve_retrieval")]
             if name == "knn_lambda":
                 rows[-1]["split_ms"] = split["f32"]
             if name == "knn_topk":

@@ -3,9 +3,11 @@ the CUDA kernel wrappers and their plain versions.
 
 The TPU kernels' LANE/SUBLANE/TILE_B/TILE_M/DB_SLAB were vreg shapes;
 nothing here copies them. The GPU geometry is chosen for Hopper: a
-256-thread block per ranked row, a shared-memory bitonic sort of at
-most SORT_MAX (score, index) pairs, and a KNN sweep that gives each
-block KNN_QTILE queries and KNN_CHUNK database rows.
+ranked row on one 256-thread block or a cluster of them (the rank
+routine's own constants are in kernels/fused_rank.py), and a KNN sweep
+that gives each block KNN_QTILE queries and KNN_CHUNK database rows.
+The KNN kernels' limits on k and d (KNN_MAX_K, KNN_MAX_D,
+KNN_QUANT_MAX_D) hold on the card only; the plain versions take any.
 
 The second half holds the quantized KNN database's arithmetic
 (counterpart of repro.kernels.common's quant section): the plain
@@ -23,8 +25,6 @@ import torch
 # candidates never enter a top-m2, yet 0.0 * NEG_INF == 0.0 exactly.
 NEG_INF = float(-1e30)
 
-SORT_MAX = 2048      # (score, index) pairs one bitonic sort holds
-MAX_KERNEL_K = 32    # constraint rows a kernel takes (the largest K tier)
 KNN_QTILE = 32       # queries per block of the KNN distance sweep
 KNN_CHUNK = 2048     # database rows per block of the KNN distance sweep
 KNN_MAX_K = 16       # neighbours a KNN kernel keeps per query

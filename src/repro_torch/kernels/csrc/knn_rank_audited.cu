@@ -9,9 +9,11 @@
 //
 //   Launch A: knn_sweep.cuh's chunked db sweep, partial top-k lists per
 //     (query, chunk) into a workspace.
-//   Launch B, one block per query: knn_sweep.cuh's merge + weighting,
-//     lambda-hat kept in shared memory (columns beyond the predictor's
-//     width are 0), then rank_audit.cuh's routine on the row.
+//   Launch B, one block per query, or a cluster of `split` blocks when
+//     the batch is smaller than the card: knn_sweep.cuh's merge +
+//     weighting in every block of the row (the same inputs, so the same
+//     bits), lambda-hat kept in shared memory (columns beyond the
+//     predictor's width are 0), then rank_audit.cuh's routine on the row.
 //
 // So the KNN route takes two launches per micro-batch where the TPU took
 // one; fusing them is later work. knn_lambda.cu runs the same two pieces
@@ -30,59 +32,58 @@
 static_assert(knn::kBlock == rk::kBlock, "one block size for both stages");
 
 // Launch B. Shared memory: first the lists of the tree merge, then,
-// reused, the rank sort's P pairs.
+// reused, the rank routine's coef, top-L and staging buffer.
 __global__ void __launch_bounds__(rk::kBlock) knn_rank_audited_kernel(
     const float* __restrict__ xq, const float* __restrict__ xdb,
     const float* __restrict__ lamdb, const float* __restrict__ ws_d2,
     const int* __restrict__ ws_idx, const float* __restrict__ u,
     const float* __restrict__ a, const float* __restrict__ b,
     const float* __restrict__ gamma, int N, int D, int k, int Kpred,
-    int n_chunks, int m1, int K, int m2, int P, float c, float tol,
+    int n_chunks, int m1, int K, int m2, int split, float c, float tol,
     float* vals, int* idx, float* util, float* expo, int* comp,
     float* lam_out) {
   extern __shared__ float smem[];
   __shared__ float nw[knn::kKMax];
   __shared__ int ni[knn::kKMax];
-  __shared__ float coef[rk::kMaxK];
-  const int tid = threadIdx.x;
-  const size_t row = blockIdx.x;
+  const size_t row = blockIdx.x / split;
+  const bool first = blockIdx.x % split == 0;
 
   knn::merge_idw(xq, xdb, ws_d2, ws_idx, row, D, k, n_chunks, smem, nw, ni);
-  if (tid < K) {
+  const rk::Smem s = rk::carve(smem, K, m2);
+  for (int t = threadIdx.x; t < K; t += blockDim.x) {
     // bucket-padded constraint rows beyond the predictor's width get 0
     const float lam =
-        tid < Kpred ? knn::idw_lam(lamdb, nw, ni, k, Kpred, tid, N) : 0.0f;
-    lam_out[row * K + tid] = lam;
-    coef[tid] = __fmul_rn(c, lam);
+        t < Kpred ? knn::idw_lam(lamdb, nw, ni, k, Kpred, t, N) : 0.0f;
+    if (first) lam_out[row * K + t] = lam;
+    s.coef[t] = __fmul_rn(c, lam);
   }
-  __syncthreads();
-  rk::rank_audit_row(u + row * m1, a + row * K * m1, coef, b + row * K,
-                     gamma + row * m2, m1, K, m2, P, tol, smem,
-                     reinterpret_cast<int*>(smem + P), vals + row * m2,
-                     idx + row * m2, util + row, expo + row * K, comp + row);
+  rk::rank_audit_row(u + row * m1, a + row * K * m1, s, b + row * K,
+                     gamma + row * m2, m1, K, m2, split, tol,
+                     vals + row * m2, idx + row * m2, util + row,
+                     expo + row * K, comp + row);
 }
 
 // Launches A then B on `stream`. Returns the first nonzero
-// cudaGetLastError(), or 0.
+// cudaError_t, or 0.
 extern "C" int knn_rank_audited_launch(
     const void* xq, const void* xdb, const void* lamdb, const void* u,
     const void* a, const void* b, const void* gamma, void* ws_d2,
     void* ws_idx, void* vals, void* idx, void* util, void* expo, void* comp,
     void* lam_out, int B, int N, int D, int k, int Kpred, int m1, int K,
-    int m2, int P, int chunk, int st, int n_chunks, float c, float tol,
+    int m2, int split, int chunk, int st, int n_chunks, float c, float tol,
     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int err = knn::launch_chunk_topk((const float*)xq, (const float*)xdb, B, N,
-                                   D, k, chunk, st, n_chunks, (float*)ws_d2,
-                                   (int*)ws_idx, s);
+  const int err = knn::launch_chunk_topk(
+      (const float*)xq, (const float*)xdb, B, N, D, k, chunk, st, n_chunks,
+      (float*)ws_d2, (int*)ws_idx, s);
   if (err) return err;
-  const int lists = knn::merge_smem_floats(k);
-  const size_t smem = (size_t)(lists > P * 2 ? lists : P * 2) * sizeof(float);
-  knn_rank_audited_kernel<<<B, rk::kBlock, smem, s>>>(
+  const size_t lists = (size_t)knn::merge_smem_floats(k) * sizeof(float);
+  const size_t rank = rk::smem_bytes(K, m2);
+  return rk::launch_rows(
+      knn_rank_audited_kernel, B, split, lists > rank ? lists : rank, s,
       (const float*)xq, (const float*)xdb, (const float*)lamdb,
       (const float*)ws_d2, (const int*)ws_idx, (const float*)u,
       (const float*)a, (const float*)b, (const float*)gamma, N, D, k, Kpred,
-      n_chunks, m1, K, m2, P, c, tol, (float*)vals, (int*)idx, (float*)util,
-      (float*)expo, (int*)comp, (float*)lam_out);
-  return (int)cudaGetLastError();
+      n_chunks, m1, K, m2, split, c, tol, (float*)vals, (int*)idx,
+      (float*)util, (float*)expo, (int*)comp, (float*)lam_out);
 }

@@ -15,7 +15,9 @@ k + k_extra survivors, which the merge re-scores exactly in f32,
 re-ranks to k and flags with the margin guard. On a CPU tensor a
 wrapper runs the plain version (`ref.knn_topk_ref`,
 `ref.knn_rank_audited_ref`, `ref.knn_lambda_ref`,
-`ref.knn_rank_audited_quant_ref`, `ref.knn_lambda_quant_ref`).
+`ref.knn_rank_audited_quant_ref`, `ref.knn_lambda_quant_ref`), which
+takes any k and d; on the card the sweeps take k <= KNN_MAX_K and
+d <= KNN_MAX_D (KNN_QUANT_MAX_D over a pack) and raise beyond.
 """
 
 from __future__ import annotations
@@ -34,11 +36,14 @@ from repro_torch.kernels.common import (
     KNN_QTILE,
     KNN_QUANT_MAX_D,
     KNN_QUANT_MAX_KEEP,
-    MAX_KERNEL_K,
     QUANT_EXTRA,
     check_tensor,
 )
-from repro_torch.kernels.fused_rank import check_rank_args, sort_width
+from repro_torch.kernels.fused_rank import (
+    check_rank_args,
+    check_rank_kernel,
+    rank_split,
+)
 from repro_torch.kernels.ref import (
     check_pred_width,
     knn_lambda_quant_ref,
@@ -58,6 +63,7 @@ __all__ = ["knn_lambda_cuda", "knn_lambda_quant_cuda", "knn_lambda_ref",
 # kernel's limit past the default 48 KB with the opt-in attribute).
 _SMEM_FLOATS = 96 * 1024 // 4
 _KNN_SUB = 8                    # threads per query in the distance sweep
+_SHAPE_LIMIT = "(lifting it is ROADMAP Queue 2 item 5)"
 
 
 def sweep_tile(D: int, k: int) -> int:
@@ -75,18 +81,19 @@ def sweep_tile(D: int, k: int) -> int:
 
 def _check_sweep(xq, xdb, k: int, dev: torch.device):
     """Validate the f32 KNN sweep's inputs; returns (B, N, D, st,
-    n_chunks), the tile and grid only on the card."""
+    n_chunks), the tile and grid only on the card, where the kernel's
+    own limits on k and d are checked too."""
     N, D = xdb.shape
     B = xq.shape[0]
-    if not 1 <= k <= min(N, KNN_MAX_K):
-        raise ValueError(f"the kernel needs 1 <= k <= min(n_train, "
-                         f"{KNN_MAX_K}), got k={k}, n_train={N}")
-    if D > KNN_MAX_D:
-        raise ValueError(f"the kernel takes d <= {KNN_MAX_D}, got {D}")
+    if not 1 <= k <= N:
+        raise ValueError(f"need 1 <= k <= n_train, got k={k}, n_train={N}")
     check_tensor("xq", xq, (B, D), torch.float32, dev)
     check_tensor("xdb", xdb, (N, D), torch.float32, dev)
     if dev.type == "cpu":
         return B, N, D, 0, 0
+    if k > KNN_MAX_K or D > KNN_MAX_D:
+        raise ValueError(f"the f32 KNN kernel takes k <= {KNN_MAX_K} and "
+                         f"d <= {KNN_MAX_D}, got k={k}, d={D} {_SHAPE_LIMIT}")
     n_chunks = -(-N // KNN_CHUNK)
     if n_chunks > 65535:                 # the sweep grid's y extent
         raise ValueError(f"n_train={N} exceeds {65535 * KNN_CHUNK} rows")
@@ -142,9 +149,6 @@ def knn_lambda_cuda(xq, xdb, lam_db, *, k: int = 10, device=None):
     dev = resolve_device(device)
     B, N, D, st, n_chunks = _check_sweep(xq, xdb, k, dev)
     k_pred = _check_lam_db(lam_db, N, dev)
-    if not 1 <= k_pred <= MAX_KERNEL_K:
-        raise ValueError(f"the kernel takes 1 <= K_pred <= {MAX_KERNEL_K}, "
-                         f"got {k_pred}")
     if dev.type == "cpu":
         return knn_lambda_ref(xq, xdb, lam_db, k)
     ws_d2, ws_idx = _workspace(B, n_chunks, k, dev)
@@ -183,6 +187,7 @@ def knn_rank_audited_cuda(xq, xdb, lam_db, u, a, b, gamma, *, k: int = 10,
     if dev.type == "cpu":
         return knn_rank_audited_ref(xq, xdb, lam_db, u, a, b, gamma, k=k,
                                     m2=m2, eps=eps, tol=tol)
+    check_rank_kernel(K, m2)
     f32 = torch.float32
     ws_d2, ws_idx = _workspace(B, n_chunks, k, dev)
     vals = torch.empty((B, m2), dtype=f32, device=dev)
@@ -198,7 +203,8 @@ def knn_rank_audited_cuda(xq, xdb, lam_db, u, a, b, gamma, *, k: int = 10,
             gamma.data_ptr(), ws_d2.data_ptr(), ws_idx.data_ptr(),
             vals.data_ptr(), idx.data_ptr(), util.data_ptr(),
             expo.data_ptr(), comp.data_ptr(), lam.data_ptr(), B, N, D, k,
-            k_pred, m1, K, m2, sort_width(m1, m2), KNN_CHUNK, st, n_chunks,
+            k_pred, m1, K, m2, rank_split(B, m1, dev), KNN_CHUNK, st,
+            n_chunks,
             float(np.float32(1.0 + eps)), float(tol),
             torch.cuda.current_stream(dev).cuda_stream)
         knn_rank_audited_cuda.launches += 2
@@ -229,20 +235,18 @@ def quant_sweep_tile(D: int, k_keep: int, mode: str) -> int:
 def _check_quant_sweep(xq, X_q, q_scale, y2_q, lam_db, k: int,
                        k_extra: int, mode: str, dev: torch.device):
     """Validate the quantized sweep's inputs; returns (B, n_pad, n_train,
-    D, K_pred, slab, st, n_chunks), the tile and grid only on the card."""
+    D, K_pred, slab, st, n_chunks), the tile and grid only on the card,
+    where the kernel's own limits on k, k + k_extra and d are checked
+    too."""
     n_pad, D = X_q.shape
     B, (n_train, k_pred) = xq.shape[0], lam_db.shape
     slab = check_pack(X_q, q_scale, y2_q, mode, n_train=n_train)
     k_keep = k + k_extra
-    if not 1 <= k <= min(n_train, KNN_MAX_K) or k_extra < 1 \
-            or k_keep > min(n_pad, KNN_QUANT_MAX_KEEP):
+    if not 1 <= k <= n_train or k_extra < 1 or k_keep > n_pad:
         raise ValueError(
-            f"the kernel needs 1 <= k <= min(n_train, {KNN_MAX_K}), "
-            f"k_extra >= 1 and k + k_extra <= min(n_pad, "
-            f"{KNN_QUANT_MAX_KEEP}), got k={k}, k_extra={k_extra}, "
-            f"n_train={n_train}, n_pad={n_pad}")
-    if D > KNN_QUANT_MAX_D:
-        raise ValueError(f"the kernel takes d <= {KNN_QUANT_MAX_D}, got {D}")
+            f"need 1 <= k <= n_train, k_extra >= 1 and k + k_extra <= "
+            f"n_pad, got k={k}, k_extra={k_extra}, n_train={n_train}, "
+            f"n_pad={n_pad}")
     f32 = torch.float32
     check_tensor("xq", xq, (B, D), f32, dev)
     check_tensor("X_q", X_q, (n_pad, D), X_q.dtype, dev)
@@ -251,6 +255,11 @@ def _check_quant_sweep(xq, X_q, q_scale, y2_q, lam_db, k: int,
     check_tensor("lam_db", lam_db, (n_train, k_pred), f32, dev)
     if dev.type == "cpu":
         return B, n_pad, n_train, D, k_pred, slab, 0, 0
+    if k > KNN_MAX_K or k_keep > KNN_QUANT_MAX_KEEP or D > KNN_QUANT_MAX_D:
+        raise ValueError(
+            f"the quantized KNN kernel takes k <= {KNN_MAX_K}, k + k_extra "
+            f"<= {KNN_QUANT_MAX_KEEP} and d <= {KNN_QUANT_MAX_D}, got k={k}, "
+            f"k_extra={k_extra}, d={D} {_SHAPE_LIMIT}")
     n_chunks = -(-n_pad // KNN_CHUNK)
     if n_chunks > 65535:                 # the sweep grid's y extent
         raise ValueError(f"n_pad={n_pad} exceeds {65535 * KNN_CHUNK} rows")
@@ -269,9 +278,6 @@ def knn_lambda_quant_cuda(xq, X_q, q_scale, y2_q, lam_db, *, k: int = 10,
     dev = resolve_device(device)
     B, n_pad, n_train, D, k_pred, slab, st, n_chunks = _check_quant_sweep(
         xq, X_q, q_scale, y2_q, lam_db, k, k_extra, mode, dev)
-    if not 1 <= k_pred <= MAX_KERNEL_K:
-        raise ValueError(f"the kernel takes 1 <= K_pred <= {MAX_KERNEL_K}, "
-                         f"got {k_pred}")
     if dev.type == "cpu":
         return knn_lambda_quant_ref(xq, X_q, q_scale, y2_q, lam_db, k,
                                     k_extra=k_extra, mode=mode)
@@ -318,6 +324,7 @@ def knn_rank_audited_quant_cuda(xq, X_q, q_scale, y2_q, lam_db, u, a, b,
         return knn_rank_audited_quant_ref(
             xq, X_q, q_scale, y2_q, lam_db, u, a, b, gamma, k=k, mode=mode,
             m2=m2, k_extra=k_extra, eps=eps, tol=tol)
+    check_rank_kernel(K, m2)
     f32 = torch.float32
     kk = k + k_extra
     ws_d2, ws_idx = _workspace(B, n_chunks, kk, dev)
@@ -337,7 +344,7 @@ def knn_rank_audited_quant_cuda(xq, X_q, q_scale, y2_q, lam_db, u, a, b,
             idx.data_ptr(), util.data_ptr(), expo.data_ptr(),
             comp.data_ptr(), lam.data_ptr(), guard.data_ptr(), B, n_pad,
             n_train, D, k, kk, k_pred, slab, int(mode == "int8"), m1, K, m2,
-            sort_width(m1, m2), KNN_CHUNK, st, n_chunks,
+            rank_split(B, m1, dev), KNN_CHUNK, st, n_chunks,
             float(np.float32(1.0 + eps)), float(tol),
             torch.cuda.current_stream(dev).cuda_stream)
         knn_rank_audited_quant_cuda.launches += 2

@@ -15,11 +15,12 @@ A KNN predictor that carries a quantized db (`quant` "int8" or "bf16")
 takes the same routes through the quantized twins,
 `knn_rank_audited_quant` and `knn_lambda_quant`, with the same launch
 counts.
-The lambda-given route (`rank_audited`, and `fused_rank` without the
-audit) takes the JAX dispatcher's XLA route for m2 > MAX_KERNEL_M2,
-chosen by m2 alone and on every device: the einsum score, a stable
-sort and the audit as torch ops (no launch). The affine and KNN routes
-raise for such an m2 on the card.
+For m2 > MAX_KERNEL_M2 every route takes the JAX dispatcher's XLA
+route, chosen by m2 alone and on every device: lambda-hat first (given;
+X W^T + c as torch ops for mean and linear; `knn_lambda` or
+`knn_lambda_quant` for KNN, two launches on the card), then
+core.ranking.rank_given_lambda's einsum score, stable sort and audit as
+torch ops (no launch). `fused_rank` takes the same sort.
 The kernel library's other entry points, as `repro.kernels` exports
 them: `knn_topk` (two launches), `knn_predict_kernel` (`knn_topk`, then
 the inverse-distance weighting as torch ops) and `embedding_bag` (one).
@@ -96,19 +97,6 @@ def _rank_inputs(u, a, b, gamma, dev):
     return u, a, b, gamma
 
 
-def _check_m2(m2: int, dev: torch.device) -> bool:
-    """True when the affine and KNN kernels take m2; on the card a larger
-    m2 raises (the lambda-given routes sort instead)."""
-    if m2 <= MAX_KERNEL_M2:
-        return True
-    if dev.type == "cuda":
-        raise NotImplementedError(
-            f"m2={m2} > {MAX_KERNEL_M2}: the affine and KNN routes for "
-            f"large m2 are not ported to the card yet (ROADMAP Queue 1 "
-            f"item 4)")
-    return False
-
-
 def fused_rank(u, a, lam, *, m2: int, eps: float = 1e-4, device=None):
     """Adjusted-score top-m2: u (n, m1), a (n, K, m1), lam (n, K) ->
     (vals (n, m2) desc f32, idx (n, m2) int32), ties to the lower item
@@ -170,7 +158,8 @@ def knn_rank_audited(X, X_db, lam_db, u, a, b, gamma, *, k: int = 10,
     here from X_db when not given) with `knn_rank_audited_quant`: the
     top-(k + k_extra) survivors are re-scored exactly in f32.
     `return_guard` also returns the margin guard (n, 1) int32 (zeros
-    for the f32 db)."""
+    for the f32 db). For m2 > MAX_KERNEL_M2 lambda-hat comes from
+    `knn_lambda` (or `knn_lambda_quant`) and the sort route ranks."""
     dev = resolve_device(device)
     tol = AUDIT_TOL if tol is None else tol
     u, a, b, gamma = _rank_inputs(u, a, b, gamma, dev)
@@ -182,28 +171,34 @@ def knn_rank_audited(X, X_db, lam_db, u, a, b, gamma, *, k: int = 10,
     X_db, lam_db = _f32(X_db, dev), _f32(lam_db, dev)
     if X_db.shape[0] < k:
         raise ValueError(f"n_train={X_db.shape[0]} < k={k}")
-    ref.check_pred_width(lam_db.shape[1], a.shape[1])
-    kernel = _check_m2(m2, dev)
+    K = a.shape[1]
+    ref.check_pred_width(lam_db.shape[1], K)
     guard = None
+    pack = None
     if quant != "off":
         pack = _quant_db(X_db, X_q, q_scale, y2_q, quant=quant, dev=dev)
-        args = (X, *pack, lam_db, u, a, b, gamma)
-        kw = dict(k=k, k_extra=k_extra, mode=quant, m2=m2, eps=eps, tol=tol)
-        if kernel:
-            _, idx, util, expo, comp, lam, guard = \
-                knn_rank_audited_quant_cuda(*args, **kw, device=dev)
+    if m2 > MAX_KERNEL_M2:
+        if pack is None:
+            lam = knn_lambda_cuda(X, X_db, lam_db, k=k, device=dev)
+        else:
+            lam, guard = knn_lambda_quant_cuda(X, *pack, lam_db, k=k,
+                                               k_extra=k_extra, mode=quant,
+                                               device=dev)
+        lam = torch.nn.functional.pad(lam, (0, K - lam.shape[1]))
+        out = rank_given_lambda(u, a, b, lam, gamma, m2=m2, eps=eps,
+                                tol=tol)
+    else:
+        if pack is None:
+            _, idx, util, expo, comp, lam = knn_rank_audited_cuda(
+                X, X_db, lam_db, u, a, b, gamma, k=k, m2=m2, eps=eps,
+                tol=tol, device=dev)
         else:
             _, idx, util, expo, comp, lam, guard = \
-                ref.knn_rank_audited_quant_ref(*args, **kw)
-    elif kernel:
-        _, idx, util, expo, comp, lam = knn_rank_audited_cuda(
-            X, X_db, lam_db, u, a, b, gamma, k=k, m2=m2, eps=eps, tol=tol,
-            device=dev)
-    else:
-        _, idx, util, expo, comp, lam = ref.knn_rank_audited_ref(
-            X, X_db, lam_db, u, a, b, gamma, k=k, m2=m2, eps=eps, tol=tol)
-    out = RankingOutput(perm=idx, utility=util, exposure=expo,
-                        compliant=comp, lam=lam)
+                knn_rank_audited_quant_cuda(
+                    X, *pack, lam_db, u, a, b, gamma, k=k, k_extra=k_extra,
+                    mode=quant, m2=m2, eps=eps, tol=tol, device=dev)
+        out = RankingOutput(perm=idx, utility=util, exposure=expo,
+                            compliant=comp, lam=lam)
     if not return_guard:
         return out
     if guard is None:
@@ -279,7 +274,9 @@ def linear_rank_audited(X, W, c, u, a, b, gamma, *, relu: bool, m2: int,
     """The affine online stage: lambda-hat = X W^T + c (clamped at 0 if
     `relu`), then rank + audit. X (n, d), W (K, d) and c (K,) already
     padded to a's K rows (`ref.affine_params`); u, a, b, gamma as in
-    `rank_audited`."""
+    `rank_audited`. For m2 > MAX_KERNEL_M2 lambda-hat is the kernel
+    prologue's arithmetic as torch ops (`ref.affine_lambda_ref`) and the
+    sort route ranks."""
     dev = resolve_device(device)
     tol = AUDIT_TOL if tol is None else tol
     u, a, b, gamma = _rank_inputs(u, a, b, gamma, dev)
@@ -287,13 +284,13 @@ def linear_rank_audited(X, W, c, u, a, b, gamma, *, relu: bool, m2: int,
     if X.shape[0] != u.shape[0]:
         raise ValueError(f"X carries {X.shape[0]} covariate rows but the "
                          f"problem has {u.shape[0]} users")
-    if _check_m2(m2, dev):
-        _, idx, util, expo, comp, lam = linear_rank_audited_cuda(
-            u, a, b, X, W, c, gamma, m2=m2, eps=eps, tol=tol, relu=relu,
-            device=dev)
-    else:
-        _, idx, util, expo, comp, lam = ref.linear_rank_audited_ref(
-            u, a, b, X, W, c, gamma, m2, eps, tol, relu)
+    if m2 > MAX_KERNEL_M2:
+        lam = ref.affine_lambda_ref(X, W, c, relu)
+        return rank_given_lambda(u, a, b, lam, gamma, m2=m2, eps=eps,
+                                 tol=tol)
+    _, idx, util, expo, comp, lam = linear_rank_audited_cuda(
+        u, a, b, X, W, c, gamma, m2=m2, eps=eps, tol=tol, relu=relu,
+        device=dev)
     return RankingOutput(perm=idx, utility=util, exposure=expo,
                          compliant=comp, lam=lam)
 
@@ -369,13 +366,16 @@ def kernel_launch_count(predictor, m2: int, *, device=None,
     """Kernel launches one dispatcher call makes, by route: 1 for the
     lambda-given route (`predictor=None`) and for mean and linear, 2 for
     KNN, 3 for KNN with `knn_chain`, over the f32 or the quantized db
-    alike; 0 where the plain PyTorch path runs (a CPU device) and for
-    m2 > MAX_KERNEL_M2 (the lambda-given route sorts; the others raise
-    on the card). A count of the route, not a run: it needs no card."""
+    alike; 0 where the plain PyTorch path runs (a CPU device). For
+    m2 > MAX_KERNEL_M2 the ranking is torch ops: 2 for KNN, fused or
+    chain (its lambda-hat from `knn_lambda` or `knn_lambda_quant`), 0
+    for the other routes. The JAX dispatcher's count there is 0 on every
+    route, since its lambda-hat is computed in XLA. A count of the
+    route, not a run: it needs no card."""
     dev = torch.device("cuda" if device is None else device)
     route = route_of(predictor)
-    if dev.type != "cuda" or m2 > MAX_KERNEL_M2:
+    if dev.type != "cuda":
         return 0
     if route == "knn":
-        return 3 if knn_chain else 2
-    return 1
+        return 3 if knn_chain and m2 <= MAX_KERNEL_M2 else 2
+    return 1 if m2 <= MAX_KERNEL_M2 else 0

@@ -265,3 +265,146 @@ def test_knn_predict_kernel_agrees_with_the_knn_lambda_kernel(card):
     one = ops.knn_predict_kernel(X_db, lam_db, X[0], k=10)
     assert one.shape == (5,) and torch.allclose(one, want[0], rtol=1e-5,
                                                 atol=1e-6)
+
+
+def _rank_all(t, m2, dev, X_db=None, lam_db=None):
+    """Every rank kernel on the rank inputs t = (u, a, b, lam, g), each
+    with its plain version: fused_rank, rank_audited, linear_rank_audited
+    and, over a 5-wide KNN predictor, knn_rank_audited and the int8
+    knn_rank_audited_quant."""
+    u, a, b, lam, g = t
+    n, K = lam.shape
+    rng = np.random.default_rng(K)
+    vals, idx = fused_rank_cuda(u, a, lam, m2=m2)
+    want = ref.fused_rank_ref(u, a, lam, m2)
+    assert torch.equal(vals, want[0]) and torch.equal(idx, want[1])
+    got = rank_audited_cuda(*t, m2=m2)
+    for gt, w in zip(got, ref.rank_audited_ref(*t, m2)):
+        assert torch.equal(gt, w)
+    X = _t(rng.normal(size=(n, 20)), dev)
+    W = _t(rng.normal(size=(K, 20)) * 0.3, dev)
+    c = _t(rng.normal(size=(K,)) * 0.5, dev)
+    args = (u, a, b, X, W, c, g)
+    for gt, w in zip(linear_rank_audited_cuda(*args, m2=m2),
+                     ref.linear_rank_audited_ref(*args, m2)):
+        assert torch.equal(gt, w)
+    if X_db is None:
+        X_db = _t(rng.normal(size=(3000, 20)), dev)
+        lam_db = _t(np.abs(rng.normal(size=(3000, 5))), dev)
+    knn = (X, X_db, lam_db, u, a, b, g)
+    for gt, w in zip(knn_rank_audited_cuda(*knn, k=10, m2=m2),
+                     ref.knn_rank_audited_ref(*knn, k=10, m2=m2)):
+        assert torch.equal(gt, w)
+    pack = pack_knn_db(X_db, mode="int8")
+    qargs = (X, *pack, lam_db, u, a, b, g)
+    for gt, w in zip(
+            knn_rank_audited_quant_cuda(*qargs, k=10, mode="int8", m2=m2),
+            ref.knn_rank_audited_quant_ref(*qargs, k=10, mode="int8", m2=m2)):
+        assert torch.equal(gt, w)
+
+
+@pytest.mark.parametrize("K", [33, 64, 100])
+def test_rank_kernels_take_wide_K(card, K):
+    """K past the old 32 (64 is the engine's next tier): coef lives in
+    dynamic shared memory and the prologue and audit stride over K."""
+    t = _rank(np.random.default_rng(K), 6, 3000, K, 50, card)
+    t[3] *= 0.1
+    _rank_all(t, 50, card)
+
+
+@pytest.mark.parametrize("n,m1,m2", [(4, 100_000, 50), (2, 1_048_576, 64),
+                                     (3, 5000, 128)])
+def test_split_rows_equal_plain(card, n, m1, m2):
+    """A small batch splits each row over a cluster of blocks (8 at
+    4 x 100,000): the merged top-m2 and the audit stay bitwise."""
+    from repro_torch.kernels.fused_rank import rank_split
+    assert rank_split(n, m1, card) > 1
+    _rank_all(_rank(np.random.default_rng(m1), n, m1, 5, m2, card), m2,
+              card)
+
+
+@pytest.mark.parametrize("rows", ["rising", "ties", "falling"])
+def test_filter_worst_cases_equal_plain(card, rows):
+    """Scores rising with the index (every candidate passes the filter),
+    a row of exact ties (ties to the lowest index) and falling scores,
+    on one block (n = 300) and on a split row (n = 2)."""
+    for n in (300, 2):
+        m1, K, m2 = 20_000, 3, 64
+        base = torch.arange(m1, dtype=torch.float32, device=card) / m1
+        u = {"rising": base, "ties": torch.ones_like(base),
+             "falling": 1.0 - base}[rows].expand(n, m1).contiguous()
+        a = torch.zeros((n, K, m1), device=card)
+        lam = torch.ones((n, K), device=card)
+        b = torch.zeros((n, K), device=card)
+        g = torch.ones((n, m2), device=card)
+        t = [u, a, b, lam, g]
+        for gt, w in zip(rank_audited_cuda(*t, m2=m2),
+                         ref.rank_audited_ref(*t, m2)):
+            assert torch.equal(gt, w)
+        want = {"rising": torch.arange(m1 - 1, m1 - 1 - m2, -1),
+                "ties": torch.arange(m2),
+                "falling": torch.arange(m2)}[rows]
+        assert torch.equal(fused_rank_cuda(u, a, lam, m2=m2)[1][0].cpu(),
+                           want.to(torch.int32))
+
+
+@pytest.mark.parametrize("route", ["knn", "knn_int8", "linear", "mean"])
+def test_large_m2_routes_on_the_card(card, route):
+    """m2 = 500: lambda-hat from knn_lambda or knn_lambda_quant (two
+    launches) or as torch ops, then the sort route; the launches match
+    kernel_launch_count, lambda-hat is bitwise its plain version and the
+    ranking is rank_given_lambda's on it."""
+    from repro_torch.core.predictors import (
+        KNNLambdaPredictor,
+        LinearLambdaPredictor,
+        MeanLambdaPredictor,
+    )
+    rng = np.random.default_rng(500)
+    n, m1, K, m2 = 8, 1024, 8, 500
+    u, a, b, _, g = _rank(rng, n, m1, K, m2, card)
+    X_db = _t(rng.normal(size=(5000, 20)), card)
+    lam_db = _t(np.abs(rng.normal(size=(5000, 5))), card)
+    X = _t(rng.normal(size=(n, 20)), card)
+    knn = KNNLambdaPredictor(X_db=X_db, lam_db=lam_db, k=10)
+    if route == "knn":
+        p, lam = knn, ref.knn_lambda_ref(X, X_db, lam_db, 10)
+    elif route == "knn_int8":
+        p = knn.quantized("int8", device=card)
+        lam = ref.knn_lambda_quant_ref(X, p.X_q, p.q_scale, p.y2_q, lam_db,
+                                       10)[0]
+    else:
+        cls = LinearLambdaPredictor if route == "linear" else \
+            MeanLambdaPredictor
+        p = cls.fit(X_db, lam_db, device=card)
+        W, c, relu = ref.affine_params(p, 20, K)
+        lam = ref.affine_lambda_ref(X, W, c, relu)
+    lam = torch.nn.functional.pad(lam, (0, K - lam.shape[1]))
+    counters = (knn_lambda_cuda, knn_lambda_quant_cuda, rank_audited_cuda,
+                linear_rank_audited_cuda, knn_rank_audited_cuda,
+                knn_rank_audited_quant_cuda)
+    before = sum(w.launches for w in counters)
+    got = ops.predict_rank_audited(X, p, u, a, b, g, m2=m2)
+    torch.cuda.synchronize()
+    launched = sum(w.launches for w in counters) - before
+    assert launched == ops.kernel_launch_count(p, m2) == (
+        2 if route.startswith("knn") else 0)
+    want = ranking.rank_given_lambda(u, a, b, lam, g, m2=m2)
+    for f in ("perm", "utility", "exposure", "compliant", "lam"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_knn_shape_limits_raise_on_the_card(card):
+    """k > 16 and d > 256 over the f32 db, d > 128 over a pack: the
+    sweeps' own limits, which name the ROADMAP item that lifts them."""
+    rng = np.random.default_rng(9)
+    for k, d in ((17, 20), (10, 257)):
+        X_db = _t(rng.normal(size=(600, d)), card)
+        X = _t(rng.normal(size=(4, d)), card)
+        with pytest.raises(ValueError, match="Queue 2 item 5"):
+            knn_topk_cuda(X, X_db, k=k)
+    X_db = _t(rng.normal(size=(600, 129)), card)
+    pack = pack_knn_db(X_db, mode="int8")
+    lam_db = _t(np.abs(rng.normal(size=(600, 5))), card)
+    with pytest.raises(ValueError, match="Queue 2 item 5"):
+        knn_lambda_quant_cuda(_t(rng.normal(size=(4, 129)), card), *pack,
+                              lam_db, k=10, mode="int8")

@@ -23,6 +23,7 @@ from repro_torch.core.predictors import (
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+from repro_torch.kernels.fused_rank import MAX_KERNEL_M2
 from repro_torch.kernels.fused_rank import (
     fused_rank_cuda,
     linear_rank_audited_cuda,
@@ -37,7 +38,7 @@ from repro_torch.serving.engine import ServingEngine
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "bench_rank.py"]
 
 
 def _imported_roots(path: Path) -> set:
@@ -176,15 +177,18 @@ def test_default_device_raises_without_cuda(name):
 def test_kernel_launch_count_by_route():
     """Launches per micro-batch on an assumed card: lambda given 1,
     linear 1, mean 1, KNN 2, the KNN chain 3 (knn_lambda's two, then
-    rank_audited), over the f32 or the quantized db alike; 0 where the
-    plain path runs."""
+    rank_audited), over the f32 or the quantized db alike; for m2 > 128
+    KNN 2 (knn_lambda's pair, fused or chain) and the others 0 (the sort
+    route); 0 where the plain path runs."""
     fam = _families(_small())
     knn = fam["knn"]
     for quant in (fam["knn_int8"], knn.quantized("bf16", device="cpu")):
         assert ops.kernel_launch_count(quant, 64) == 2
         assert ops.kernel_launch_count(quant, 64, knn_chain=True) == 3
         assert ops.kernel_launch_count(quant, 64, device="cpu") == 0
-        assert ops.kernel_launch_count(quant, 129) == 0
+        assert ops.kernel_launch_count(quant, 129) == 2
+        assert ops.kernel_launch_count(quant, 500, knn_chain=True) == 2
+        assert ops.kernel_launch_count(quant, 500, device="cpu") == 0
     assert ops.kernel_launch_count(None, 64) == 1
     assert ops.kernel_launch_count(fam["linear"], 64) == 1
     assert ops.kernel_launch_count(fam["mean"], 64) == 1
@@ -192,8 +196,10 @@ def test_kernel_launch_count_by_route():
     assert ops.kernel_launch_count(knn, 64, knn_chain=True) == 3
     assert ops.kernel_launch_count(None, 128) == 1
     assert ops.kernel_launch_count(None, 129) == 0
-    assert ops.kernel_launch_count(knn, 129) == 0
+    assert ops.kernel_launch_count(knn, 129) == 2
+    assert ops.kernel_launch_count(knn, 129, knn_chain=True) == 2
     assert ops.kernel_launch_count(fam["linear"], 129) == 0
+    assert ops.kernel_launch_count(fam["mean"], 512) == 0
     assert ops.kernel_launch_count(knn, 64, device="cpu") == 0
     assert ops.kernel_launch_count(fam["mean"], 64, device="cpu") == 0
 
@@ -218,9 +224,12 @@ def test_unported_routes_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         ops.predict_rank_audited(t["X"], object(), t["u"], t["a"], t["b"],
                                  t["gamma"], m2=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ops._check_m2(129, torch.device("cuda"))
-    assert ops._check_m2(129, torch.device("cpu")) is False
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        ops.kernel_launch_count(object(), 129)
+    g = torch.ones((2, 64))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        ops.predict_rank_audited(t["X"], object(), t["u"], t["a"], t["b"],
+                                 g, m2=64 + MAX_KERNEL_M2, device="cpu")
 
 
 def test_large_m2_route_is_chosen_by_shape(monkeypatch):
