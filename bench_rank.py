@@ -1,4 +1,5 @@
-"""Times the rank kernels of one checkout of the port on one CUDA card.
+"""Times the rank and KNN kernels of one checkout of the port on one CUDA
+card.
 
   python3 bench_rank.py [--tree DIR] [--seed N] [--out FILE]
 
@@ -7,11 +8,16 @@ CUDA kernels there, and runs chip_smoke.rank_timings over
 chip_smoke.RANK_CASES: fused_rank at the bucket and at 64 x m1 =
 100,000; rank_audited at the bucket, at B = 8192 and at the paper's
 serve_retrieval cell (256 x m1 = 1,048,576); linear_rank_audited at the
-bucket and at B = 8192; knn_rank_audited at serve_retrieval. Each case
-reports the kernel's ms, its plain version's, a library yardstick's,
-the card's bound and whether the outputs equal the plain version's bit
-for bit. Prints the card's name and power limit, then one JSON line,
-also written to FILE.
+bucket and at B = 8192; knn_rank_audited at serve_retrieval; then
+chip_smoke.knn_timings over a 1,048,576-row db and its int8 and bf16
+packs: knn_lambda and knn_rank_audited, knn_lambda_quant and
+knn_rank_audited_quant in both modes, each at the bucket (B = 32) and
+at B = 1024, with the profiler's split of each lambda-hat kernel
+between its sweep and its merge. Each case reports the kernel's ms, a
+library yardstick's, the card's bound and whether the outputs equal
+the plain version's bit for bit (the rank cases also the plain
+version's ms). Prints the card's name and power limit, then one JSON
+line, also written to FILE.
 
 To compare two checkouts, run both in one call on one card, in turns:
 the parent, this tree, this tree, the parent (each in its own process,
@@ -50,7 +56,13 @@ def main() -> int:
         linear_rank_audited_cuda,
         rank_audited_cuda,
     )
-    from repro_torch.kernels.knn_topk import knn_rank_audited_cuda
+    from repro_torch.core.predictors import pack_knn_db
+    from repro_torch.kernels.knn_topk import (
+        knn_lambda_cuda,
+        knn_lambda_quant_cuda,
+        knn_rank_audited_cuda,
+        knn_rank_audited_quant_cuda,
+    )
 
     build.build_all()
     dev = torch.device("cuda", 0)
@@ -60,6 +72,16 @@ def main() -> int:
         fused_rank_cuda=fused_rank_cuda, rank_audited_cuda=rank_audited_cuda,
         linear_rank_audited_cuda=linear_rank_audited_cuda,
         knn_rank_audited_cuda=knn_rank_audited_cuda, ref=ref), gen, dev)
+    X_db, lam_db = cs.knn_db(gen, dev, cs.N_DB)
+    knn, _ = cs.knn_timings(SimpleNamespace(
+        knn_lambda_cuda=knn_lambda_cuda,
+        knn_rank_audited_cuda=knn_rank_audited_cuda,
+        knn_lambda_quant_cuda=knn_lambda_quant_cuda,
+        knn_rank_audited_quant_cuda=knn_rank_audited_quant_cuda, ref=ref),
+        gen, dev, X_db, lam_db,
+        {m: pack_knn_db(X_db, mode=m, device=dev) for m in cs.MODES},
+        plain=False)
+    timing.update(knn)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

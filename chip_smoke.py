@@ -19,6 +19,14 @@ Phases (any failure exits non-zero before a result is printed):
      exactly (the 0.5 grid, 63.5 in every slab) the quantized outputs
      equal knn_rank_audited's bitwise and an exact-match query returns
      its row's lambda; the share of rows whose guard fired is logged;
+     both quantized kernels in both modes, bitwise (lambda-hat and guard
+     of the pair equal too), over 1,048,576 rows on orderings that
+     stress the sweep's filtered selection (rows in rising and falling
+     distance from the queries, all rows identical, exact ties planted
+     every 2999 rows) and at the limits this slice lifted (k = 20, 33,
+     64; d = 300, 512; d = 13 with a ragged slab of 200), plus a pack
+     smaller than one chunk and k + k_extra = n_pad; knn_topk,
+     knn_lambda and knn_rank_audited bitwise at k = 64, d = 300 and 512;
      the kernel library's three: fused_rank at the bucket (m2 64 and
      128) and at kernel_bench's retrieval shape (64 x m1=100,000, K=5,
      m2=50), bitwise its plain version and rank_audited's (vals, idx);
@@ -62,10 +70,11 @@ Phases (any failure exits non-zero before a result is printed):
      with both tables; fused_rank at 64 x m1=100,000; rank_audited and
      knn_rank_audited also at serve_retrieval), beside the plain
      version, a library yardstick that only this script calls, and the
-     card's bound; then split each KNN lambda-hat kernel's device time
-     at the bucket between its sweep and its merge (torch.profiler).
-     The rank kernels' timings are rank_timings, which bench_rank.py
-     runs on two checkouts for a before/after pair.
+     card's bound; and split each KNN lambda-hat kernel's device time
+     at the bucket and at B=1024 between its sweep and its merge
+     (torch.profiler). The rank and KNN kernels' timings are
+     rank_timings and knn_timings, which bench_rank.py runs on two
+     checkouts for a before/after pair.
 The launch counters are set to 0 just before the offline phase's
 holdout path, the serving path and the kernel library path, and read
 just after each.
@@ -111,6 +120,8 @@ WIDE = dict(n_db=100_003, d=256, k=16)   # the JAX tests' widest knn_topk
 BAG = dict(V=1_000_000, D=64, n_bags=4096, bag=32)
 MODES = ("int8", "bf16")
 QUANT_EXTRA = 8
+LIMIT_K = (20, 33, 64)        # k past the old 16: lists of 32, 64 and 128
+LIMIT_D = (300, 512)          # d past the old 128 (pack) and 256 (f32)
 # (route tag, m2) -> requests; m2 = 500 lands in the 512 bucket, above
 # the rank kernels' m2 <= 128
 SERVE_MIX = {("knn", 50): 192, ("knn_int8", 50): 64, ("knn_bf16", 50): 32,
@@ -408,6 +419,109 @@ def rank_timings(k, gen, dev, cases=RANK_CASES):
     return out
 
 
+def knn_timings(k, gen, dev, X_db, lam_db, packs, plain=True):
+    """Times the KNN lambda-hat kernels of the namespace `k`
+    (knn_lambda_cuda, knn_rank_audited_cuda, knn_lambda_quant_cuda,
+    knn_rank_audited_quant_cuda and the module ref) over the f32 db X_db
+    and its packs {mode: (X_q, q_scale, y2_q)} at the bucket and at
+    LARGE_KNN_B queries, on inputs drawn from `gen`: the kernel's ms
+    beside a library yardstick (torch.addmm + torch.topk on the f32 db;
+    torch._int_mm or a bf16 addmm, then torch.topk(k+8), on a pack) and
+    the card's bound; `bitwise` says whether the outputs equal the plain
+    version's; the plain version's ms where `plain`; and, for the two
+    lambda-hat kernels, the profiler's device ms by kernel (the sweep
+    and the merge). Returns (rows by (kernel, label[, mode]), the
+    yardstick of each mode). bench_rank.py runs this for two
+    checkouts."""
+    B, m1, K, m2 = BUCKET["B"], BUCKET["m1"], BUCKET["K"], BUCKET["m2"]
+    n_db = X_db.shape[0]
+    out, library = {}, {}
+
+    def row(key, Bt, fn, plain_fn, bnd, library_ms, reps, split):
+        got, want = fn(), plain_fn()
+        torch.cuda.synchronize()
+        bms, by = bnd
+        r = dict(batch=Bt, ms=time_ms(fn, reps), library_ms=library_ms,
+                 bound_ms=bms, bound_by=by, bitwise=bitwise(got, want))
+        del got, want
+        if plain:
+            r["plain_ms"] = time_ms(plain_fn, 1, groups=3)
+        if split:
+            r["split_ms"] = device_split({"x": fn})["x"]
+        out[key] = r
+
+    y2 = (X_db * X_db).sum(1)
+    for label, Bt in (("bucket", B), ("large", LARGE_KNN_B)):
+        u, a, b, lam, g = rank_inputs(gen, dev, Bt, m1, K, m2)
+        xq = torch.randn((Bt, D), generator=gen, device=dev)
+        reps = 10 if Bt == B else 2
+        library_ms = time_ms(lambda: torch.topk(
+            torch.addmm(y2, xq, X_db.T, alpha=-2.0), KNN_K, largest=False),
+            reps)
+        row(("knn_rank_audited", label), Bt,
+            lambda: k.knn_rank_audited_cuda(xq, X_db, lam_db, u, a, b, g,
+                                            k=KNN_K, m2=m2, eps=EPS),
+            lambda: k.ref.knn_rank_audited_ref(xq, X_db, lam_db, u, a, b, g,
+                                               k=KNN_K, m2=m2, eps=EPS),
+            bound(*knn_work(Bt, n_db, m1, K, m2)), library_ms, reps, False)
+        row(("knn_lambda", label), Bt,
+            lambda: k.knn_lambda_cuda(xq, X_db, lam_db, k=KNN_K),
+            lambda: k.ref.knn_lambda_ref(xq, X_db, lam_db, KNN_K),
+            bound(*sweep_work(Bt, n_db)), library_ms, reps, True)
+    for mode, pack in packs.items():
+        n_pad = pack[0].shape[0]
+        if mode == "int8":
+            # the int8 product wants whole 8-byte rows: pad d to 24
+            db8 = torch.zeros((n_pad, 24), dtype=torch.int8, device=dev)
+            db8[:, :D] = pack[0]
+            library[mode] = ("torch._int_mm on the int8 query and db padded "
+                             "to d=24, then torch.topk(k+8)")
+        else:
+            y2b = pack[2][:, 0].to(torch.bfloat16)
+            library[mode] = ("torch.addmm on bf16 operands, then "
+                             "torch.topk(k+8)")
+        for label, Bt in (("bucket", B), ("large", LARGE_KNN_B)):
+            u, a, b, lam, g = rank_inputs(gen, dev, Bt, m1, K, m2)
+            xq = torch.randn((Bt, D), generator=gen, device=dev)
+            reps = 10 if Bt == B else 2
+            if mode == "int8":
+                # the query quantized per row, as the kernel does
+                sq = xq.abs().amax(1, keepdim=True) / 127.0
+                q8 = torch.zeros((Bt, 24), dtype=torch.int8, device=dev)
+                q8[:, :D] = torch.clamp(torch.round(xq / sq), -127, 127)
+                lib_fn = lambda: torch.topk(  # noqa: E731
+                    torch._int_mm(q8, db8.t()), KNN_K + QUANT_EXTRA)
+            else:
+                xb = xq.to(torch.bfloat16)
+                lib_fn = lambda: torch.topk(  # noqa: E731
+                    torch.addmm(y2b, xb, pack[0].T, alpha=-2.0),
+                    KNN_K + QUANT_EXTRA, largest=False)
+            try:
+                library_ms = time_ms(lib_fn, reps)
+            except RuntimeError as exc:        # the reason it would not run
+                library_ms = None
+                library[mode] += f" (did not run: {str(exc)[:160]})"
+            row(("knn_rank_audited_quant", label, mode), Bt,
+                lambda: k.knn_rank_audited_quant_cuda(
+                    xq, *pack, lam_db, u, a, b, g, k=KNN_K, mode=mode,
+                    m2=m2, eps=EPS),
+                lambda: k.ref.knn_rank_audited_quant_ref(
+                    xq, *pack, lam_db, u, a, b, g, k=KNN_K, mode=mode,
+                    m2=m2, eps=EPS),
+                bound(*quant_knn_work(Bt, n_db, m1, K, m2, mode), mode=mode),
+                library_ms, reps, False)
+            row(("knn_lambda_quant", label, mode), Bt,
+                lambda: k.knn_lambda_quant_cuda(xq, *pack, lam_db, k=KNN_K,
+                                                mode=mode),
+                lambda: k.ref.knn_lambda_quant_ref(xq, *pack, lam_db, KNN_K,
+                                                   mode=mode),
+                bound(*quant_sweep_work(Bt, n_db, mode), mode=mode),
+                library_ms, reps, True)
+        if mode == "int8":
+            del db8
+    return out, library
+
+
 def reset_counters(wrappers):
     for w in wrappers.values():
         w.launches = 0
@@ -454,7 +568,6 @@ def main() -> int:
     from repro_torch.core import ranking
     from repro_torch.core.predictors import KNNLambdaPredictor, pack_knn_db
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels.common import quantize_query
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda
     from repro_torch.kernels.fused_rank import (
         MAX_KERNEL_M2,
@@ -521,9 +634,12 @@ def main() -> int:
     logs = build.build_all()
     log(f"phase 1: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]       # the mangled kernel name
+            elif "registers" in line or "spill" in line:
+                log(f"  {name}: {entry}: {line.strip()}")
 
     # -- phase 2: each kernel against its plain version --------------------
     B, m1, K, m2 = BUCKET["B"], BUCKET["m1"], BUCKET["K"], BUCKET["m2"]
@@ -642,6 +758,85 @@ def main() -> int:
             fail(f"lossless {mode} pack: exact-match query did not return "
                  f"its row's lambda")
     del X_ll
+    # the quantized pair on orderings that stress a filtered selection and
+    # at the new limits, the f32 kernels at k = 64 and d = 512, all over
+    # 1,048,576 rows; drawn from a generator of their own, so the phases
+    # after this one see the draws they always saw
+    gen_l = torch.Generator(device=dev)
+    gen_l.manual_seed(args.seed + 17)
+
+    def quant_pair(name, xq, xdb, ldb, mode, k=KNN_K, k_extra=QUANT_EXTRA,
+                   slab=512):
+        """Both quantized kernels bitwise their plain versions, the chain
+        kernel's lambda-hat and guard the fused kernel's."""
+        pack = pack_knn_db(xdb, mode=mode, slab=slab, device=dev)
+        u, a, b, _, g = rank_inputs(gen_l, dev, xq.shape[0], m1, K, m2)
+        kw = dict(k=k, k_extra=k_extra, mode=mode)
+        got = knn_rank_audited_quant_cuda(xq, *pack, ldb, u, a, b, g, m2=m2,
+                                          eps=EPS, **kw)
+        lam_hat, guard = knn_lambda_quant_cuda(xq, *pack, ldb, **kw)
+        torch.cuda.synchronize()
+        want = ref.knn_rank_audited_quant_ref(xq, *pack, ldb, u, a, b, g,
+                                              m2=m2, eps=EPS, **kw)
+        if not bitwise(got, want):
+            fail(f"knn_rank_audited_quant {mode} {name}: differs from the "
+                 f"plain version")
+        if not bitwise((lam_hat, guard),
+                       ref.knn_lambda_quant_ref(xq, *pack, ldb, **kw)):
+            fail(f"knn_lambda_quant {mode} {name}: differs from the plain "
+                 f"version")
+        if not (torch.equal(lam_hat, got[5][:, :lam_hat.shape[1]])
+                and torch.equal(guard, got[6])):
+            fail(f"knn_lambda_quant {mode} {name}: lambda-hat or guard "
+                 f"differs from knn_rank_audited_quant's")
+
+    ray = torch.nn.functional.normalize(
+        torch.randn(D, generator=gen_l, device=dev), dim=0)
+    ramp = torch.linspace(0.5, 8.0, N_DB, device=dev)[:, None]
+    xq = torch.randn((B, D), generator=gen_l, device=dev) * 1e-3
+    planted = torch.randn((N_DB, D), generator=gen_l, device=dev) * 3.0
+    planted[::2999] = xq[0]       # exact ties across chunks and folds
+    orderings = {"rising": ramp * ray, "falling": ramp.flip(0) * ray,
+                 "identical": ray.expand(N_DB, D).contiguous(),
+                 "planted": planted}
+    for label, xdb in orderings.items():
+        for mode in MODES:
+            quant_pair(label, xq, xdb, lam_db, mode)
+    del orderings, planted, ramp
+    xq = torch.randn((B, D), generator=gen_l, device=dev)
+    for mode in MODES:
+        for kk in LIMIT_K:
+            quant_pair(f"k={kk}", xq, X_db, lam_db, mode, k=kk)
+        quant_pair("d=13 slab=200 ragged", xq[:, :13].contiguous(),
+                   X_db[:N_DB - 4093, :13].contiguous(),
+                   lam_db[:N_DB - 4093], mode, slab=200)
+        quant_pair("n_pad < chunk", xq, X_db[:300], lam_db[:300], mode,
+                   slab=128)
+        quant_pair("k + k_extra = n_pad", xq, X_db[:60], lam_db[:60], mode,
+                   k=56, slab=64)
+    for dd in LIMIT_D:
+        xdb = torch.randn((N_DB, dd), generator=gen_l, device=dev)
+        xq = torch.randn((B, dd), generator=gen_l, device=dev)
+        xq[0] = xdb[N_DB - 1]                    # an exact match
+        for mode in MODES:
+            quant_pair(f"d={dd}", xq, xdb, lam_db, mode)
+        kk = max(LIMIT_K)
+        got = (knn_topk_cuda(xq, xdb, k=kk),
+               knn_lambda_cuda(xq, xdb, lam_db, k=kk))
+        u, a, b, _, g = rank_inputs(gen_l, dev, B, m1, K, m2)
+        fused = knn_rank_audited_cuda(xq, xdb, lam_db, u, a, b, g, k=kk,
+                                      m2=m2, eps=EPS)
+        torch.cuda.synchronize()
+        want = ref.knn_rank_audited_ref(xq, xdb, lam_db, u, a, b, g, k=kk,
+                                        m2=m2, eps=EPS)
+        if not (bitwise(got[0], ref.knn_topk_ref(xq, xdb, kk))
+                and bitwise(got[1], ref.knn_lambda_ref(xq, xdb, lam_db, kk))
+                and bitwise(fused, want)
+                and torch.equal(got[1], fused[5][:, :K_PRED])):
+            fail(f"the f32 KNN kernels at k={kk}, d={dd}: differ from the "
+                 f"plain versions")
+    del xdb
+    torch.cuda.empty_cache()
     # the kernel library: fused_rank, knn_topk, knn_predict_kernel and
     # embedding_bag; `lib` keeps each case's inputs and plain outputs for
     # the library path (phase L)
@@ -799,7 +994,11 @@ def main() -> int:
         f"knn_lambda's lambda-hat is bitwise knn_rank_audited's, "
         f"knn_lambda_quant's lambda-hat and guard bitwise "
         f"knn_rank_audited_quant's; on the lossless pack both modes equal "
-        f"knn_rank_audited bitwise; guard fired on {guard_share} of rows "
+        f"knn_rank_audited bitwise; both modes bitwise on rising, falling, "
+        f"identical and planted-tie rows, at k={LIMIT_K}, d={LIMIT_D}, d=13 "
+        f"with a ragged slab, n_pad < one chunk and k + k_extra = n_pad; "
+        f"the f32 kernels bitwise at k={max(LIMIT_K)}, d={LIMIT_D}; "
+        f"guard fired on {guard_share} of rows "
         f"at n_db={N_DB}; fused_rank's (vals, idx) are rank_audited's; "
         f"the rank kernels bitwise at K={WIDE_K}, on rising, tied and "
         f"falling rows and at serve_retrieval {SERVE_RETRIEVAL}; "
@@ -1043,85 +1242,19 @@ def main() -> int:
             f"fused_rank {label}": lambda: fused_rank_cuda(u, a, lam, m2=m2,
                                                            eps=EPS)}))
     del u, a, b, lam, g, X, W, c
+    # the KNN lambda-hat kernels (knn_timings, which bench_rank.py also
+    # runs on another checkout)
+    knn_t, library = knn_timings(SimpleNamespace(
+        knn_lambda_cuda=knn_lambda_cuda,
+        knn_rank_audited_cuda=knn_rank_audited_cuda,
+        knn_lambda_quant_cuda=knn_lambda_quant_cuda,
+        knn_rank_audited_quant_cuda=knn_rank_audited_quant_cuda, ref=ref),
+        gen, dev, X_db, lam_db, {m: packs[(m, N_DB)] for m in MODES})
+    for key, row in knn_t.items():
+        if not row.pop("bitwise"):
+            fail(f"{' '.join(key)}: differs from the plain version")
+    timing.update(knn_t)
     y2 = (X_db * X_db).sum(1)
-    for label, Bt in (("bucket", B), ("large", LARGE_KNN_B)):
-        u, a, b, lam, g = rank_inputs(gen, dev, Bt, m1, K, m2)
-        xq = torch.randn((Bt, D), generator=gen, device=dev)
-        reps = 10 if Bt == B else 2
-        library_ms = time_ms(lambda: torch.topk(
-            torch.addmm(y2, xq, X_db.T, alpha=-2.0), KNN_K, largest=False),
-            reps)
-        bms, by = bound(*knn_work(Bt, N_DB, m1, K, m2))
-        timing[("knn_rank_audited", label)] = dict(
-            batch=Bt,
-            ms=time_ms(lambda: knn_rank_audited_cuda(
-                xq, X_db, lam_db, u, a, b, g, k=KNN_K, m2=m2, eps=EPS), reps),
-            plain_ms=time_ms(lambda: ref.knn_rank_audited_ref(
-                xq, X_db, lam_db, u, a, b, g, k=KNN_K, m2=m2, eps=EPS),
-                1, groups=3),
-            library_ms=library_ms, bound_ms=bms, bound_by=by)
-        bms, by = bound(*sweep_work(Bt, N_DB))
-        timing[("knn_lambda", label)] = dict(
-            batch=Bt,
-            ms=time_ms(lambda: knn_lambda_cuda(xq, X_db, lam_db, k=KNN_K),
-                       reps),
-            plain_ms=time_ms(lambda: ref.knn_lambda_ref(xq, X_db, lam_db,
-                                                        KNN_K), 1, groups=3),
-            library_ms=library_ms, bound_ms=bms, bound_by=by)
-    library = {}
-    for mode in MODES:
-        pack = packs[(mode, N_DB)]
-        n_pad = pack[0].shape[0]
-        if mode == "int8":
-            # the int8 product wants whole 8-byte rows: pad d to 24
-            db8 = torch.zeros((n_pad, 24), dtype=torch.int8, device=dev)
-            db8[:, :D] = pack[0]
-            library[mode] = ("torch._int_mm on the int8 query and db padded "
-                             "to d=24, then torch.topk(k+8)")
-        else:
-            y2b = pack[2][:, 0].to(torch.bfloat16)
-            library[mode] = ("torch.addmm on bf16 operands, then "
-                             "torch.topk(k+8)")
-        for label, Bt in (("bucket", B), ("large", LARGE_KNN_B)):
-            u, a, b, lam, g = rank_inputs(gen, dev, Bt, m1, K, m2)
-            xq = torch.randn((Bt, D), generator=gen, device=dev)
-            reps = 10 if Bt == B else 2
-            if mode == "int8":
-                q8 = torch.zeros((Bt, 24), dtype=torch.int8, device=dev)
-                q8[:, :D] = quantize_query(xq)[0].to(torch.int8)
-                lib_fn = lambda: torch.topk(  # noqa: E731
-                    torch._int_mm(q8, db8.t()), KNN_K + QUANT_EXTRA)
-            else:
-                xb = xq.to(torch.bfloat16)
-                lib_fn = lambda: torch.topk(  # noqa: E731
-                    torch.addmm(y2b, xb, pack[0].T, alpha=-2.0),
-                    KNN_K + QUANT_EXTRA, largest=False)
-            try:
-                library_ms = time_ms(lib_fn, reps)
-            except RuntimeError as exc:        # the reason it would not run
-                library_ms = None
-                library[mode] += f" (did not run: {str(exc)[:160]})"
-            bms, by = bound(*quant_knn_work(Bt, N_DB, m1, K, m2, mode),
-                            mode=mode)
-            timing[("knn_rank_audited_quant", label, mode)] = dict(
-                batch=Bt,
-                ms=time_ms(lambda: knn_rank_audited_quant_cuda(
-                    xq, *pack, lam_db, u, a, b, g, k=KNN_K, mode=mode, m2=m2,
-                    eps=EPS), reps),
-                plain_ms=time_ms(lambda: ref.knn_rank_audited_quant_ref(
-                    xq, *pack, lam_db, u, a, b, g, k=KNN_K, mode=mode, m2=m2,
-                    eps=EPS), 1, groups=3),
-                library_ms=library_ms, bound_ms=bms, bound_by=by)
-            bms, by = bound(*quant_sweep_work(Bt, N_DB, mode), mode=mode)
-            timing[("knn_lambda_quant", label, mode)] = dict(
-                batch=Bt,
-                ms=time_ms(lambda: knn_lambda_quant_cuda(
-                    xq, *pack, lam_db, k=KNN_K, mode=mode), reps),
-                plain_ms=time_ms(lambda: ref.knn_lambda_quant_ref(
-                    xq, *pack, lam_db, KNN_K, mode=mode), 1, groups=3),
-                library_ms=library_ms, bound_ms=bms, bound_by=by)
-        if mode == "int8":
-            del db8
     # knn_topk and embedding_bag, on phase 2's inputs
     for label in ("bucket", "large"):
         (xq, xdb), kw, _ = lib[("knn_topk", label)]
@@ -1158,15 +1291,8 @@ def main() -> int:
     log(f"phase 4: knn_predict_kernel at the bucket {predict_ms} ms")
     log(f"phase 4: rank kernels' device ms per call "
         f"{json.dumps(rank_split_ms)}")
-    # where a KNN lambda-hat kernel's time goes: the sweep against the merge
-    xq = torch.randn((B, D), generator=gen, device=dev)
-    split = device_split({
-        "f32": lambda: knn_lambda_cuda(xq, X_db, lam_db, k=KNN_K),
-        **{mode: (lambda mode=mode: knn_lambda_quant_cuda(
-            xq, *packs[(mode, N_DB)], lam_db, k=KNN_K, mode=mode))
-           for mode in MODES}})
-    log(f"phase 4: device ms per call by kernel at the bucket "
-        f"{json.dumps(split)}")
+    log(f"phase 4: device ms per call by kernel (sweep and merge) "
+        f"{json.dumps({' '.join(key): row['split_ms'] for key, row in knn_t.items() if 'split_ms' in row})}")
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"rank_audited": (csrc + "rank_audited.cu",
@@ -1235,7 +1361,9 @@ def main() -> int:
                        for mode in MODES},
                 library=library, guard_share_at_n_db=guard_share)
             if name == "knn_lambda_quant":
-                rows[-1]["split_ms"] = {m: split[m] for m in MODES}
+                rows[-1]["split_ms"] = {
+                    m: {label: timing[(name, label, m)]["split_ms"]
+                        for label in ("bucket", "large")} for m in MODES}
         elif name == "fused_rank":
             rows[-1]["retrieval"] = timing[(name, "retrieval")]
             rows[-1]["device_ms"] = {k: v for k, v in rank_split_ms.items()
@@ -1252,7 +1380,9 @@ def main() -> int:
                 rows[-1]["serve_retrieval"] = timing[
                     (name, "serve_retrieval")]
             if name == "knn_lambda":
-                rows[-1]["split_ms"] = split["f32"]
+                rows[-1]["split_ms"] = {
+                    label: timing[(name, label)]["split_ms"]
+                    for label in ("bucket", "large")}
             if name == "knn_topk":
                 rows[-1]["knn_predict_kernel_ms"] = predict_ms
     smi = subprocess.run(

@@ -4,10 +4,13 @@ the CUDA kernel wrappers and their plain versions.
 The TPU kernels' LANE/SUBLANE/TILE_B/TILE_M/DB_SLAB were vreg shapes;
 nothing here copies them. The GPU geometry is chosen for Hopper: a
 ranked row on one 256-thread block or a cluster of them (the rank
-routine's own constants are in kernels/fused_rank.py), and a KNN sweep
-that gives each block KNN_QTILE queries and KNN_CHUNK database rows.
-The KNN kernels' limits on k and d (KNN_MAX_K, KNN_MAX_D,
-KNN_QUANT_MAX_D) hold on the card only; the plain versions take any.
+routine's own constants are in kernels/fused_rank.py), and KNN sweeps
+that give each block 32 queries and a chunk of database rows, their
+tiles within KNN_SMEM_BYTES of shared memory. The KNN kernels' limits
+(k <= KNN_MAX_K over the f32 db, k + k_extra <= KNN_QUANT_MAX_KEEP over
+a pack, a d whose tiles fit the shared memory) hold on the card only
+and are computed by kernels/knn_topk.py's sweep_geometry and
+quant_sweep_geometry; the plain versions take any k and d.
 
 The second half holds the quantized KNN database's arithmetic
 (counterpart of repro.kernels.common's quant section): the plain
@@ -25,11 +28,13 @@ import torch
 # candidates never enter a top-m2, yet 0.0 * NEG_INF == 0.0 exactly.
 NEG_INF = float(-1e30)
 
-KNN_QTILE = 32       # queries per block of the KNN distance sweep
-KNN_CHUNK = 2048     # database rows per block of the KNN distance sweep
-KNN_MAX_K = 16       # neighbours a KNN kernel keeps per query
-KNN_MAX_D = 256      # covariate width the f32 KNN sweep's shared tiles hold
-KNN_QUANT_MAX_D = 128  # covariate width of the quantized merge's rows
+KNN_QTILE = 32       # queries per block of the f32 KNN distance sweep
+KNN_CHUNK = 2048     # database rows per block of the f32 KNN sweep
+KNN_MAX_K = 64       # neighbours the f32 KNN kernels keep per query
+KNN_QUANT_QTILE = 32  # queries per block of the quantized sweep (8 warps x 4)
+# Dynamic shared memory a KNN sweep block may use, of the card's 227 KB
+# opt-in (the launchers raise the kernel's limit past the default 48 KB).
+KNN_SMEM_BYTES = 220 * 1024
 
 # -- the quantized KNN database ------------------------------------------
 QUANT_MODES = ("off", "bf16", "int8")
@@ -44,8 +49,8 @@ PAD_Y2 = float(1e30)
 # scale[row // slab] with any slab, so a pack made by either package
 # loads in the other.
 QUANT_SLAB = 512
-# Survivors one quantized sweep keeps per query, at most.
-KNN_QUANT_MAX_KEEP = KNN_MAX_K + QUANT_EXTRA
+# Survivors one quantized sweep keeps per query (k + k_extra), at most.
+KNN_QUANT_MAX_KEEP = 256
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: tuple,

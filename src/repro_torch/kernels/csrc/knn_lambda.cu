@@ -22,19 +22,35 @@
 // the (B, n_chunks, k) workspace and the k winners' rows.
 #include "knn_sweep.cuh"
 
-// Launch B'. Shared memory: the lists of the tree merge.
+// Launch B' with lists of length KM >= k. Shared memory: the lists of
+// the tree merge.
+template <int KM>
 __global__ void __launch_bounds__(knn::kBlock) knn_lambda_kernel(
     const float* __restrict__ xq, const float* __restrict__ xdb,
     const float* __restrict__ lamdb, const float* __restrict__ ws_d2,
     const int* __restrict__ ws_idx, int N, int D, int k, int Kpred,
     int n_chunks, float* lam_out) {
   extern __shared__ float smem[];
-  __shared__ float nw[knn::kKMax];
-  __shared__ int ni[knn::kKMax];
+  __shared__ float nw[KM];
+  __shared__ int ni[KM];
   const size_t row = blockIdx.x;
-  knn::merge_idw(xq, xdb, ws_d2, ws_idx, row, D, k, n_chunks, smem, nw, ni);
+  knn::merge_idw<KM>(xq, xdb, ws_d2, ws_idx, row, D, k, n_chunks, smem, nw, ni);
   for (int t = threadIdx.x; t < Kpred; t += blockDim.x)
     lam_out[row * Kpred + t] = knn::idw_lam(lamdb, nw, ni, k, Kpred, t, N);
+}
+
+template <int KM>
+static int launch_lambda(const float* xq, const float* xdb,
+                         const float* lamdb, const float* ws_d2,
+                         const int* ws_idx, float* lam_out, int B, int N,
+                         int D, int k, int Kpred, int n_chunks,
+                         cudaStream_t s) {
+  const size_t smem = (size_t)knn::merge_smem_floats(k) * sizeof(float);
+  const int err = knn::allow_smem(knn_lambda_kernel<KM>, smem);
+  if (err) return err;
+  knn_lambda_kernel<KM><<<B, knn::kBlock, smem, s>>>(
+      xq, xdb, lamdb, ws_d2, ws_idx, N, D, k, Kpred, n_chunks, lam_out);
+  return (int)cudaGetLastError();
 }
 
 // Launches A then B' on `stream`. Returns the first nonzero
@@ -45,14 +61,14 @@ extern "C" int knn_lambda_launch(const void* xq, const void* xdb,
                                  int D, int k, int Kpred, int chunk, int st,
                                  int n_chunks, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int err = knn::launch_chunk_topk((const float*)xq, (const float*)xdb, B, N,
-                                   D, k, chunk, st, n_chunks, (float*)ws_d2,
-                                   (int*)ws_idx, s);
+  const int err = knn::launch_chunk_topk(
+      (const float*)xq, (const float*)xdb, B, N, D, k, chunk, st, n_chunks,
+      (float*)ws_d2, (int*)ws_idx, s);
   if (err) return err;
-  const size_t smem = (size_t)knn::merge_smem_floats(k) * sizeof(float);
-  knn_lambda_kernel<<<B, knn::kBlock, smem, s>>>(
-      (const float*)xq, (const float*)xdb, (const float*)lamdb,
-      (const float*)ws_d2, (const int*)ws_idx, N, D, k, Kpred, n_chunks,
-      (float*)lam_out);
-  return (int)cudaGetLastError();
+  auto launch = knn::list_len(k) == 16   ? launch_lambda<16>
+                : knn::list_len(k) == 32 ? launch_lambda<32>
+                                         : launch_lambda<64>;
+  return launch((const float*)xq, (const float*)xdb, (const float*)lamdb,
+                (const float*)ws_d2, (const int*)ws_idx, (float*)lam_out, B,
+                N, D, k, Kpred, n_chunks, s);
 }

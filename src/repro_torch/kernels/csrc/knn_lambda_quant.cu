@@ -22,8 +22,9 @@
 // plus the f32 epilogue (see knn_quant_sweep.cuh).
 #include "knn_quant_sweep.cuh"
 
-// Launch B'. Shared memory: the lists of the tree merge.
-template <bool kInt8>
+// Launch B'. Shared memory: nw and ni (k each), then merge_quant's
+// work.
+template <bool kInt8, int RL>
 __global__ void __launch_bounds__(knn::kBlock) knn_lambda_quant_kernel(
     const float* __restrict__ xq, const void* __restrict__ xdbq,
     const float* __restrict__ q_scale, const float* __restrict__ y2q,
@@ -31,14 +32,23 @@ __global__ void __launch_bounds__(knn::kBlock) knn_lambda_quant_kernel(
     const int* __restrict__ ws_idx, int n_train, int D, int k, int KK,
     int Kpred, int slab, int n_chunks, float* lam_out, int* guard_out) {
   extern __shared__ float smem[];
-  __shared__ float nw[knn::kKMax];
-  __shared__ int ni[knn::kKMax];
+  float* nw = smem;
+  int* ni = reinterpret_cast<int*>(smem + k);
   const size_t row = blockIdx.x;
-  knn::merge_quant<kInt8>(xq, xdbq, q_scale, y2q, ws_d2, ws_idx, row, D, k,
-                          KK, slab, n_chunks, smem, nw, ni, guard_out);
+  knn::merge_quant<kInt8, RL>(xq, xdbq, q_scale, y2q, ws_d2, ws_idx, row, D,
+                              k, KK, slab, n_chunks, smem + 2 * k, nw, ni,
+                              guard_out);
   for (int t = threadIdx.x; t < Kpred; t += blockDim.x)
     lam_out[row * Kpred + t] =
         knn::idw_lam(lamdb, nw, ni, k, Kpred, t, n_train);
+}
+
+template <bool kInt8>
+static auto merge_kernel(int rl) {
+  return rl == 1   ? knn_lambda_quant_kernel<kInt8, 1>
+         : rl == 2 ? knn_lambda_quant_kernel<kInt8, 2>
+         : rl == 4 ? knn_lambda_quant_kernel<kInt8, 4>
+                   : knn_lambda_quant_kernel<kInt8, 8>;
 }
 
 // Launches A' then B' on `stream`; `int8` picks the storage (1 int8,
@@ -55,9 +65,10 @@ extern "C" int knn_lambda_quant_launch(
       D, KK, slab, int8 != 0, chunk, st, n_chunks, (float*)ws_d2,
       (int*)ws_idx, s);
   if (err) return err;
-  const size_t smem = (size_t)knn::merge_smem_floats(KK) * sizeof(float);
-  auto kernel = int8 ? knn_lambda_quant_kernel<true>
-                     : knn_lambda_quant_kernel<false>;
+  const size_t smem =
+      (size_t)(2 * k + knn::quant_merge_floats(D, k, KK)) * sizeof(float);
+  const int rl = knn::quant_rl(KK);
+  auto kernel = int8 ? merge_kernel<true>(rl) : merge_kernel<false>(rl);
   err = knn::allow_smem(kernel, smem);
   if (err) return err;
   kernel<<<B, knn::kBlock, smem, s>>>(

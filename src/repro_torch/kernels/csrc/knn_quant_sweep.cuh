@@ -10,52 +10,79 @@
 // one core with a running top-(k+8) that carried each survivor's
 // dequantized row, lambda row and |x~|^2 in VMEM. On the card:
 //
-//   Launch A', grid (query tiles x db chunks), the f32 sweep's shape
-//     (knn_sweep.cuh): kQT queries per block, 8 threads per query, each
-//     with a register list of the best k_keep = k + 8 (d2q, global
-//     index), ties to the lowest index. The pack's rows stream through
-//     shared memory in their storage type:
+//   Launch A', grid (query tiles of kQB = 32 x db chunks): a warp owns
+//     kQW = 4 queries and scores every row of its block's chunk for
+//     them, one row a lane. The pack's tiles stream through shared
+//     memory in their storage type by cp.async into a two-stage ring,
+//     so tile t+1 lands while tile t is scored:
 //       int8: each query is quantized once per block (sq = max|q|/127,
 //         qi = rint(q/sq) clipped to +-127), rows are padded to whole
 //         32-bit words with zeros, and the cross term is an exact int32
 //         dot by __dp4a (exact in f32 too: d * 127^2 < 2^24). Then
 //         d2q = q2 - ((2 sq) scale[row / slab]) cross + y2_q[row],
-//         each operation rounded on its own, clamped at 0.
-//       bf16: rows are widened to f32 exactly and the dot is summed
-//         coordinate by coordinate: d2q = q2 - 2 cross + y2_q[row].
-//     The pack's slab (the storage format's, 512 by default) and the
-//     chunk are independent: the kernel reads scale[row / slab]. The
-//     pack's padding rows carry y2 = PAD_Y2 and never reach the final k
-//     while n_train >= k.
-//   merge_quant, one block per query: merges the partial lists into the
-//     k_keep survivors (knn_sweep.cuh's merge_lists), computes the
-//     margin guard on the quantized k/(k+1) gap against the exact
-//     error |2 (q - sq qi) . x~| of the two boundary survivors (0 in
-//     bf16), gathers the survivors' rows by index, dequantizes them and
-//     re-scores exactly, q2 - 2 (q . x~) + y2_q, re-ranks to k by
-//     (d2, index) and weights them (knn_sweep.cuh's idw_weights) with
-//     y2 taken from y2_q.
+//         each operation rounded on its own, clamped at 0. Each row's
+//         slab scale is laid out per tile from the slab boundaries.
+//       bf16: rows are widened to f32 exactly (a shift of each half
+//         word) and the dot is summed coordinate by coordinate:
+//         d2q = q2 - 2 cross + y2_q[row].
+//     Selection: a query's running top-KK is spread over its warp's 32
+//     lanes (L = 32 RL >= KK pairs, RL a lane, kept sorted across the
+//     lanes, keys -d2q so that rank_audit.cuh's (key desc, index asc)
+//     network serves). A lane compares its pair with the query's KK-th;
+//     the passing pairs are staged in shared memory by ballot, and a
+//     full stage (L pairs) or the chunk's end is sorted by an in-warp
+//     bitonic network and merged into the list (registers and
+//     __shfl_xor_sync), which raises the threshold. On random data about
+//     KK (1 + ln(chunk / KK)) pairs of a chunk pass. The warp writes each
+//     query's partial list straight to the (B, n_chunks, KK) workspace.
+//   merge_quant, one block per query: the same filter and stage fold the
+//     n_chunks x KK partial pairs in each warp, warp 0 merges the eight
+//     lists into the KK survivors, then the margin guard on the
+//     quantized k/(k+1) gap against the exact error |2 (q - sq qi) . x~|
+//     of the two boundary survivors (0 in bf16), the survivors' rows
+//     gathered by index, dequantized and re-scored exactly,
+//     q2 - 2 (q . x~) + y2_q, re-ranked to k by (d2, index) and weighted
+//     (knn_sweep.cuh's idw_weights) with y2 taken from y2_q.
+//
+// Why the result stays the plain version's bit for bit: the KK
+// survivors are a set under (d2q asc, index asc), a total order over
+// unique indices, which no selection algorithm, tiling or chunking can
+// change; only the arithmetic of d2q keeps its order (the int32 dot,
+// then __fmul_rn/__fsub_rn/__fadd_rn; in bf16 a __fmul_rn and a
+// __fadd_rn a coordinate, never an FMA), and negation is exact.
 //
 // The plain version of all of this is kernels/common.py's quant helpers
 // with core/predictors.knn_quant_scan; both repeat the same rounded
-// operations in the same order.
+// operations in the same order. Limits: KK <= kQKMax = 256 and a d whose
+// tiles fit one block's shared memory (kernels/knn_topk.py's
+// quant_sweep_geometry, which also picks the tile and the chunk).
 //
 // Bound on an H100: at the serving bucket the pack's bytes (1 or 2 bytes
 // per coordinate plus 4 for y2), read once at 3.35 TB/s; at a large
 // batch the dot (int8 or bf16 tensor-core peak) and the f32 epilogue.
-// This first kernel runs the dot on the integer (dp4a) and f32 pipes,
-// not the tensor cores: an int8 tensor-core sweep is later work.
+// The dot runs on the integer (dp4a) and f32 pipes, not the tensor
+// cores: an int8 tensor-core sweep is later work.
 #pragma once
 
+#include <climits>
 #include <cstdint>
 #include <cuda_bf16.h>
 
 #include "knn_sweep.cuh"
+#include "rank_audit.cuh"
 
 namespace knn {
 
-constexpr int kQKMax = kKMax + 8;  // KNN_QUANT_MAX_KEEP: survivors kept
-constexpr int kMaxD = 128;         // KNN_MAX_D: covariates of a query
+constexpr int kQW = 4;                  // queries a warp scores together
+constexpr int kWarps = kBlock / 32;
+constexpr int kQB = kWarps * kQW;       // KNN_QUANT_QTILE: queries a block
+constexpr int kQKMax = 256;             // KNN_QUANT_MAX_KEEP: survivors
+static_assert(kQKMax <= kBlock, "a thread a survivor in merge_quant");
+
+// Pairs a lane holds of a list of KK: the list is L = 32 RL >= KK long.
+__host__ __device__ inline int quant_rl(int KK) {
+  return KK <= 32 ? 1 : KK <= 64 ? 2 : KK <= 128 ? 4 : 8;
+}
 
 // sq = max|q| / 127 over the row's D coordinates, 1 for a zero row
 __device__ __forceinline__ float query_scale(const float* q, int D) {
@@ -70,144 +97,390 @@ __device__ __forceinline__ float quantize(float q, float sq) {
   return fminf(fmaxf(rintf(__fdiv_rn(q, sq)), -127.0f), 127.0f);
 }
 
-// Launch A'. Shared memory: qs (kQT*D f32 queries), x2s (kQT), sqs
-// (kQT), qw (kQT*Dw words of int8 qi), then a region holding either the
-// db tile or, after the sweep, the kQT*kSub lists to merge (KK floats
-// and KK ints each). The int8 tile is rw (st*Dw words), y2s (st) and
-// scs (st, each row's slab scale); the bf16 tile dbs (st*D) and y2s.
-template <bool kInt8>
-__global__ void __launch_bounds__(kBlock) quant_chunk_topk_kernel(
-    const float* __restrict__ xq, const void* __restrict__ xdbq,
-    const float* __restrict__ q_scale, const float* __restrict__ y2q, int B,
-    int N, int D, int KK, int slab, int chunk, int st, int n_chunks,
-    float* ws_d2, int* ws_idx) {
-  extern __shared__ float smem[];
-  const int Dw = (D + 3) / 4;
-  float* qs = smem;
-  float* x2s = qs + kQT * D;
-  float* sqs = x2s + kQT;
-  int* qw = reinterpret_cast<int*>(sqs + kQT);
-  float* region = reinterpret_cast<float*>(qw + kQT * Dw);
-  int* rw = reinterpret_cast<int*>(region);           // int8 tile
-  float* dbs = region;                                // bf16 tile
-  float* y2s = kInt8 ? region + st * Dw : region + st * D;
-  float* scs = y2s + st;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int ql = tid / kSub, sub = tid % kSub;
-  const int q0 = blockIdx.x * kQT;
-  const int q = q0 + ql;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// -- a warp's running top-KK -------------------------------------------
+// L = 32 RL pairs (key, index), best first under rk::ahead (key desc,
+// index asc), keys -d2q; pair i = lane * RL + r lives in register r.
+
+template <int RL>
+__device__ __forceinline__ void list_init(float (&k)[RL], int (&x)[RL]) {
+#pragma unroll
+  for (int r = 0; r < RL; ++r) { k[r] = -INFINITY; x[r] = INT_MAX; }
+}
+
+// Sorts the warp's L pairs best first: a bitonic network whose strides
+// of RL and more are lane exchanges, the rest register swaps.
+template <int RL>
+__device__ __forceinline__ void warp_sort(float (&k)[RL], int (&x)[RL],
+                                          int lane) {
+  constexpr int L = 32 * RL;
+#pragma unroll
+  for (int size = 2; size <= L; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride >= RL; stride >>= 1)
+      rk::shfl_stage<RL>(k, x, lane, size, stride);
+    rk::reg_stages<RL, RL / 2>(k, x, lane * RL, size);
+  }
+}
+
+// The list (k, x) takes the best L of itself and the sorted (ok, ox):
+// the better of pair i and the other's pair L-1-i (lane 31-lane's
+// register RL-1-r) form a bitonic sequence of exactly those L, which a
+// half-cleaner network sorts.
+template <int RL>
+__device__ __forceinline__ void warp_merge(float (&k)[RL], int (&x)[RL],
+                                           const float (&ok)[RL],
+                                           const int (&ox)[RL], int lane) {
+#pragma unroll
+  for (int r = 0; r < RL; ++r) {
+    const float b = __shfl_xor_sync(rk::kFull, ok[RL - 1 - r], 31);
+    const int bi = __shfl_xor_sync(rk::kFull, ox[RL - 1 - r], 31);
+    if (rk::ahead(b, bi, k[r], x[r])) { k[r] = b; x[r] = bi; }
+  }
+#pragma unroll
+  for (int stride = 16 * RL; stride >= RL; stride >>= 1)
+    rk::shfl_stage<RL>(k, x, lane, rk::kAllBest, stride);
+  rk::reg_stages<RL, RL / 2>(k, x, lane * RL, rk::kAllBest);
+}
+
+// Folds the cnt <= L pairs staged in (sk, sx) into the list. Warp-wide.
+template <int RL>
+__device__ __forceinline__ void fold(float (&k)[RL], int (&x)[RL],
+                                     const float* sk, const int* sx,
+                                     int cnt, int lane) {
+  __syncwarp();  // the staged pairs are written
+  float nk[RL];
+  int nx[RL];
+#pragma unroll
+  for (int r = 0; r < RL; ++r) {
+    const int i = lane * RL + r;
+    nk[r] = i < cnt ? sk[i] : -INFINITY;
+    nx[r] = i < cnt ? sx[i] : INT_MAX;
+  }
+  __syncwarp();  // read before the stage refills
+  warp_sort<RL>(nk, nx, lane);
+  warp_merge<RL>(k, x, nk, nx, lane);
+}
+
+// The list's pair at place p (p = KK-1: the threshold), on every lane.
+template <int RL>
+__device__ __forceinline__ void pair_at(const float (&k)[RL],
+                                        const int (&x)[RL], int p,
+                                        float& tk, int& tx) {
+  float v = k[0];
+  int vi = x[0];
+#pragma unroll
+  for (int r = 1; r < RL; ++r)
+    if (r == p % RL) { v = k[r]; vi = x[r]; }
+  tk = __shfl_sync(rk::kFull, v, p / RL);
+  tx = __shfl_sync(rk::kFull, vi, p / RL);
+}
+
+// Stages each lane's pair (key, id) where `pass`, behind the cnt pairs
+// already staged; a stage that would overflow is folded first, which
+// refreshes the threshold (tk, tx) at place KK-1. Warp-wide.
+template <int RL>
+__device__ __forceinline__ void offer(float (&k)[RL], int (&x)[RL],
+                                      float* sk, int* sx, int& cnt,
+                                      float& tk, int& tx, bool pass,
+                                      float key, int id, int lane, int KK) {
+  const unsigned m = __ballot_sync(rk::kFull, pass);
+  if (m == 0) return;
+  const int n = __popc(m);
+  if (cnt + n > 32 * RL) {
+    fold<RL>(k, x, sk, sx, cnt, lane);
+    pair_at<RL>(k, x, KK - 1, tk, tx);
+    cnt = 0;
+  }
+  if (pass) {
+    const int p = cnt + __popc(m & ((1u << lane) - 1u));
+    sk[p] = key;
+    sx[p] = id;
+  }
+  cnt += n;
+}
+
+// -- launch A' ----------------------------------------------------------
+
+// Words of a stored row: int8 4 coordinates a word, bf16 2.
+__host__ __device__ inline int row_words(int D, bool int8) {
+  return int8 ? (D + 3) / 4 : (D + 1) / 2;
+}
+
+// Bytes of dynamic shared memory launch A' needs: the queries' dot
+// operand (int8: kQB*Dw words of qi; bf16: kQB*2*Dw floats), |q|^2 and
+// 2 sq (kQB each), two tiles of st rows at the odd stride Dw | 1 (so a
+// warp's 32 rows lie on 32 banks), their y2 and slab scales (2 st each),
+// and a stage of L pairs for each of the block's kQB queries.
+// quant_sweep_geometry in kernels/knn_topk.py repeats this sum.
+__host__ __device__ inline size_t quant_sweep_smem(int D, int KK, int st,
+                                                   bool int8) {
+  const int Dw = row_words(D, int8);
+  const int L = 32 * quant_rl(KK);
+  return ((size_t)kQB * Dw * (int8 ? 1 : 2) + 2 * kQB +
+          2 * (size_t)st * (Dw | 1) + 4 * (size_t)st + 2 * (size_t)kQB * L) *
+         4;
+}
+
+// Launch A'. st is a multiple of 32 and chunk a multiple of st.
+template <bool kInt8, int RL>
+__global__ void __launch_bounds__(kBlock, RL == 1 ? 4 : 1)
+    quant_chunk_topk_kernel(const float* __restrict__ xq,
+                            const void* __restrict__ xdbq,
+                            const float* __restrict__ q_scale,
+                            const float* __restrict__ y2q, int B, int N,
+                            int D, int KK, int slab, int chunk, int st,
+                            int n_chunks, float* ws_d2, int* ws_idx) {
+  constexpr int L = 32 * RL;
+  extern __shared__ __align__(16) float qsm[];
+  const int Dw = row_words(D, kInt8), rs = Dw | 1;
+  float* qv = qsm;  // [warp][word][query of the warp] (x2 halves in bf16)
+  float* x2s = qv + kQB * Dw * (kInt8 ? 1 : 2);
+  float* c2s = x2s + kQB;
+  int* tiles = reinterpret_cast<int*>(c2s + kQB);
+  float* y2s = reinterpret_cast<float*>(tiles + 2 * st * rs);
+  float* scs = y2s + 2 * st;
+  float* stk = scs + 2 * st;
+  int* stx = reinterpret_cast<int*>(stk + kQB * L);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * kQB;
   const int chunk_id = blockIdx.y;
   const int r0 = chunk_id * chunk;
   const int r1 = min(N, r0 + chunk);
 
-  for (int i = tid; i < kQT * D; i += blockDim.x) {
-    const int qq = q0 + i / D;
-    qs[i] = qq < B ? xq[(size_t)qq * D + i % D] : 0.0f;
-  }
-  __syncthreads();
-  if (tid < kQT) {
-    const float* qv = qs + tid * D;
-    x2s[tid] = sq_norm(qv, D);
-    if (kInt8) {
-      const float sq = query_scale(qv, D);
-      sqs[tid] = sq;
-      signed char* qb = reinterpret_cast<signed char*>(qw + tid * Dw);
-      for (int d = 0; d < Dw * 4; ++d)
-        qb[d] = d < D ? (signed char)(int)quantize(qv[d], sq) : 0;
+  // the queries, grouped by warp: query q0 + warp * kQW + qq
+  if (kInt8) {
+    if (tid < kQB) {
+      const int q = q0 + tid;
+      const float* qp = xq + (size_t)q * D;
+      const float sq = q < B ? query_scale(qp, D) : 1.0f;
+      x2s[tid] = q < B ? sq_norm(qp, D) : 0.0f;
+      c2s[tid] = __fmul_rn(2.0f, sq);
+      int* qw = reinterpret_cast<int*>(qv);
+      const int g = tid / kQW, qq = tid % kQW;
+      for (int w = 0; w < Dw; ++w) {
+        unsigned word = 0;
+        for (int b = 0; b < 4; ++b) {
+          const int d = 4 * w + b;
+          const int v = q < B && d < D ? (int)quantize(qp[d], sq) : 0;
+          word |= (unsigned)(v & 0xff) << (8 * b);
+        }
+        qw[(g * Dw + w) * kQW + qq] = (int)word;
+      }
     }
+  } else {
+    for (int i = tid; i < kQB * 2 * Dw; i += kBlock) {
+      const int h = i & 1, qq = (i >> 1) % kQW, gw = (i >> 1) / kQW;
+      const int q = q0 + (gw / Dw) * kQW + qq, d = 2 * (gw % Dw) + h;
+      qv[i] = q < B && d < D ? xq[(size_t)q * D + d] : 0.0f;
+    }
+    if (tid < kQB)
+      x2s[tid] = q0 + tid < B ? sq_norm(xq + (size_t)(q0 + tid) * D, D)
+                              : 0.0f;
   }
 
-  float bd[kQKMax];
-  int bi[kQKMax];
-  float wd;
-  int wi;
-  init_list(bd, bi, wd, wi);
-
-  const signed char* src8 = static_cast<const signed char*>(xdbq);
-  const __nv_bfloat16* src16 = static_cast<const __nv_bfloat16*>(xdbq);
-  for (int t0 = r0; t0 < r1; t0 += st) {
+  // one tile of rows [t0, t0 + rows) into ring slot `buf`
+  const bool whole = kInt8 ? D % 4 == 0 : D % 2 == 0;  // rows are words
+  const size_t row_bytes = kInt8 ? D : 2 * D;
+  auto load = [&](int buf, int t0) {
     const int rows = min(st, r1 - t0);
-    __syncthreads();  // the previous tile is consumed
-    if (kInt8) {
-      const signed char* src = src8 + (size_t)t0 * D;
-      if (D % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 3) == 0) {
-        const int* w = reinterpret_cast<const int*>(src);
-        for (int i = tid; i < rows * Dw; i += blockDim.x) rw[i] = w[i];
+    int* tw = tiles + buf * st * rs;
+    const char* src =
+        static_cast<const char*>(xdbq) + (size_t)t0 * row_bytes;
+    if (whole) {
+      const int* sw = reinterpret_cast<const int*>(src);
+      if (rs == Dw && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        const int n16 = rows * Dw / 4;
+        for (int i = tid; i < n16; i += kBlock)
+          cp_async16(tw + 4 * i, sw + 4 * i);
+        for (int i = 4 * n16 + tid; i < rows * Dw; i += kBlock)
+          cp_async4(tw + i, sw + i);
       } else {
-        signed char* tb = reinterpret_cast<signed char*>(rw);
-        for (int i = tid; i < rows * Dw * 4; i += blockDim.x) {
-          const int r = i / (Dw * 4), c = i % (Dw * 4);
-          tb[i] = c < D ? src[(size_t)r * D + c] : 0;
-        }
+        for (int i = tid; i < rows * Dw; i += kBlock)
+          cp_async4(tw + (i / Dw) * rs + i % Dw, sw + i);
       }
-      for (int r = tid; r < rows; r += blockDim.x)
-        scs[r] = q_scale[(t0 + r) / slab];
     } else {
-      const __nv_bfloat16* src = src16 + (size_t)t0 * D;
-      for (int i = tid; i < rows * D; i += blockDim.x)
-        dbs[i] = __bfloat162float(src[i]);
-    }
-    for (int r = tid; r < rows; r += blockDim.x) y2s[r] = y2q[t0 + r];
-    __syncthreads();
-    if (q < B) {
-      const float x2 = x2s[ql];
-      for (int r = sub; r < rows; r += kSub) {
-        float d2;
+      // rows that end inside a word: repacked with zeros, synchronously
+      for (int i = tid; i < rows * Dw; i += kBlock) {
+        const int r = i / Dw, w = i % Dw;
+        unsigned word = 0;
         if (kInt8) {
-          const int* qv = qw + ql * Dw;
-          const int* xv = rw + r * Dw;
-          int cross = 0;
-          for (int w = 0; w < Dw; ++w) cross = __dp4a(qv[w], xv[w], cross);
-          const float coef = __fmul_rn(__fmul_rn(2.0f, sqs[ql]), scs[r]);
-          d2 = __fadd_rn(__fsub_rn(x2, __fmul_rn(coef, (float)cross)),
-                         y2s[r]);
+          const unsigned char* s8 =
+              reinterpret_cast<const unsigned char*>(src) + (size_t)r * D;
+          for (int b = 0; b < 4; ++b)
+            if (4 * w + b < D) word |= (unsigned)s8[4 * w + b] << (8 * b);
         } else {
-          const float* qv = qs + ql * D;
-          const float* xv = dbs + r * D;
-          float cross = 0.0f;
-          for (int d = 0; d < D; ++d)
-            cross = __fadd_rn(cross, __fmul_rn(qv[d], xv[d]));
-          d2 = __fadd_rn(__fsub_rn(x2, 2.0f * cross), y2s[r]);
+          const unsigned short* s16 =
+              reinterpret_cast<const unsigned short*>(src) + (size_t)r * D;
+          for (int h = 0; h < 2; ++h)
+            if (2 * w + h < D) word |= (unsigned)s16[2 * w + h] << (16 * h);
         }
-        d2 = fmaxf(d2, 0.0f);
-        const int gid = t0 + r;
-        if (nearer(d2, gid, wd, wi)) insert(bd, bi, KK, d2, gid, wd, wi);
+        tw[r * rs + w] = (int)word;
+      }
+    }
+    float* ty = y2s + buf * st;
+    for (int r = tid; r < rows; r += kBlock) cp_async4(ty + r, y2q + t0 + r);
+    if (kInt8) {
+      // each row's slab scale, slab by slab over the tile
+      float* tsc = scs + buf * st;
+      const int s_lo = t0 / slab, s_hi = (t0 + rows - 1) / slab;
+      for (int s = s_lo; s <= s_hi; ++s) {
+        const float sc = q_scale[s];
+        const int e = min(s * slab + slab - t0, rows);
+        for (int r = max(s * slab - t0, 0) + tid; r < e; r += kBlock)
+          tsc[r] = sc;
+      }
+    }
+    cp_async_commit();
+  };
+
+  // each query's list, threshold and stage count; |q|^2 and 2 sq are
+  // read from shared memory where used (broadcasts), which keeps the
+  // sweep at 64 registers without spills
+  float lk[kQW][RL];
+  int lx[kQW][RL];
+  float tk[kQW];
+  int tx[kQW], cnt[kQW];
+#pragma unroll
+  for (int qq = 0; qq < kQW; ++qq) {
+    list_init<RL>(lk[qq], lx[qq]);
+    tk[qq] = -INFINITY;
+    tx[qq] = INT_MAX;
+    cnt[qq] = 0;
+  }
+  const int live = min(kQW, B - (q0 + warp * kQW));  // queries < B
+  const float* my_x2 = x2s + warp * kQW;
+  const float* my_c2 = c2s + warp * kQW;
+  float* my_k = stk + warp * kQW * L;
+  int* my_x = stx + warp * kQW * L;
+  __syncthreads();  // the queries are set
+
+  load(0, r0);
+  for (int t0 = r0, buf = 0; t0 < r1; t0 += st, buf ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t0 is in; the other slot is consumed
+    if (t0 + st < r1) load(buf ^ 1, t0 + st);
+    const int rows = min(st, r1 - t0);
+    const int* tw = tiles + buf * st * rs;
+    const float* ty = y2s + buf * st;
+    const float* tsc = scs + buf * st;
+    for (int rb = 0; rb < rows; rb += 32) {
+      const int r = rb + lane;
+      const bool valid = r < rows;
+      const int rr = valid ? r : 0;
+      float d2[kQW];
+      if (kInt8) {
+        int acc[kQW];
+#pragma unroll
+        for (int qq = 0; qq < kQW; ++qq) acc[qq] = 0;
+        const int* xrow = tw + rr * rs;
+        const int4* qrow = reinterpret_cast<const int4*>(qv) + warp * Dw;
+        for (int w = 0; w < Dw; ++w) {
+          const int xw = xrow[w];
+          const int4 qw = qrow[w];
+          acc[0] = __dp4a(qw.x, xw, acc[0]);
+          acc[1] = __dp4a(qw.y, xw, acc[1]);
+          acc[2] = __dp4a(qw.z, xw, acc[2]);
+          acc[3] = __dp4a(qw.w, xw, acc[3]);
+        }
+        const float sc = tsc[rr], y2 = ty[rr];
+#pragma unroll
+        for (int qq = 0; qq < kQW; ++qq) {
+          const float coef = __fmul_rn(my_c2[qq], sc);
+          d2[qq] = fmaxf(__fadd_rn(__fsub_rn(my_x2[qq], __fmul_rn(
+                                                coef, (float)acc[qq])),
+                                   y2),
+                         0.0f);
+        }
+      } else {
+        float acc[kQW];
+#pragma unroll
+        for (int qq = 0; qq < kQW; ++qq) acc[qq] = 0.0f;
+        const unsigned* xrow = reinterpret_cast<const unsigned*>(tw) + rr * rs;
+        const float4* qrow = reinterpret_cast<const float4*>(qv) + warp * Dw * 2;
+        const int full = D / 2;
+        for (int w = 0; w < full; ++w) {
+          const unsigned xw = xrow[w];
+          const float lo = __uint_as_float(xw << 16);
+          const float hi = __uint_as_float(xw & 0xffff0000u);
+          const float4 a = qrow[2 * w], b = qrow[2 * w + 1];
+          acc[0] = __fadd_rn(__fadd_rn(acc[0], __fmul_rn(a.x, lo)),
+                             __fmul_rn(a.y, hi));
+          acc[1] = __fadd_rn(__fadd_rn(acc[1], __fmul_rn(a.z, lo)),
+                             __fmul_rn(a.w, hi));
+          acc[2] = __fadd_rn(__fadd_rn(acc[2], __fmul_rn(b.x, lo)),
+                             __fmul_rn(b.y, hi));
+          acc[3] = __fadd_rn(__fadd_rn(acc[3], __fmul_rn(b.z, lo)),
+                             __fmul_rn(b.w, hi));
+        }
+        if (D & 1) {  // the last coordinate, alone in its word
+          const float lo = __uint_as_float(xrow[full] << 16);
+          const float4 a = qrow[2 * full], b = qrow[2 * full + 1];
+          acc[0] = __fadd_rn(acc[0], __fmul_rn(a.x, lo));
+          acc[1] = __fadd_rn(acc[1], __fmul_rn(a.z, lo));
+          acc[2] = __fadd_rn(acc[2], __fmul_rn(b.x, lo));
+          acc[3] = __fadd_rn(acc[3], __fmul_rn(b.z, lo));
+        }
+        const float y2 = ty[rr];
+#pragma unroll
+        for (int qq = 0; qq < kQW; ++qq)
+          d2[qq] = fmaxf(
+              __fadd_rn(__fsub_rn(my_x2[qq], 2.0f * acc[qq]), y2), 0.0f);
+      }
+      const int gid = t0 + r;
+#pragma unroll
+      for (int qq = 0; qq < kQW; ++qq) {
+        const bool pass = valid && qq < live &&
+                          rk::ahead(-d2[qq], gid, tk[qq], tx[qq]);
+        offer<RL>(lk[qq], lx[qq], my_k + qq * L, my_x + qq * L, cnt[qq],
+                  tk[qq], tx[qq], pass, -d2[qq], gid, lane, KK);
       }
     }
   }
-  __syncthreads();  // the db tile region becomes the merge region
-  float* md = region;
-  int* mi = reinterpret_cast<int*>(md + kQT * kSub * KK);
-  const int slot = (ql * kSub + sub) * KK;
 #pragma unroll
-  for (int j = 0; j < kQKMax; ++j)
-    if (j < KK) { md[slot + j] = bd[j]; mi[slot + j] = bi[j]; }
-  __syncthreads();
-  if (sub == 0 && q < B) {
-    for (int s = 1; s < kSub; ++s) {
-      const int base = (ql * kSub + s) * KK;
-      for (int j = 0; j < KK; ++j) {
-        const float d = md[base + j];
-        const int id = mi[base + j];
-        if (!nearer(d, id, wd, wi)) break;  // the list is sorted
-        insert(bd, bi, KK, d, id, wd, wi);
+  for (int qq = 0; qq < kQW; ++qq) {
+    if (cnt[qq]) fold<RL>(lk[qq], lx[qq], my_k + qq * L, my_x + qq * L,
+                          cnt[qq], lane);
+    if (qq < live) {
+      const size_t out =
+          ((size_t)(q0 + warp * kQW + qq) * n_chunks + chunk_id) * KK;
+#pragma unroll
+      for (int r = 0; r < RL; ++r) {
+        const int i = lane * RL + r;
+        if (i < KK) { ws_d2[out + i] = -lk[qq][r]; ws_idx[out + i] = lx[qq][r]; }
       }
     }
-    const size_t out = ((size_t)q * n_chunks + chunk_id) * KK;
-#pragma unroll
-    for (int j = 0; j < kQKMax; ++j)
-      if (j < KK) { ws_d2[out + j] = bd[j]; ws_idx[out + j] = bi[j]; }
   }
 }
 
-// Bytes of dynamic shared memory launch A' needs.
-inline size_t quant_sweep_smem(int D, int KK, int st, bool int8) {
-  const int Dw = (D + 3) / 4;
-  const int tile = int8 ? st * (Dw + 2) : st * (D + 1);
-  const int lists = kQT * kSub * KK * 2;
-  return (size_t)(kQT * (D + 2) + kQT * Dw + (tile > lists ? tile : lists)) *
-         sizeof(float);
+template <bool kInt8>
+inline auto quant_sweep_kernel(int rl) {
+  return rl == 1   ? quant_chunk_topk_kernel<kInt8, 1>
+         : rl == 2 ? quant_chunk_topk_kernel<kInt8, 2>
+         : rl == 4 ? quant_chunk_topk_kernel<kInt8, 4>
+                   : quant_chunk_topk_kernel<kInt8, 8>;
 }
 
 // Starts launch A' on `stream`; returns cudaGetLastError().
@@ -218,9 +491,10 @@ inline int launch_quant_chunk_topk(const float* xq, const void* xdbq,
                                    float* ws_d2, int* ws_idx,
                                    cudaStream_t stream) {
   const size_t smem = quant_sweep_smem(D, KK, st, int8);
-  dim3 grid((B + kQT - 1) / kQT, n_chunks);
-  auto kernel = int8 ? quant_chunk_topk_kernel<true>
-                     : quant_chunk_topk_kernel<false>;
+  dim3 grid((B + kQB - 1) / kQB, n_chunks);
+  const int rl = quant_rl(KK);
+  auto kernel = int8 ? quant_sweep_kernel<true>(rl)
+                     : quant_sweep_kernel<false>(rl);
   const int err = allow_smem(kernel, smem);
   if (err) return err;
   kernel<<<grid, kBlock, smem, stream>>>(xq, xdbq, q_scale, y2q, B, N, D, KK,
@@ -229,31 +503,93 @@ inline int launch_quant_chunk_topk(const float* xq, const void* xdbq,
   return (int)cudaGetLastError();
 }
 
-// One query's quantized merge, with the whole block: the row's k_keep =
-// KK survivors from its partial lists (merge_lists, in `smem`,
-// merge_smem_floats(KK) floats), the margin guard written to
-// guard_out[row], the exact re-score and re-rank to k, then the weights
-// to nw and the neighbours' indices to ni (shared, kKMax each). Ends
-// synced.
-template <bool kInt8>
+// -- launch B' / B: the merge --------------------------------------------
+
+// Floats of shared memory merge_quant needs (its `work`): the warps'
+// stages and lists (4 kWarps L), the survivors' d2q, exact d2, y2,
+// error and index (KK each), the k winners' d2 and y2, the query row
+// and its quantization error (D each) and |q|^2.
+__host__ __device__ inline int quant_merge_floats(int D, int k, int KK) {
+  return 4 * kWarps * 32 * quant_rl(KK) + 5 * KK + 2 * k + 2 * D + 1;
+}
+
+// The row's KK survivors from its n_chunks partial lists of KK pairs,
+// with the whole block: each warp filters and folds a strided share of
+// them (offer), warp 0 merges the eight warps' lists, and the KK best go
+// ascending by (d2q, index) to sd and si. scratch: 4 kWarps L floats.
+// Ends synced.
+template <int RL>
+__device__ inline void select_quant(const float* __restrict__ ws_d2,
+                                    const int* __restrict__ ws_idx,
+                                    size_t row, int KK, int n_chunks,
+                                    float* scratch, float* sd, int* si) {
+  constexpr int L = 32 * RL;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* sk = scratch + warp * L;
+  int* sx = reinterpret_cast<int*>(scratch + kWarps * L) + warp * L;
+  float* lk = scratch + 2 * kWarps * L;
+  int* lx = reinterpret_cast<int*>(lk + kWarps * L);
+  float k[RL];
+  int x[RL];
+  list_init<RL>(k, x);
+  float tk = -INFINITY;
+  int tx = INT_MAX, cnt = 0;
+  const int total = n_chunks * KK;
+  const float* rd = ws_d2 + row * total;
+  const int* ri = ws_idx + row * total;
+  for (int base = warp * 32; base < total; base += kBlock) {
+    const int e = base + lane;
+    const bool valid = e < total;
+    const float key = valid ? -rd[e] : -INFINITY;
+    const int id = valid ? ri[e] : INT_MAX;
+    offer<RL>(k, x, sk, sx, cnt, tk, tx, valid && rk::ahead(key, id, tk, tx),
+              key, id, lane, KK);
+  }
+  if (cnt) fold<RL>(k, x, sk, sx, cnt, lane);
+#pragma unroll
+  for (int r = 0; r < RL; ++r) {
+    lk[warp * L + lane * RL + r] = k[r];
+    lx[warp * L + lane * RL + r] = x[r];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    for (int w = 1; w < kWarps; ++w) {
+      rk::merge_top_warp<RL>(lk, lx, lk + w * L, lx + w * L, L);
+      __syncwarp();
+    }
+    for (int i = lane; i < KK; i += 32) { sd[i] = -lk[i]; si[i] = lx[i]; }
+  }
+  __syncthreads();
+}
+
+// One query's quantized merge, with the whole block: the row's KK
+// survivors (select_quant), the margin guard written to guard_out[row],
+// the exact re-score and re-rank to k, then the weights to nw and the
+// neighbours' indices to ni (k each). work: quant_merge_floats(D, k, KK)
+// floats of shared memory. Ends synced.
+template <bool kInt8, int RL>
 __device__ inline void merge_quant(
     const float* __restrict__ xq, const void* __restrict__ xdbq,
     const float* __restrict__ q_scale, const float* __restrict__ y2q,
     const float* __restrict__ ws_d2, const int* __restrict__ ws_idx,
-    size_t row, int D, int k, int KK, int slab, int n_chunks, float* smem,
+    size_t row, int D, int k, int KK, int slab, int n_chunks, float* work,
     float* nw, int* ni, int* guard_out) {
-  __shared__ float sd[kQKMax], sx[kQKMax], sy2[kQKMax], serr[kQKMax];
-  __shared__ int si[kQKMax];
-  __shared__ float nd[kKMax], ny2[kKMax];
-  __shared__ float qrow[kMaxD], erow[kMaxD];
-  __shared__ float x2_s;
+  float* sd = work + 4 * kWarps * 32 * RL;
+  float* sx = sd + KK;
+  float* sy2 = sx + KK;
+  float* serr = sy2 + KK;
+  int* si = reinterpret_cast<int*>(serr + KK);
+  float* nd = reinterpret_cast<float*>(si + KK);
+  float* ny2 = nd + k;
+  float* qrow = ny2 + k;
+  float* erow = qrow + D;
+  float* x2_s = erow + D;
   const int tid = threadIdx.x;
-  merge_lists<kQKMax>(ws_d2, ws_idx, row, KK, n_chunks, smem, sd, si);
-
+  select_quant<RL>(ws_d2, ws_idx, row, KK, n_chunks, work, sd, si);
   for (int d = tid; d < D; d += blockDim.x) qrow[d] = xq[row * D + d];
   __syncthreads();
   if (tid == 0) {
-    x2_s = sq_norm(qrow, D);
+    *x2_s = sq_norm(qrow, D);
     if (kInt8) {
       // the query's quantization error per coordinate, q - sq qi
       const float sq = query_scale(qrow, D);
@@ -278,7 +614,7 @@ __device__ inline void merge_quant(
       if (kInt8) err = __fadd_rn(err, __fmul_rn(erow[d], x));
     }
     const float y2 = y2q[id];
-    sx[tid] = fmaxf(__fadd_rn(__fsub_rn(x2_s, 2.0f * cross), y2), 0.0f);
+    sx[tid] = fmaxf(__fadd_rn(__fsub_rn(*x2_s, 2.0f * cross), y2), 0.0f);
     sy2[tid] = y2;
     serr[tid] = kInt8 ? fabsf(2.0f * err) : 0.0f;
   }
@@ -300,7 +636,7 @@ __device__ inline void merge_quant(
     }
   }
   __syncthreads();
-  idw_weights(x2_s, nd, ny2, k, nw);
+  idw_weights(*x2_s, nd, ny2, k, nw);
 }
 
 }  // namespace knn

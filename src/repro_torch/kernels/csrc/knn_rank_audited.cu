@@ -32,7 +32,9 @@
 static_assert(knn::kBlock == rk::kBlock, "one block size for both stages");
 
 // Launch B. Shared memory: first the lists of the tree merge, then,
-// reused, the rank routine's coef, top-L and staging buffer.
+// reused, the rank routine's coef, top-L and staging buffer. Lists of
+// length KM >= k.
+template <int KM>
 __global__ void __launch_bounds__(rk::kBlock) knn_rank_audited_kernel(
     const float* __restrict__ xq, const float* __restrict__ xdb,
     const float* __restrict__ lamdb, const float* __restrict__ ws_d2,
@@ -43,12 +45,12 @@ __global__ void __launch_bounds__(rk::kBlock) knn_rank_audited_kernel(
     float* vals, int* idx, float* util, float* expo, int* comp,
     float* lam_out) {
   extern __shared__ float smem[];
-  __shared__ float nw[knn::kKMax];
-  __shared__ int ni[knn::kKMax];
+  __shared__ float nw[KM];
+  __shared__ int ni[KM];
   const size_t row = blockIdx.x / split;
   const bool first = blockIdx.x % split == 0;
 
-  knn::merge_idw(xq, xdb, ws_d2, ws_idx, row, D, k, n_chunks, smem, nw, ni);
+  knn::merge_idw<KM>(xq, xdb, ws_d2, ws_idx, row, D, k, n_chunks, smem, nw, ni);
   const rk::Smem s = rk::carve(smem, K, m2);
   for (int t = threadIdx.x; t < K; t += blockDim.x) {
     // bucket-padded constraint rows beyond the predictor's width get 0
@@ -79,8 +81,11 @@ extern "C" int knn_rank_audited_launch(
   if (err) return err;
   const size_t lists = (size_t)knn::merge_smem_floats(k) * sizeof(float);
   const size_t rank = rk::smem_bytes(K, m2);
+  auto kernel = knn::list_len(k) == 16   ? knn_rank_audited_kernel<16>
+                : knn::list_len(k) == 32 ? knn_rank_audited_kernel<32>
+                                         : knn_rank_audited_kernel<64>;
   return rk::launch_rows(
-      knn_rank_audited_kernel, B, split, lists > rank ? lists : rank, s,
+      kernel, B, split, lists > rank ? lists : rank, s,
       (const float*)xq, (const float*)xdb, (const float*)lamdb,
       (const float*)ws_d2, (const int*)ws_idx, (const float*)u,
       (const float*)a, (const float*)b, (const float*)gamma, N, D, k, Kpred,

@@ -27,9 +27,9 @@
 
 static_assert(knn::kBlock == rk::kBlock, "one block size for both stages");
 
-// Launch B. Shared memory: first the lists of the tree merge, then,
-// reused, the rank routine's coef, top-L and staging buffer.
-template <bool kInt8>
+// Launch B. Shared memory: nw and ni (k each), then merge_quant's work,
+// reused by the rank routine's coef, top-L and staging buffer.
+template <bool kInt8, int RL>
 __global__ void __launch_bounds__(rk::kBlock) knn_rank_audited_quant_kernel(
     const float* __restrict__ xq, const void* __restrict__ xdbq,
     const float* __restrict__ q_scale, const float* __restrict__ y2q,
@@ -41,15 +41,17 @@ __global__ void __launch_bounds__(rk::kBlock) knn_rank_audited_quant_kernel(
     float c, float tol, float* vals, int* idx, float* util, float* expo,
     int* comp, float* lam_out, int* guard_out) {
   extern __shared__ float smem[];
-  __shared__ float nw[knn::kKMax];
-  __shared__ int ni[knn::kKMax];
+  float* nw = smem;
+  int* ni = reinterpret_cast<int*>(smem + k);
+  float* work = smem + 2 * k;
   const size_t row = blockIdx.x / split;
   const bool first = blockIdx.x % split == 0;
 
   // every block of a split row writes the same guard
-  knn::merge_quant<kInt8>(xq, xdbq, q_scale, y2q, ws_d2, ws_idx, row, D, k,
-                          KK, slab, n_chunks, smem, nw, ni, guard_out);
-  const rk::Smem s = rk::carve(smem, K, m2);
+  knn::merge_quant<kInt8, RL>(xq, xdbq, q_scale, y2q, ws_d2, ws_idx, row, D,
+                              k, KK, slab, n_chunks, work, nw, ni,
+                              guard_out);
+  const rk::Smem s = rk::carve(work, K, m2);
   for (int t = threadIdx.x; t < K; t += blockDim.x) {
     // bucket-padded constraint rows beyond the predictor's width get 0
     const float lam =
@@ -62,6 +64,14 @@ __global__ void __launch_bounds__(rk::kBlock) knn_rank_audited_quant_kernel(
                      gamma + row * m2, m1, K, m2, split, tol,
                      vals + row * m2, idx + row * m2, util + row,
                      expo + row * K, comp + row);
+}
+
+template <bool kInt8>
+static auto rank_kernel(int rl) {
+  return rl == 1   ? knn_rank_audited_quant_kernel<kInt8, 1>
+         : rl == 2 ? knn_rank_audited_quant_kernel<kInt8, 2>
+         : rl == 4 ? knn_rank_audited_quant_kernel<kInt8, 4>
+                   : knn_rank_audited_quant_kernel<kInt8, 8>;
 }
 
 // Launches A' then B on `stream`; `int8` picks the storage (1 int8,
@@ -80,16 +90,17 @@ extern "C" int knn_rank_audited_quant_launch(
       D, KK, slab, int8 != 0, chunk, st, n_chunks, (float*)ws_d2,
       (int*)ws_idx, s);
   if (err) return err;
-  const size_t lists = (size_t)knn::merge_smem_floats(KK) * sizeof(float);
+  const size_t merge =
+      (size_t)knn::quant_merge_floats(D, k, KK) * sizeof(float);
   const size_t rank = rk::smem_bytes(K, m2);
-  auto kernel = int8 ? knn_rank_audited_quant_kernel<true>
-                     : knn_rank_audited_quant_kernel<false>;
+  const int rl = knn::quant_rl(KK);
+  auto kernel = int8 ? rank_kernel<true>(rl) : rank_kernel<false>(rl);
   return rk::launch_rows(
-      kernel, B, split, lists > rank ? lists : rank, s, (const float*)xq,
-      xdbq, (const float*)q_scale, (const float*)y2q, (const float*)lamdb,
-      (const float*)ws_d2, (const int*)ws_idx, (const float*)u,
-      (const float*)a, (const float*)b, (const float*)gamma, n_train, D, k,
-      KK, Kpred, slab, n_chunks, m1, K, m2, split, c, tol, (float*)vals,
-      (int*)idx, (float*)util, (float*)expo, (int*)comp, (float*)lam_out,
-      (int*)guard_out);
+      kernel, B, split, 2 * k * sizeof(float) + (merge > rank ? merge : rank),
+      s, (const float*)xq, xdbq, (const float*)q_scale, (const float*)y2q,
+      (const float*)lamdb, (const float*)ws_d2, (const int*)ws_idx,
+      (const float*)u, (const float*)a, (const float*)b,
+      (const float*)gamma, n_train, D, k, KK, Kpred, slab, n_chunks, m1, K,
+      m2, split, c, tol, (float*)vals, (int*)idx, (float*)util, (float*)expo,
+      (int*)comp, (float*)lam_out, (int*)guard_out);
 }

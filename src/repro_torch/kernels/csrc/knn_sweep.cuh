@@ -28,9 +28,13 @@
 //     (d2 <= 1e-6 (|q|^2 + |x|^2 + 1e-12), idw_weights); idw_lam then
 //     forms one column of lambda-hat from the winners' lambda rows.
 //
-// The register lists are templated on their length, so the quantized
-// sweep (knn_quant_sweep.cuh) keeps its k + 8 survivors with the same
-// code, and merge_lists, idw_weights and idw_lam serve both sweeps.
+// The register lists are templated on their length KM, and every kernel
+// is instantiated for KM = 16, 32 and 64: a launch takes the smallest
+// that holds k (kKMax = 64 is the most), so k <= 16 runs the code it
+// always ran. The d limit is shared memory's: kernels/knn_topk.py's
+// sweep_geometry picks the tile and refuses a d for which fewer than 8
+// rows fit beside the query tile. idw_weights and idw_lam also serve
+// the quantized kernels (knn_quant_sweep.cuh).
 #pragma once
 
 #include <climits>
@@ -43,7 +47,7 @@ namespace knn {
 constexpr int kBlock = 256;  // threads per block of both launches
 constexpr int kQT = 32;      // KNN_QTILE: queries per block of launch A
 constexpr int kSub = 8;      // threads per query in launch A
-constexpr int kKMax = 16;    // KNN_MAX_K: neighbours kept per query
+constexpr int kKMax = 64;    // KNN_MAX_K: neighbours kept per query
 
 // a is nearer than b: a smaller d2, or an equal d2 and a lower index
 __device__ __forceinline__ bool nearer(float da, int ia, float db, int ib) {
@@ -87,7 +91,8 @@ __device__ __forceinline__ float sq_norm(const float* x, int D) {
 
 // Launch A. Shared memory: qs (kQT*D), x2s (kQT), then a region holding
 // either the db tile (st*D) and its |x|^2 (st) or, after the sweep, the
-// kQT*kSub lists to merge (k floats and k ints each).
+// kQT*kSub lists to merge (k floats and k ints each). k <= KM.
+template <int KM>
 __global__ void __launch_bounds__(kBlock) chunk_topk_kernel(
     const float* __restrict__ xq, const float* __restrict__ xdb, int B,
     int N, int D, int k, int chunk, int st, int n_chunks, float* ws_d2,
@@ -114,8 +119,8 @@ __global__ void __launch_bounds__(kBlock) chunk_topk_kernel(
   __syncthreads();
   if (tid < kQT) x2s[tid] = sq_norm(qs + tid * D, D);
 
-  float bd[kKMax];
-  int bi[kKMax];
+  float bd[KM];
+  int bi[KM];
   float wd;
   int wi;
   init_list(bd, bi, wd, wi);
@@ -148,7 +153,7 @@ __global__ void __launch_bounds__(kBlock) chunk_topk_kernel(
   int* mi = reinterpret_cast<int*>(md + kQT * kSub * k);
   const int slot = (ql * kSub + sub) * k;
 #pragma unroll
-  for (int j = 0; j < kKMax; ++j)
+  for (int j = 0; j < KM; ++j)
     if (j < k) { md[slot + j] = bd[j]; mi[slot + j] = bi[j]; }
   __syncthreads();
   if (sub == 0 && q < B) {
@@ -163,7 +168,7 @@ __global__ void __launch_bounds__(kBlock) chunk_topk_kernel(
     }
     const size_t out = ((size_t)q * n_chunks + chunk_id) * k;
 #pragma unroll
-    for (int j = 0; j < kKMax; ++j)
+    for (int j = 0; j < KM; ++j)
       if (j < k) { ws_d2[out + j] = bd[j]; ws_idx[out + j] = bi[j]; }
   }
 }
@@ -180,26 +185,47 @@ inline int allow_smem(F* kernel, size_t bytes) {
   return (int)cudaGetLastError();
 }
 
-// Starts launch A on `stream`; returns cudaGetLastError(). From d = 128
-// on the tiles pass 48 KB (kernels/knn_topk.py's sweep_tile budgets
-// 96 KB), which the opt-in attribute allows.
-inline int launch_chunk_topk(const float* xq, const float* xdb, int B,
-                             int N, int D, int k, int chunk, int st,
-                             int n_chunks, float* ws_d2, int* ws_idx,
-                             cudaStream_t stream) {
+// Starts launch A with lists of length KM on `stream`; returns
+// cudaGetLastError(). Past 48 KB of tiles (d >= 128 at 256 rows, or
+// k = 64's lists) the opt-in attribute allows up to 227 KB.
+template <int KM>
+inline int launch_chunk_topk_km(const float* xq, const float* xdb, int B,
+                                int N, int D, int k, int chunk, int st,
+                                int n_chunks, float* ws_d2, int* ws_idx,
+                                cudaStream_t stream) {
   const int tile = st * (D + 1), lists = kQT * kSub * k * 2;
   const size_t smem =
       (size_t)(kQT * (D + 1) + (tile > lists ? tile : lists)) * sizeof(float);
-  const int err = allow_smem(chunk_topk_kernel, smem);
+  const int err = allow_smem(chunk_topk_kernel<KM>, smem);
   if (err) return err;
   dim3 grid((B + kQT - 1) / kQT, n_chunks);
-  chunk_topk_kernel<<<grid, kBlock, smem, stream>>>(
+  chunk_topk_kernel<KM><<<grid, kBlock, smem, stream>>>(
       xq, xdb, B, N, D, k, chunk, st, n_chunks, ws_d2, ws_idx);
   return (int)cudaGetLastError();
 }
 
+// The list length that holds k: 16, 32 or 64 (k <= kKMax).
+inline int list_len(int k) { return k <= 16 ? 16 : k <= 32 ? 32 : 64; }
+
+inline int launch_chunk_topk(const float* xq, const float* xdb, int B,
+                             int N, int D, int k, int chunk, int st,
+                             int n_chunks, float* ws_d2, int* ws_idx,
+                             cudaStream_t stream) {
+  switch (list_len(k)) {
+    case 16:
+      return launch_chunk_topk_km<16>(xq, xdb, B, N, D, k, chunk, st,
+                                      n_chunks, ws_d2, ws_idx, stream);
+    case 32:
+      return launch_chunk_topk_km<32>(xq, xdb, B, N, D, k, chunk, st,
+                                      n_chunks, ws_d2, ws_idx, stream);
+    default:
+      return launch_chunk_topk_km<64>(xq, xdb, B, N, D, k, chunk, st,
+                                      n_chunks, ws_d2, ws_idx, stream);
+  }
+}
+
 // Floats of dynamic shared memory merge_lists needs for lists of length
-// k (merge_idw: k; the quantized merge: its k + 8 survivors).
+// k.
 __host__ __device__ inline int merge_smem_floats(int k) {
   return kBlock * k * 2;
 }
@@ -296,17 +322,18 @@ __device__ inline void idw_weights(float x2, const float* nd,
 // One query's merge + weighting of the f32 sweep, with the whole block:
 // the k nearest of the row's partial lists, their |x|^2 recomputed from
 // xdb, then the weights to nw and the neighbours' indices to ni
-// (shared, kKMax each). Ends synced.
+// (shared, KM each). Ends synced.
+template <int KM>
 __device__ inline void merge_idw(const float* __restrict__ xq,
                                  const float* __restrict__ xdb,
                                  const float* __restrict__ ws_d2,
                                  const int* __restrict__ ws_idx, size_t row,
                                  int D, int k, int n_chunks, float* smem,
                                  float* nw, int* ni) {
-  __shared__ float nd[kKMax], ny2[kKMax];
+  __shared__ float nd[KM], ny2[KM];
   __shared__ float x2_s;
   const int tid = threadIdx.x;
-  merge_lists<kKMax>(ws_d2, ws_idx, row, k, n_chunks, smem, nd, ni);
+  merge_lists<KM>(ws_d2, ws_idx, row, k, n_chunks, smem, nd, ni);
   if (tid < k) ny2[tid] = sq_norm(xdb + (size_t)ni[tid] * D, D);
   if (tid == blockDim.x - 1) x2_s = sq_norm(xq + row * D, D);
   __syncthreads();

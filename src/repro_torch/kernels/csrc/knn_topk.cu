@@ -19,20 +19,33 @@
 // design; launch B reads only the (B, n_chunks, k) workspace.
 #include "knn_sweep.cuh"
 
-// Launch B. Shared memory: the lists of the tree merge.
+// Launch B with lists of length KM >= k. Shared memory: the lists of
+// the tree merge.
+template <int KM>
 __global__ void __launch_bounds__(knn::kBlock) knn_topk_merge_kernel(
     const float* __restrict__ ws_d2, const int* __restrict__ ws_idx, int k,
     int n_chunks, float* d2_out, int* idx_out) {
   extern __shared__ float smem[];
-  __shared__ float od[knn::kKMax];
-  __shared__ int oi[knn::kKMax];
+  __shared__ float od[KM];
+  __shared__ int oi[KM];
   const size_t row = blockIdx.x;
-  knn::merge_lists<knn::kKMax>(ws_d2, ws_idx, row, k, n_chunks, smem, od,
-                               oi);
+  knn::merge_lists<KM>(ws_d2, ws_idx, row, k, n_chunks, smem, od, oi);
   if (threadIdx.x < k) {
     d2_out[row * k + threadIdx.x] = od[threadIdx.x];
     idx_out[row * k + threadIdx.x] = oi[threadIdx.x];
   }
+}
+
+template <int KM>
+static int launch_merge(const float* ws_d2, const int* ws_idx, int B, int k,
+                        int n_chunks, float* d2_out, int* idx_out,
+                        cudaStream_t s) {
+  const size_t smem = (size_t)knn::merge_smem_floats(k) * sizeof(float);
+  const int err = knn::allow_smem(knn_topk_merge_kernel<KM>, smem);
+  if (err) return err;
+  knn_topk_merge_kernel<KM><<<B, knn::kBlock, smem, s>>>(
+      ws_d2, ws_idx, k, n_chunks, d2_out, idx_out);
+  return (int)cudaGetLastError();
 }
 
 // Launches A then B on `stream`. Returns the first nonzero
@@ -43,13 +56,13 @@ extern "C" int knn_topk_launch(const void* xq, const void* xdb,
                                int chunk, int st, int n_chunks,
                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int err = knn::launch_chunk_topk((const float*)xq, (const float*)xdb, B, N,
-                                   D, k, chunk, st, n_chunks, (float*)ws_d2,
-                                   (int*)ws_idx, s);
+  const int err = knn::launch_chunk_topk(
+      (const float*)xq, (const float*)xdb, B, N, D, k, chunk, st, n_chunks,
+      (float*)ws_d2, (int*)ws_idx, s);
   if (err) return err;
-  const size_t smem = (size_t)knn::merge_smem_floats(k) * sizeof(float);
-  knn_topk_merge_kernel<<<B, knn::kBlock, smem, s>>>(
-      (const float*)ws_d2, (const int*)ws_idx, k, n_chunks, (float*)d2_out,
-      (int*)idx_out);
-  return (int)cudaGetLastError();
+  auto launch = knn::list_len(k) == 16   ? launch_merge<16>
+                : knn::list_len(k) == 32 ? launch_merge<32>
+                                         : launch_merge<64>;
+  return launch((const float*)ws_d2, (const int*)ws_idx, B, k, n_chunks,
+                (float*)d2_out, (int*)idx_out, s);
 }

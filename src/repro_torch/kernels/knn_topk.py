@@ -16,11 +16,19 @@ re-ranks to k and flags with the margin guard. On a CPU tensor a
 wrapper runs the plain version (`ref.knn_topk_ref`,
 `ref.knn_rank_audited_ref`, `ref.knn_lambda_ref`,
 `ref.knn_rank_audited_quant_ref`, `ref.knn_lambda_quant_ref`), which
-takes any k and d; on the card the sweeps take k <= KNN_MAX_K and
-d <= KNN_MAX_D (KNN_QUANT_MAX_D over a pack) and raise beyond.
+takes any k and d. On the card the shapes a sweep takes, and its tile,
+chunk and list length, come from one pure function per sweep:
+`sweep_geometry` (f32: k <= KNN_MAX_K = 64, any d whose tiles leave 8
+rows beside the query tile in KNN_SMEM_BYTES: d <= 1407 at k = 10) and
+`quant_sweep_geometry` (a pack: k + k_extra <= KNN_QUANT_MAX_KEEP =
+256, any d whose tiles leave 32 rows: d <= 2252 int8, 844 bf16 at 18
+survivors); past them a ValueError names the ROADMAP item that would
+lift the limit.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,11 +39,11 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (
     KNN_CHUNK,
-    KNN_MAX_D,
     KNN_MAX_K,
     KNN_QTILE,
-    KNN_QUANT_MAX_D,
     KNN_QUANT_MAX_KEEP,
+    KNN_QUANT_QTILE,
+    KNN_SMEM_BYTES,
     QUANT_EXTRA,
     check_tensor,
 )
@@ -57,31 +65,100 @@ __all__ = ["knn_lambda_cuda", "knn_lambda_quant_cuda", "knn_lambda_ref",
            "knn_lambda_quant_ref", "knn_rank_audited_cuda",
            "knn_rank_audited_quant_cuda", "knn_rank_audited_quant_ref",
            "knn_rank_audited_ref", "knn_topk_cuda", "knn_topk_ref",
-           "quant_sweep_tile", "sweep_tile"]
+           "SweepGeometry", "quant_sweep_geometry", "sweep_geometry"]
 
-# Dynamic shared memory a sweep block may use (the launchers raise the
-# kernel's limit past the default 48 KB with the opt-in attribute).
-_SMEM_FLOATS = 96 * 1024 // 4
-_KNN_SUB = 8                    # threads per query in the distance sweep
+_KNN_SUB = 8                    # threads per query in the f32 sweep
 _SHAPE_LIMIT = "(lifting it is ROADMAP Queue 2 item 5)"
+_MAX_GRID_Y = 65535             # the sweeps' grid y extent: db chunks
+_SWEEP_BLOCKS_PER_SM = 4        # quantized sweep blocks an SM holds
+H100_SMS = 132
 
 
-def sweep_tile(D: int, k: int) -> int:
-    """Database rows per shared-memory tile of the distance sweep: as
-    many as fit (up to 256) beside the query tile, in multiples of 8."""
-    budget = _SMEM_FLOATS - KNN_QTILE * (D + 1)
-    if KNN_QTILE * _KNN_SUB * k * 2 > budget:
-        raise ValueError(f"d={D}, k={k}: the sweep's tiles exceed one "
-                         f"block's shared memory")
-    st = min(256, budget // (D + 1)) // 8 * 8
-    if st < 8:
-        raise ValueError(f"d={D} leaves no room for a db tile")
-    return st
+class SweepGeometry(NamedTuple):
+    """A KNN sweep's shape on the card (launch A / A')."""
+    tile: int         # db rows per shared-memory tile
+    chunk: int        # db rows per block
+    n_chunks: int     # blocks along the db: the grid's y extent
+    list_len: int     # pairs of a query's running list (>= k or k_keep)
+    smem_bytes: int   # dynamic shared memory of one sweep block
+
+
+def sweep_geometry(N: int, D: int, k: int) -> SweepGeometry:
+    """The f32 sweep (csrc/knn_sweep.cuh) over N db rows of width D
+    keeping k neighbours: tiles of up to 256 rows, in multiples of 8,
+    that fit beside the KNN_QTILE query tile in KNN_SMEM_BYTES, chunks
+    of KNN_CHUNK rows, register lists of 16, 32 or 64. Raises past the
+    kernel's limits."""
+    if not 1 <= k <= KNN_MAX_K:
+        raise ValueError(f"the f32 KNN kernel keeps 1 <= k <= {KNN_MAX_K} "
+                         f"neighbours, got k={k} {_SHAPE_LIMIT}")
+    budget = KNN_SMEM_BYTES // 4 - KNN_QTILE * (D + 1)
+    lists = KNN_QTILE * _KNN_SUB * k * 2
+    st = max(0, min(256, budget // (D + 1)) // 8 * 8)
+    if st < 8 or lists > budget:
+        raise ValueError(f"d={D}, k={k}: the f32 KNN sweep's tiles exceed "
+                         f"{KNN_SMEM_BYTES} bytes of shared memory "
+                         f"{_SHAPE_LIMIT}")
+    n_chunks = -(-N // KNN_CHUNK)
+    if n_chunks > _MAX_GRID_Y:
+        raise ValueError(f"n_train={N} exceeds {_MAX_GRID_Y * KNN_CHUNK} "
+                         f"rows")
+    smem = 4 * (KNN_QTILE * (D + 1) + max(st * (D + 1), lists))
+    return SweepGeometry(st, KNN_CHUNK, n_chunks,
+                         16 if k <= 16 else 32 if k <= 32 else 64, smem)
+
+
+def quant_merge_floats(D: int, k: int, k_keep: int) -> int:
+    """Floats of shared memory the quantized merge needs beside nw and
+    ni (knn_quant_sweep.cuh's quant_merge_floats): a stage and a list of
+    L pairs for each of its 8 warps, then the survivors' and winners'
+    rows and the query."""
+    L = _quant_list_len(k_keep)
+    return 4 * 8 * L + 5 * k_keep + 2 * k + 2 * D + 1
+
+
+def _quant_list_len(k_keep: int) -> int:
+    return 32 * (1 if k_keep <= 32 else 2 if k_keep <= 64
+                 else 4 if k_keep <= 128 else 8)
+
+
+def quant_sweep_geometry(B: int, N: int, D: int, k: int, k_extra: int,
+                         mode: str, n_sm: int = H100_SMS) -> SweepGeometry:
+    """The quantized sweep (csrc/knn_quant_sweep.cuh) for B queries over
+    a pack of N rows of width D in `mode`, keeping k_keep = k + k_extra
+    survivors: a list of L = 32, 64, 128 or 256 pairs a query; tiles of
+    up to 256 rows, in multiples of 32, such that two of them, the
+    query operands and a stage of L pairs a query fit KNN_SMEM_BYTES;
+    a chunk (a multiple of the tile) that gives the card about
+    _SWEEP_BLOCKS_PER_SM blocks on each of its n_sm SMs. Raises past
+    the kernel's limits."""
+    k_keep = k + k_extra
+    if k_keep > KNN_QUANT_MAX_KEEP:
+        raise ValueError(f"the quantized KNN kernel keeps k + k_extra <= "
+                         f"{KNN_QUANT_MAX_KEEP} survivors, got k={k}, "
+                         f"k_extra={k_extra} {_SHAPE_LIMIT}")
+    int8 = mode == "int8"
+    L = _quant_list_len(k_keep)
+    words = (D + 3) // 4 if int8 else (D + 1) // 2
+    fixed = KNN_QUANT_QTILE * (words * (1 if int8 else 2) + 2 + 2 * L)
+    per_row = 2 * (words | 1) + 4
+    st = max(0, min(256, (KNN_SMEM_BYTES // 4 - fixed) // per_row)
+             // 32 * 32)
+    merge = 2 * k + quant_merge_floats(D, k, k_keep)
+    if st < 32 or 4 * merge > KNN_SMEM_BYTES:
+        raise ValueError(f"d={D}: the quantized KNN sweep's tiles exceed "
+                         f"{KNN_SMEM_BYTES} bytes of shared memory "
+                         f"{_SHAPE_LIMIT}")
+    q_tiles = max(1, -(-B // KNN_QUANT_QTILE))
+    per_tile = max(1, _SWEEP_BLOCKS_PER_SM * n_sm // q_tiles)
+    chunk = -(-max(1, -(-N // per_tile)) // st) * st
+    return SweepGeometry(st, chunk, -(-N // chunk), L,
+                         4 * (fixed + per_row * st))
 
 
 def _check_sweep(xq, xdb, k: int, dev: torch.device):
-    """Validate the f32 KNN sweep's inputs; returns (B, N, D, st,
-    n_chunks), the tile and grid only on the card, where the kernel's
+    """Validate the f32 KNN sweep's inputs; returns (B, N, D, geometry),
+    the geometry (None on the CPU) only on the card, where the kernel's
     own limits on k and d are checked too."""
     N, D = xdb.shape
     B = xq.shape[0]
@@ -90,14 +167,8 @@ def _check_sweep(xq, xdb, k: int, dev: torch.device):
     check_tensor("xq", xq, (B, D), torch.float32, dev)
     check_tensor("xdb", xdb, (N, D), torch.float32, dev)
     if dev.type == "cpu":
-        return B, N, D, 0, 0
-    if k > KNN_MAX_K or D > KNN_MAX_D:
-        raise ValueError(f"the f32 KNN kernel takes k <= {KNN_MAX_K} and "
-                         f"d <= {KNN_MAX_D}, got k={k}, d={D} {_SHAPE_LIMIT}")
-    n_chunks = -(-N // KNN_CHUNK)
-    if n_chunks > 65535:                 # the sweep grid's y extent
-        raise ValueError(f"n_train={N} exceeds {65535 * KNN_CHUNK} rows")
-    return B, N, D, sweep_tile(D, k), n_chunks
+        return B, N, D, None
+    return B, N, D, sweep_geometry(N, D, k)
 
 
 def _check_lam_db(lam_db, N: int, dev: torch.device) -> int:
@@ -123,17 +194,17 @@ def knn_topk_cuda(xq, xdb, *, k: int = 10, device=None):
     dev = resolve_device(device)
     xq, xdb = (x.float() if x.dtype == torch.bfloat16 else x
                for x in (xq, xdb))
-    B, N, D, st, n_chunks = _check_sweep(xq, xdb, k, dev)
+    B, N, D, g = _check_sweep(xq, xdb, k, dev)
     if dev.type == "cpu":
         return knn_topk_ref(xq, xdb, k)
-    ws_d2, ws_idx = _workspace(B, n_chunks, k, dev)
+    ws_d2, ws_idx = _workspace(B, g.n_chunks, k, dev)
     d2 = torch.empty((B, k), dtype=torch.float32, device=dev)
     idx = torch.empty((B, k), dtype=torch.int32, device=dev)
     if B:
         build.launch(
             "knn_topk", xq.data_ptr(), xdb.data_ptr(), ws_d2.data_ptr(),
             ws_idx.data_ptr(), d2.data_ptr(), idx.data_ptr(), B, N, D, k,
-            KNN_CHUNK, st, n_chunks,
+            g.chunk, g.tile, g.n_chunks,
             torch.cuda.current_stream(dev).cuda_stream)
         knn_topk_cuda.launches += 2
     return d2, idx
@@ -147,17 +218,17 @@ def knn_lambda_cuda(xq, xdb, lam_db, *, k: int = 10, device=None):
     and contiguous on `device` (None = the card) -> lam (B, K_pred). Two
     launches per call; each adds one to `knn_lambda_cuda.launches`."""
     dev = resolve_device(device)
-    B, N, D, st, n_chunks = _check_sweep(xq, xdb, k, dev)
+    B, N, D, g = _check_sweep(xq, xdb, k, dev)
     k_pred = _check_lam_db(lam_db, N, dev)
     if dev.type == "cpu":
         return knn_lambda_ref(xq, xdb, lam_db, k)
-    ws_d2, ws_idx = _workspace(B, n_chunks, k, dev)
+    ws_d2, ws_idx = _workspace(B, g.n_chunks, k, dev)
     lam = torch.empty((B, k_pred), dtype=torch.float32, device=dev)
     if B:
         build.launch(
             "knn_lambda", xq.data_ptr(), xdb.data_ptr(), lam_db.data_ptr(),
             ws_d2.data_ptr(), ws_idx.data_ptr(), lam.data_ptr(), B, N, D, k,
-            k_pred, KNN_CHUNK, st, n_chunks,
+            k_pred, g.chunk, g.tile, g.n_chunks,
             torch.cuda.current_stream(dev).cuda_stream)
         knn_lambda_cuda.launches += 2
     return lam
@@ -181,7 +252,7 @@ def knn_rank_audited_cuda(xq, xdb, lam_db, u, a, b, gamma, *, k: int = 10,
     B, m1, K = check_rank_args(u, a, b, None, gamma, m2, dev)
     if xq.shape[0] != B:
         raise ValueError(f"xq carries {xq.shape[0]} rows, the problem {B}")
-    _, N, D, st, n_chunks = _check_sweep(xq, xdb, k, dev)
+    _, N, D, g = _check_sweep(xq, xdb, k, dev)
     k_pred = _check_lam_db(lam_db, N, dev)
     check_pred_width(k_pred, K)
     if dev.type == "cpu":
@@ -189,7 +260,7 @@ def knn_rank_audited_cuda(xq, xdb, lam_db, u, a, b, gamma, *, k: int = 10,
                                     m2=m2, eps=eps, tol=tol)
     check_rank_kernel(K, m2)
     f32 = torch.float32
-    ws_d2, ws_idx = _workspace(B, n_chunks, k, dev)
+    ws_d2, ws_idx = _workspace(B, g.n_chunks, k, dev)
     vals = torch.empty((B, m2), dtype=f32, device=dev)
     idx = torch.empty((B, m2), dtype=torch.int32, device=dev)
     util = torch.empty((B,), dtype=f32, device=dev)
@@ -203,8 +274,8 @@ def knn_rank_audited_cuda(xq, xdb, lam_db, u, a, b, gamma, *, k: int = 10,
             gamma.data_ptr(), ws_d2.data_ptr(), ws_idx.data_ptr(),
             vals.data_ptr(), idx.data_ptr(), util.data_ptr(),
             expo.data_ptr(), comp.data_ptr(), lam.data_ptr(), B, N, D, k,
-            k_pred, m1, K, m2, rank_split(B, m1, dev), KNN_CHUNK, st,
-            n_chunks,
+            k_pred, m1, K, m2, rank_split(B, m1, dev), g.chunk, g.tile,
+            g.n_chunks,
             float(np.float32(1.0 + eps)), float(tol),
             torch.cuda.current_stream(dev).cuda_stream)
         knn_rank_audited_cuda.launches += 2
@@ -214,30 +285,12 @@ def knn_rank_audited_cuda(xq, xdb, lam_db, u, a, b, gamma, *, k: int = 10,
 knn_rank_audited_cuda.launches = 0
 
 
-def quant_sweep_tile(D: int, k_keep: int, mode: str) -> int:
-    """Database rows per shared-memory tile of the quantized sweep: as
-    many as fit (up to 256) beside the query tile, in multiples of 8.
-    An int8 row takes ceil(D/4) words plus its y2 and scale, a bf16 row
-    D floats (widened) plus its y2; the tile's region later holds the
-    KNN_QTILE * 8 survivor lists of k_keep pairs."""
-    words = (D + 3) // 4
-    budget = _SMEM_FLOATS - KNN_QTILE * (D + 2 + words)
-    if KNN_QTILE * _KNN_SUB * k_keep * 2 > budget:
-        raise ValueError(f"d={D}, k_keep={k_keep}: the quantized sweep's "
-                         f"lists exceed its shared memory")
-    per_row = words + 2 if mode == "int8" else D + 1
-    st = min(256, budget // per_row) // 8 * 8
-    if st < 8:
-        raise ValueError(f"d={D} leaves no room for a db tile")
-    return st
-
-
 def _check_quant_sweep(xq, X_q, q_scale, y2_q, lam_db, k: int,
                        k_extra: int, mode: str, dev: torch.device):
     """Validate the quantized sweep's inputs; returns (B, n_pad, n_train,
-    D, K_pred, slab, st, n_chunks), the tile and grid only on the card,
-    where the kernel's own limits on k, k + k_extra and d are checked
-    too."""
+    D, K_pred, slab, geometry), the geometry (None on the CPU) only on
+    the card, where the kernel's own limits on k + k_extra and d are
+    checked too."""
     n_pad, D = X_q.shape
     B, (n_train, k_pred) = xq.shape[0], lam_db.shape
     slab = check_pack(X_q, q_scale, y2_q, mode, n_train=n_train)
@@ -254,17 +307,10 @@ def _check_quant_sweep(xq, X_q, q_scale, y2_q, lam_db, k: int,
     check_tensor("y2_q", y2_q, (n_pad, 1), f32, dev)
     check_tensor("lam_db", lam_db, (n_train, k_pred), f32, dev)
     if dev.type == "cpu":
-        return B, n_pad, n_train, D, k_pred, slab, 0, 0
-    if k > KNN_MAX_K or k_keep > KNN_QUANT_MAX_KEEP or D > KNN_QUANT_MAX_D:
-        raise ValueError(
-            f"the quantized KNN kernel takes k <= {KNN_MAX_K}, k + k_extra "
-            f"<= {KNN_QUANT_MAX_KEEP} and d <= {KNN_QUANT_MAX_D}, got k={k}, "
-            f"k_extra={k_extra}, d={D} {_SHAPE_LIMIT}")
-    n_chunks = -(-n_pad // KNN_CHUNK)
-    if n_chunks > 65535:                 # the sweep grid's y extent
-        raise ValueError(f"n_pad={n_pad} exceeds {65535 * KNN_CHUNK} rows")
+        return B, n_pad, n_train, D, k_pred, slab, None
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     return (B, n_pad, n_train, D, k_pred, slab,
-            quant_sweep_tile(D, k_keep, mode), n_chunks)
+            quant_sweep_geometry(B, n_pad, D, k, k_extra, mode, n_sm))
 
 
 def knn_lambda_quant_cuda(xq, X_q, q_scale, y2_q, lam_db, *, k: int = 10,
@@ -276,13 +322,13 @@ def knn_lambda_quant_cuda(xq, X_q, q_scale, y2_q, lam_db, *, k: int = 10,
     -> (lam (B, K_pred), guard (B, 1) int32). Two launches per call;
     each adds one to `knn_lambda_quant_cuda.launches`."""
     dev = resolve_device(device)
-    B, n_pad, n_train, D, k_pred, slab, st, n_chunks = _check_quant_sweep(
+    B, n_pad, n_train, D, k_pred, slab, g = _check_quant_sweep(
         xq, X_q, q_scale, y2_q, lam_db, k, k_extra, mode, dev)
     if dev.type == "cpu":
         return knn_lambda_quant_ref(xq, X_q, q_scale, y2_q, lam_db, k,
                                     k_extra=k_extra, mode=mode)
     kk = k + k_extra
-    ws_d2, ws_idx = _workspace(B, n_chunks, kk, dev)
+    ws_d2, ws_idx = _workspace(B, g.n_chunks, kk, dev)
     lam = torch.empty((B, k_pred), dtype=torch.float32, device=dev)
     guard = torch.empty((B, 1), dtype=torch.int32, device=dev)
     if B:
@@ -291,7 +337,7 @@ def knn_lambda_quant_cuda(xq, X_q, q_scale, y2_q, lam_db, *, k: int = 10,
             q_scale.data_ptr(), y2_q.data_ptr(), lam_db.data_ptr(),
             ws_d2.data_ptr(), ws_idx.data_ptr(), lam.data_ptr(),
             guard.data_ptr(), B, n_pad, n_train, D, k, kk, k_pred, slab,
-            int(mode == "int8"), KNN_CHUNK, st, n_chunks,
+            int(mode == "int8"), g.chunk, g.tile, g.n_chunks,
             torch.cuda.current_stream(dev).cuda_stream)
         knn_lambda_quant_cuda.launches += 2
     return lam, guard
@@ -317,7 +363,7 @@ def knn_rank_audited_quant_cuda(xq, X_q, q_scale, y2_q, lam_db, u, a, b,
     B, m1, K = check_rank_args(u, a, b, None, gamma, m2, dev)
     if xq.shape[0] != B:
         raise ValueError(f"xq carries {xq.shape[0]} rows, the problem {B}")
-    _, n_pad, n_train, D, k_pred, slab, st, n_chunks = _check_quant_sweep(
+    _, n_pad, n_train, D, k_pred, slab, g = _check_quant_sweep(
         xq, X_q, q_scale, y2_q, lam_db, k, k_extra, mode, dev)
     check_pred_width(k_pred, K)
     if dev.type == "cpu":
@@ -327,7 +373,7 @@ def knn_rank_audited_quant_cuda(xq, X_q, q_scale, y2_q, lam_db, u, a, b,
     check_rank_kernel(K, m2)
     f32 = torch.float32
     kk = k + k_extra
-    ws_d2, ws_idx = _workspace(B, n_chunks, kk, dev)
+    ws_d2, ws_idx = _workspace(B, g.n_chunks, kk, dev)
     vals = torch.empty((B, m2), dtype=f32, device=dev)
     idx = torch.empty((B, m2), dtype=torch.int32, device=dev)
     util = torch.empty((B,), dtype=f32, device=dev)
@@ -344,7 +390,7 @@ def knn_rank_audited_quant_cuda(xq, X_q, q_scale, y2_q, lam_db, u, a, b,
             idx.data_ptr(), util.data_ptr(), expo.data_ptr(),
             comp.data_ptr(), lam.data_ptr(), guard.data_ptr(), B, n_pad,
             n_train, D, k, kk, k_pred, slab, int(mode == "int8"), m1, K, m2,
-            rank_split(B, m1, dev), KNN_CHUNK, st, n_chunks,
+            rank_split(B, m1, dev), g.chunk, g.tile, g.n_chunks,
             float(np.float32(1.0 + eps)), float(tol),
             torch.cuda.current_stream(dev).cuda_stream)
         knn_rank_audited_quant_cuda.launches += 2

@@ -394,17 +394,150 @@ def test_large_m2_routes_on_the_card(card, route):
 
 
 def test_knn_shape_limits_raise_on_the_card(card):
-    """k > 16 and d > 256 over the f32 db, d > 128 over a pack: the
-    sweeps' own limits, which name the ROADMAP item that lifts them."""
+    """Just past the sweeps' limits: k = 65 or d = 1408 over the f32 db,
+    k + k_extra = 257 or a d whose tiles leave no 32 rows over a pack
+    (int8 d = 2256, bf16 d = 848). Each names the ROADMAP item that
+    would lift it; one step inside, each is served."""
     rng = np.random.default_rng(9)
-    for k, d in ((17, 20), (10, 257)):
+    for k, d, inside in ((65, 20, (64, 20)), (10, 1408, (10, 1407))):
         X_db = _t(rng.normal(size=(600, d)), card)
         X = _t(rng.normal(size=(4, d)), card)
         with pytest.raises(ValueError, match="Queue 2 item 5"):
             knn_topk_cuda(X, X_db, k=k)
-    X_db = _t(rng.normal(size=(600, 129)), card)
-    pack = pack_knn_db(X_db, mode="int8")
-    lam_db = _t(np.abs(rng.normal(size=(600, 5))), card)
-    with pytest.raises(ValueError, match="Queue 2 item 5"):
-        knn_lambda_quant_cuda(_t(rng.normal(size=(4, 129)), card), *pack,
-                              lam_db, k=10, mode="int8")
+        X_db = X_db[:, :inside[1]].contiguous()
+        X = X[:, :inside[1]].contiguous()
+        got = knn_topk_cuda(X, X_db, k=inside[0])
+        want = ref.knn_topk_ref(X, X_db, inside[0])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for mode, d, k, k_extra in (("int8", 20, 10, 247), ("int8", 2256, 10, 8),
+                                ("bf16", 848, 10, 8)):
+        X_db = _t(rng.normal(size=(600, d)), card)
+        pack = pack_knn_db(X_db, mode=mode)
+        lam_db = _t(np.abs(rng.normal(size=(600, 5))), card)
+        X = _t(rng.normal(size=(4, d)), card)
+        with pytest.raises(ValueError, match="Queue 2 item 5"):
+            knn_lambda_quant_cuda(X, *pack, lam_db, k=k, k_extra=k_extra,
+                                  mode=mode)
+        inside = (k, k_extra - 1) if k_extra > 8 else (k, k_extra)
+        if d != 20:
+            X_db, X = X_db[:, :d - 4].contiguous(), X[:, :d - 4].contiguous()
+            pack = pack_knn_db(X_db, mode=mode)
+        got = knn_lambda_quant_cuda(X, *pack, lam_db, k=inside[0],
+                                    k_extra=inside[1], mode=mode)
+        want = ref.knn_lambda_quant_ref(X, *pack, lam_db, inside[0],
+                                        k_extra=inside[1], mode=mode)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _quant_both(X, pack, lam_db, card, k, mode, k_extra=8):
+    """Both quantized kernels against their plain versions, bitwise, and
+    the chain kernel's lambda-hat and guard the fused kernel's."""
+    n = X.shape[0]
+    u, a, b, _, g = _rank(np.random.default_rng(n), n, 1024, 8, 64, card)
+    got = knn_rank_audited_quant_cuda(X, *pack, lam_db, u, a, b, g, k=k,
+                                      k_extra=k_extra, mode=mode, m2=64)
+    want = ref.knn_rank_audited_quant_ref(X, *pack, lam_db, u, a, b, g, k=k,
+                                          k_extra=k_extra, mode=mode, m2=64)
+    for gt, w in zip(got, want):
+        assert torch.equal(gt, w)
+    lam, guard = knn_lambda_quant_cuda(X, *pack, lam_db, k=k,
+                                       k_extra=k_extra, mode=mode)
+    want_lam, want_guard = ref.knn_lambda_quant_ref(X, *pack, lam_db, k,
+                                                    k_extra=k_extra,
+                                                    mode=mode)
+    assert torch.equal(lam, want_lam) and torch.equal(guard, want_guard)
+    assert torch.equal(got[5][:, :lam.shape[1]], lam)
+    assert torch.equal(got[6], guard)
+    return got
+
+
+def _ordered_db(ordering, n_db, d, rng, X):
+    """db rows ordered against the queries X (all near the origin)."""
+    ray = rng.normal(size=d)
+    ray /= np.linalg.norm(ray)
+    t = np.linspace(0.5, 8.0, n_db)
+    if ordering == "rising":
+        return t[:, None] * ray
+    if ordering == "falling":
+        return t[::-1, None] * ray
+    if ordering == "identical":
+        return np.broadcast_to(ray, (n_db, d))
+    # "planted": copies of query 0 every 2999 rows (many chunks and many
+    # stage folds apart) amid random rows, exact ties at the top
+    db = rng.normal(size=(n_db, d)) * 3.0
+    db[::2999] = X[0]
+    return db
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+@pytest.mark.parametrize("ordering", ["rising", "falling", "identical",
+                                      "planted"])
+def test_quant_kernels_on_hard_orderings(card, mode, ordering):
+    """Orderings that stress a filtered selection: every row passing the
+    filter (rising distance), none after the first (falling), all rows
+    tied (the lowest indices win) and exact ties planted across chunks
+    and stage folds; n_db = 70,000 spans 35 chunks."""
+    rng = np.random.default_rng(17)
+    d, n_db = 20, 70_000
+    X = rng.normal(size=(40, d)) * 1e-3
+    X_db = _t(_ordered_db(ordering, n_db, d, rng, X), card)
+    lam_db = _t(np.abs(rng.normal(size=(n_db, 5))), card)
+    _quant_both(_t(X, card), pack_knn_db(X_db, mode=mode), lam_db, card,
+                10, mode)
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+@pytest.mark.parametrize("n_db,slab,k,k_extra", [(300, 128, 10, 8),
+                                                  (60, 64, 56, 8)])
+def test_quant_kernels_on_small_packs(card, mode, n_db, slab, k, k_extra):
+    """A pack smaller than one chunk, and k + k_extra = n_pad (every row
+    of the pack, padding included, survives)."""
+    rng = np.random.default_rng(n_db)
+    X_db = _t(rng.normal(size=(n_db, 20)), card)
+    lam_db = _t(np.abs(rng.normal(size=(n_db, 5))), card)
+    pack = pack_knn_db(X_db, mode=mode, slab=slab)
+    assert pack[0].shape[0] in (384, k + k_extra)
+    _quant_both(_t(rng.normal(size=(33, 20)), card), pack, lam_db, card, k,
+                mode, k_extra)
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+@pytest.mark.parametrize("k,d,slab", [(20, 20, 512), (33, 20, 512),
+                                      (64, 20, 512), (10, 300, 512),
+                                      (10, 512, 512), (20, 13, 200)])
+def test_quant_kernels_at_the_new_limits(card, mode, k, d, slab):
+    """k = 20, 33 and 64 (28, 41 and 72 survivors: lists of 32, 64 and
+    128), d = 300 and 512 (past the old 128), d = 13 (rows not whole
+    words) with a ragged slab of 200."""
+    rng = np.random.default_rng(k * 1000 + d)
+    n_db = 9001
+    X_db = _t(rng.normal(size=(n_db, d)), card)
+    lam_db = _t(np.abs(rng.normal(size=(n_db, 5))), card)
+    X = _t(rng.normal(size=(37, d)), card)
+    X[2] = X_db[n_db - 1]                        # an exact match
+    _quant_both(X, pack_knn_db(X_db, mode=mode, slab=slab), lam_db, card, k,
+                mode)
+
+
+@pytest.mark.parametrize("k,d", [(20, 20), (33, 20), (64, 20), (10, 300),
+                                 (10, 512), (64, 512)])
+def test_f32_knn_kernels_take_larger_k_and_d(card, k, d):
+    """The three f32 KNN kernels at k = 20, 33, 64 (lists of 32 and 64)
+    and d = 300, 512 (tiles from the shared-memory budget), bitwise."""
+    rng = np.random.default_rng(k + d)
+    n_db = 9001
+    X_db = _t(rng.normal(size=(n_db, d)), card)
+    lam_db = _t(np.abs(rng.normal(size=(n_db, 5))), card)
+    X = _t(rng.normal(size=(37, d)), card)
+    X[2] = X_db[n_db - 1]
+    got = knn_topk_cuda(X, X_db, k=k)
+    want = ref.knn_topk_ref(X, X_db, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    lam = knn_lambda_cuda(X, X_db, lam_db, k=k)
+    assert torch.equal(lam, ref.knn_lambda_ref(X, X_db, lam_db, k))
+    u, a, b, _, g = _rank(rng, 37, 1024, 8, 64, card)
+    args = (X, X_db, lam_db, u, a, b, g)
+    fused = knn_rank_audited_cuda(*args, k=k, m2=64)
+    for gt, w in zip(fused, ref.knn_rank_audited_ref(*args, k=k, m2=64)):
+        assert torch.equal(gt, w)
+    assert torch.equal(fused[5][:, :5], lam)
