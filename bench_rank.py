@@ -10,14 +10,14 @@ chip_smoke.RANK_CASES: fused_rank at the bucket and at 64 x m1 =
 serve_retrieval cell (256 x m1 = 1,048,576); linear_rank_audited at the
 bucket and at B = 8192; knn_rank_audited at serve_retrieval; then
 chip_smoke.knn_timings over a 1,048,576-row db and its int8 and bf16
-packs: knn_lambda and knn_rank_audited, knn_lambda_quant and
+packs: knn_topk, knn_lambda and knn_rank_audited, knn_lambda_quant and
 knn_rank_audited_quant in both modes, each at the bucket (B = 32) and
-at B = 1024, with the profiler's split of each lambda-hat kernel
-between its sweep and its merge. Each case reports the kernel's ms, a
-library yardstick's, the card's bound and whether the outputs equal
-the plain version's bit for bit (the rank cases also the plain
-version's ms). Prints the card's name and power limit, then one JSON
-line, also written to FILE.
+at B = 1024, with the profiler's split of the f32 kernels and of
+knn_lambda_quant between their sweep and their second launch. Each
+case reports the kernel's ms, a library yardstick's, the card's bound
+and whether the outputs equal the plain version's bit for bit (the
+rank cases also the plain version's ms). Prints the card's name and
+power limit, then one JSON line, also written to FILE.
 
 To compare two checkouts, run both in one call on one card, in turns:
 the parent, this tree, this tree, the parent (each in its own process,
@@ -62,6 +62,7 @@ def main() -> int:
         knn_lambda_quant_cuda,
         knn_rank_audited_cuda,
         knn_rank_audited_quant_cuda,
+        knn_topk_cuda,
     )
 
     build.build_all()
@@ -74,7 +75,7 @@ def main() -> int:
         knn_rank_audited_cuda=knn_rank_audited_cuda, ref=ref), gen, dev)
     X_db, lam_db = cs.knn_db(gen, dev, cs.N_DB)
     knn, _ = cs.knn_timings(SimpleNamespace(
-        knn_lambda_cuda=knn_lambda_cuda,
+        knn_topk_cuda=knn_topk_cuda, knn_lambda_cuda=knn_lambda_cuda,
         knn_rank_audited_cuda=knn_rank_audited_cuda,
         knn_lambda_quant_cuda=knn_lambda_quant_cuda,
         knn_rank_audited_quant_cuda=knn_rank_audited_quant_cuda, ref=ref),

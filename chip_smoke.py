@@ -26,7 +26,10 @@ Phases (any failure exits non-zero before a result is printed):
      every 2999 rows) and at the limits this slice lifted (k = 20, 33,
      64; d = 300, 512; d = 13 with a ragged slab of 200), plus a pack
      smaller than one chunk and k + k_extra = n_pad; knn_topk,
-     knn_lambda and knn_rank_audited bitwise at k = 64, d = 300 and 512;
+     knn_lambda and knn_rank_audited bitwise (lambda-hat of the last two
+     equal too) over 1,048,576 rows on the same four orderings, at
+     k = 20, 33, 64, 100, 256 (lists of 32 to 256), at k = 64 with
+     d = 300 and 512, and at d = 1407 (rows scored in pieces of d);
      the kernel library's three: fused_rank at the bucket (m2 64 and
      128) and at kernel_bench's retrieval shape (64 x m1=100,000, K=5,
      m2=50), bitwise its plain version and rank_audited's (vals, idx);
@@ -72,9 +75,9 @@ Phases (any failure exits non-zero before a result is printed):
      version, a library yardstick that only this script calls, and the
      card's bound; and split each KNN lambda-hat kernel's device time
      at the bucket and at B=1024 between its sweep and its merge
-     (torch.profiler). The rank and KNN kernels' timings are
-     rank_timings and knn_timings, which bench_rank.py runs on two
-     checkouts for a before/after pair.
+     (torch.profiler), and likewise knn_topk and knn_rank_audited. The
+     rank and KNN kernels' timings are rank_timings and knn_timings,
+     which bench_rank.py runs on two checkouts for a before/after pair.
 The launch counters are set to 0 just before the offline phase's
 holdout path, the serving path and the kernel library path, and read
 just after each.
@@ -120,8 +123,10 @@ WIDE = dict(n_db=100_003, d=256, k=16)   # the JAX tests' widest knn_topk
 BAG = dict(V=1_000_000, D=64, n_bags=4096, bag=32)
 MODES = ("int8", "bf16")
 QUANT_EXTRA = 8
-LIMIT_K = (20, 33, 64)        # k past the old 16: lists of 32, 64 and 128
+LIMIT_K = (20, 33, 64)        # k past 16: lists of 32, 64 and 128 (pack)
+F32_K = (20, 33, 64, 100, 256)  # f32 lists of 32, 64, 128 and 256
 LIMIT_D = (300, 512)          # d past the old 128 (pack) and 256 (f32)
+F32_WIDE_D = 1407             # at k = 10: rows scored in pieces of d
 # (route tag, m2) -> requests; m2 = 500 lands in the 512 bucket, above
 # the rank kernels' m2 <= 128
 SERVE_MIX = {("knn", 50): 192, ("knn_int8", 50): 64, ("knn_bf16", 50): 32,
@@ -420,19 +425,19 @@ def rank_timings(k, gen, dev, cases=RANK_CASES):
 
 
 def knn_timings(k, gen, dev, X_db, lam_db, packs, plain=True):
-    """Times the KNN lambda-hat kernels of the namespace `k`
-    (knn_lambda_cuda, knn_rank_audited_cuda, knn_lambda_quant_cuda,
+    """Times the KNN kernels of the namespace `k` (knn_topk_cuda,
+    knn_lambda_cuda, knn_rank_audited_cuda, knn_lambda_quant_cuda,
     knn_rank_audited_quant_cuda and the module ref) over the f32 db X_db
     and its packs {mode: (X_q, q_scale, y2_q)} at the bucket and at
     LARGE_KNN_B queries, on inputs drawn from `gen`: the kernel's ms
     beside a library yardstick (torch.addmm + torch.topk on the f32 db;
     torch._int_mm or a bf16 addmm, then torch.topk(k+8), on a pack) and
     the card's bound; `bitwise` says whether the outputs equal the plain
-    version's; the plain version's ms where `plain`; and, for the two
-    lambda-hat kernels, the profiler's device ms by kernel (the sweep
-    and the merge). Returns (rows by (kernel, label[, mode]), the
-    yardstick of each mode). bench_rank.py runs this for two
-    checkouts."""
+    version's; the plain version's ms where `plain`; and, for the three
+    f32 kernels and knn_lambda_quant, the profiler's device ms by kernel
+    (the sweep and the merge, or the rank launch). Returns (rows by
+    (kernel, label[, mode]), the yardstick of each mode). bench_rank.py
+    runs this for two checkouts."""
     B, m1, K, m2 = BUCKET["B"], BUCKET["m1"], BUCKET["K"], BUCKET["m2"]
     n_db = X_db.shape[0]
     out, library = {}, {}
@@ -463,11 +468,15 @@ def knn_timings(k, gen, dev, X_db, lam_db, packs, plain=True):
                                             k=KNN_K, m2=m2, eps=EPS),
             lambda: k.ref.knn_rank_audited_ref(xq, X_db, lam_db, u, a, b, g,
                                                k=KNN_K, m2=m2, eps=EPS),
-            bound(*knn_work(Bt, n_db, m1, K, m2)), library_ms, reps, False)
+            bound(*knn_work(Bt, n_db, m1, K, m2)), library_ms, reps, True)
         row(("knn_lambda", label), Bt,
             lambda: k.knn_lambda_cuda(xq, X_db, lam_db, k=KNN_K),
             lambda: k.ref.knn_lambda_ref(xq, X_db, lam_db, KNN_K),
             bound(*sweep_work(Bt, n_db)), library_ms, reps, True)
+        row(("knn_topk", label), Bt,
+            lambda: k.knn_topk_cuda(xq, X_db, k=KNN_K),
+            lambda: k.ref.knn_topk_ref(xq, X_db, KNN_K),
+            bound(*topk_work(Bt, n_db, D)), library_ms, reps, True)
     for mode, pack in packs.items():
         n_pad = pack[0].shape[0]
         if mode == "int8":
@@ -758,10 +767,10 @@ def main() -> int:
             fail(f"lossless {mode} pack: exact-match query did not return "
                  f"its row's lambda")
     del X_ll
-    # the quantized pair on orderings that stress a filtered selection and
-    # at the new limits, the f32 kernels at k = 64 and d = 512, all over
-    # 1,048,576 rows; drawn from a generator of their own, so the phases
-    # after this one see the draws they always saw
+    # the quantized pair and the f32 kernels on orderings that stress a
+    # filtered selection and at the limits, all over 1,048,576 rows;
+    # drawn from a generator of their own, so the phases after this one
+    # see the draws they always saw
     gen_l = torch.Generator(device=dev)
     gen_l.manual_seed(args.seed + 17)
 
@@ -790,6 +799,25 @@ def main() -> int:
             fail(f"knn_lambda_quant {mode} {name}: lambda-hat or guard "
                  f"differs from knn_rank_audited_quant's")
 
+    def f32_triple(name, xq, xdb, ldb, k=KNN_K):
+        """The three f32 KNN kernels bitwise their plain versions, and
+        knn_lambda's lambda-hat knn_rank_audited's."""
+        u, a, b, _, g = rank_inputs(gen_l, dev, xq.shape[0], m1, K, m2)
+        got = (knn_topk_cuda(xq, xdb, k=k),
+               knn_lambda_cuda(xq, xdb, ldb, k=k))
+        fused = knn_rank_audited_cuda(xq, xdb, ldb, u, a, b, g, k=k, m2=m2,
+                                      eps=EPS)
+        torch.cuda.synchronize()
+        want = ref.knn_rank_audited_ref(xq, xdb, ldb, u, a, b, g, k=k,
+                                        m2=m2, eps=EPS)
+        if not (bitwise(got[0], ref.knn_topk_ref(xq, xdb, k))
+                and bitwise(got[1], ref.knn_lambda_ref(xq, xdb, ldb, k))
+                and bitwise(fused, want)
+                and torch.equal(got[1], fused[5][:, :got[1].shape[1]])):
+            fail(f"the f32 KNN kernels {name}: differ from the plain "
+                 f"versions")
+        return got
+
     ray = torch.nn.functional.normalize(
         torch.randn(D, generator=gen_l, device=dev), dim=0)
     ramp = torch.linspace(0.5, 8.0, N_DB, device=dev)[:, None]
@@ -802,8 +830,15 @@ def main() -> int:
     for label, xdb in orderings.items():
         for mode in MODES:
             quant_pair(label, xq, xdb, lam_db, mode)
+        got = f32_triple(label, xq, xdb, lam_db)
+        first = {"rising": 0, "falling": N_DB - 1, "identical": 0,
+                 "planted": 0}[label]
+        if int(got[0][1][0, 0]) != first:
+            fail(f"knn_topk {label}: row {first} is not first")
     del orderings, planted, ramp
     xq = torch.randn((B, D), generator=gen_l, device=dev)
+    for kk in F32_K:
+        f32_triple(f"k={kk}", xq, X_db, lam_db, k=kk)
     for mode in MODES:
         for kk in LIMIT_K:
             quant_pair(f"k={kk}", xq, X_db, lam_db, mode, k=kk)
@@ -820,21 +855,14 @@ def main() -> int:
         xq[0] = xdb[N_DB - 1]                    # an exact match
         for mode in MODES:
             quant_pair(f"d={dd}", xq, xdb, lam_db, mode)
-        kk = max(LIMIT_K)
-        got = (knn_topk_cuda(xq, xdb, k=kk),
-               knn_lambda_cuda(xq, xdb, lam_db, k=kk))
-        u, a, b, _, g = rank_inputs(gen_l, dev, B, m1, K, m2)
-        fused = knn_rank_audited_cuda(xq, xdb, lam_db, u, a, b, g, k=kk,
-                                      m2=m2, eps=EPS)
-        torch.cuda.synchronize()
-        want = ref.knn_rank_audited_ref(xq, xdb, lam_db, u, a, b, g, k=kk,
-                                        m2=m2, eps=EPS)
-        if not (bitwise(got[0], ref.knn_topk_ref(xq, xdb, kk))
-                and bitwise(got[1], ref.knn_lambda_ref(xq, xdb, lam_db, kk))
-                and bitwise(fused, want)
-                and torch.equal(got[1], fused[5][:, :K_PRED])):
-            fail(f"the f32 KNN kernels at k={kk}, d={dd}: differ from the "
-                 f"plain versions")
+        f32_triple(f"k={max(LIMIT_K)} d={dd}", xq, xdb, lam_db,
+                   k=max(LIMIT_K))
+    xdb = torch.randn((N_DB, F32_WIDE_D), generator=gen_l, device=dev)
+    xq = torch.randn((B, F32_WIDE_D), generator=gen_l, device=dev)
+    xq[0] = xdb[N_DB - 1]                        # an exact match
+    got = f32_triple(f"d={F32_WIDE_D}", xq, xdb, lam_db)
+    if int(got[0][1][0, 0]) != N_DB - 1:
+        fail(f"knn_topk d={F32_WIDE_D}: the exact match is not first")
     del xdb
     torch.cuda.empty_cache()
     # the kernel library: fused_rank, knn_topk, knn_predict_kernel and
@@ -997,7 +1025,9 @@ def main() -> int:
         f"knn_rank_audited bitwise; both modes bitwise on rising, falling, "
         f"identical and planted-tie rows, at k={LIMIT_K}, d={LIMIT_D}, d=13 "
         f"with a ragged slab, n_pad < one chunk and k + k_extra = n_pad; "
-        f"the f32 kernels bitwise at k={max(LIMIT_K)}, d={LIMIT_D}; "
+        f"the f32 kernels bitwise on the same four orderings, at "
+        f"k={F32_K}, at k={max(LIMIT_K)} with d={LIMIT_D} and at "
+        f"d={F32_WIDE_D}; "
         f"guard fired on {guard_share} of rows "
         f"at n_db={N_DB}; fused_rank's (vals, idx) are rank_audited's; "
         f"the rank kernels bitwise at K={WIDE_K}, on rising, tied and "
@@ -1242,10 +1272,10 @@ def main() -> int:
             f"fused_rank {label}": lambda: fused_rank_cuda(u, a, lam, m2=m2,
                                                            eps=EPS)}))
     del u, a, b, lam, g, X, W, c
-    # the KNN lambda-hat kernels (knn_timings, which bench_rank.py also
-    # runs on another checkout)
+    # the KNN kernels (knn_timings, which bench_rank.py also runs on
+    # another checkout)
     knn_t, library = knn_timings(SimpleNamespace(
-        knn_lambda_cuda=knn_lambda_cuda,
+        knn_topk_cuda=knn_topk_cuda, knn_lambda_cuda=knn_lambda_cuda,
         knn_rank_audited_cuda=knn_rank_audited_cuda,
         knn_lambda_quant_cuda=knn_lambda_quant_cuda,
         knn_rank_audited_quant_cuda=knn_rank_audited_quant_cuda, ref=ref),
@@ -1254,21 +1284,7 @@ def main() -> int:
         if not row.pop("bitwise"):
             fail(f"{' '.join(key)}: differs from the plain version")
     timing.update(knn_t)
-    y2 = (X_db * X_db).sum(1)
-    # knn_topk and embedding_bag, on phase 2's inputs
-    for label in ("bucket", "large"):
-        (xq, xdb), kw, _ = lib[("knn_topk", label)]
-        reps = 10 if label == "bucket" else 2
-        bms, by = bound(*topk_work(xq.shape[0], N_DB, D))
-        timing[("knn_topk", label)] = dict(
-            batch=xq.shape[0],
-            ms=time_ms(lambda: knn_topk_cuda(xq, xdb, **kw), reps),
-            plain_ms=time_ms(lambda: ref.knn_topk_ref(xq, xdb, KNN_K), 1,
-                             groups=3),
-            library_ms=time_ms(lambda: torch.topk(
-                torch.addmm(y2, xq, X_db.T, alpha=-2.0), KNN_K,
-                largest=False), reps),
-            bound_ms=bms, bound_by=by)
+    # knn_predict_kernel and embedding_bag, on phase 2's inputs
     (Xd, ld, xq), kw, _ = lib[("knn_predict_kernel", "bucket")]
     predict_ms = time_ms(lambda: ops.knn_predict_kernel(Xd, ld, xq, **kw), 10)
     # the yardstick sums w * row over the slots with w = 0 at a padded
@@ -1379,7 +1395,7 @@ def main() -> int:
             if (name, "serve_retrieval") in timing:
                 rows[-1]["serve_retrieval"] = timing[
                     (name, "serve_retrieval")]
-            if name == "knn_lambda":
+            if name in ("knn_lambda", "knn_rank_audited", "knn_topk"):
                 rows[-1]["split_ms"] = {
                     label: timing[(name, label)]["split_ms"]
                     for label in ("bucket", "large")}

@@ -32,16 +32,16 @@ SIGNATURES = {
     "rank_audited": ("rank_audited_launch",
                      [_P] * 10 + [_I] * 5 + [_F, _F, _P]),
     "knn_rank_audited": ("knn_rank_audited_launch",
-                         [_P] * 15 + [_I] * 12 + [_F, _F, _P]),
+                         [_P] * 15 + [_I] * 13 + [_F, _F, _P]),
     "linear_rank_audited": ("linear_rank_audited_launch",
                             [_P] * 13 + [_I] * 7 + [_F, _F, _P]),
-    "knn_lambda": ("knn_lambda_launch", [_P] * 6 + [_I] * 8 + [_P]),
+    "knn_lambda": ("knn_lambda_launch", [_P] * 6 + [_I] * 9 + [_P]),
     "knn_lambda_quant": ("knn_lambda_quant_launch",
                          [_P] * 9 + [_I] * 12 + [_P]),
     "knn_rank_audited_quant": ("knn_rank_audited_quant_launch",
                                [_P] * 18 + [_I] * 16 + [_F, _F, _P]),
     "fused_rank": ("fused_rank_launch", [_P] * 5 + [_I] * 5 + [_F, _P]),
-    "knn_topk": ("knn_topk_launch", [_P] * 6 + [_I] * 7 + [_P]),
+    "knn_topk": ("knn_topk_launch", [_P] * 6 + [_I] * 8 + [_P]),
     "embedding_bag": ("embedding_bag_launch", [_P] * 4 + [_I] * 4 + [_P]),
 }
 

@@ -5,11 +5,12 @@ The TPU kernels' LANE/SUBLANE/TILE_B/TILE_M/DB_SLAB were vreg shapes;
 nothing here copies them. The GPU geometry is chosen for Hopper: a
 ranked row on one 256-thread block or a cluster of them (the rank
 routine's own constants are in kernels/fused_rank.py), and KNN sweeps
-that give each block 32 queries and a chunk of database rows, their
-tiles within KNN_SMEM_BYTES of shared memory. The KNN kernels' limits
-(k <= KNN_MAX_K over the f32 db, k + k_extra <= KNN_QUANT_MAX_KEEP over
-a pack, a d whose tiles fit the shared memory) hold on the card only
-and are computed by kernels/knn_topk.py's sweep_geometry and
+that give each block 32 queries (8 warps of 4) and a chunk of database
+rows sized from the batch, their tiles within KNN_SMEM_BYTES of shared
+memory. The KNN kernels' limits (k <= KNN_MAX_K over the f32 db,
+k + k_extra <= KNN_QUANT_MAX_KEEP over a pack, a d whose resident
+queries and tiles fit the shared memory) hold on the card only and are
+computed by kernels/knn_topk.py's sweep_geometry and
 quant_sweep_geometry; the plain versions take any k and d.
 
 The second half holds the quantized KNN database's arithmetic
@@ -28,10 +29,8 @@ import torch
 # candidates never enter a top-m2, yet 0.0 * NEG_INF == 0.0 exactly.
 NEG_INF = float(-1e30)
 
-KNN_QTILE = 32       # queries per block of the f32 KNN distance sweep
-KNN_CHUNK = 2048     # database rows per block of the f32 KNN sweep
-KNN_MAX_K = 64       # neighbours the f32 KNN kernels keep per query
-KNN_QUANT_QTILE = 32  # queries per block of the quantized sweep (8 warps x 4)
+KNN_QTILE = 32       # queries per block of both KNN sweeps (8 warps x 4)
+KNN_MAX_K = 256      # neighbours the f32 KNN kernels keep per query
 # Dynamic shared memory a KNN sweep block may use, of the card's 227 KB
 # opt-in (the launchers raise the kernel's limit past the default 48 KB).
 KNN_SMEM_BYTES = 220 * 1024

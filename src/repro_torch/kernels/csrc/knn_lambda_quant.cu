@@ -67,7 +67,7 @@ extern "C" int knn_lambda_quant_launch(
   if (err) return err;
   const size_t smem =
       (size_t)(2 * k + knn::quant_merge_floats(D, k, KK)) * sizeof(float);
-  const int rl = knn::quant_rl(KK);
+  const int rl = knn::list_rl(KK);
   auto kernel = int8 ? merge_kernel<true>(rl) : merge_kernel<false>(rl);
   err = knn::allow_smem(kernel, smem);
   if (err) return err;

@@ -25,24 +25,22 @@
 //       bf16: rows are widened to f32 exactly (a shift of each half
 //         word) and the dot is summed coordinate by coordinate:
 //         d2q = q2 - 2 cross + y2_q[row].
-//     Selection: a query's running top-KK is spread over its warp's 32
-//     lanes (L = 32 RL >= KK pairs, RL a lane, kept sorted across the
-//     lanes, keys -d2q so that rank_audit.cuh's (key desc, index asc)
-//     network serves). A lane compares its pair with the query's KK-th;
-//     the passing pairs are staged in shared memory by ballot, and a
-//     full stage (L pairs) or the chunk's end is sorted by an in-warp
-//     bitonic network and merged into the list (registers and
-//     __shfl_xor_sync), which raises the threshold. On random data about
-//     KK (1 + ln(chunk / KK)) pairs of a chunk pass. The warp writes each
-//     query's partial list straight to the (B, n_chunks, KK) workspace.
-//   merge_quant, one block per query: the same filter and stage fold the
-//     n_chunks x KK partial pairs in each warp, warp 0 merges the eight
-//     lists into the KK survivors, then the margin guard on the
-//     quantized k/(k+1) gap against the exact error |2 (q - sq qi) . x~|
-//     of the two boundary survivors (0 in bf16), the survivors' rows
-//     gathered by index, dequantized and re-scored exactly,
-//     q2 - 2 (q . x~) + y2_q, re-ranked to k by (d2, index) and weighted
-//     (knn_sweep.cuh's idw_weights) with y2 taken from y2_q.
+//     Selection: knn_select.cuh's warp lists (a query's running top-KK
+//     spread over its warp's 32 lanes, keys -d2q; a pair is staged by
+//     ballot only if it beats the KK-th, and a full stage or the chunk's
+//     end is folded in by the in-warp bitonic network). On random data
+//     about KK (1 + ln(chunk / KK)) pairs of a chunk pass. The warp
+//     writes each query's partial list straight to the (B, n_chunks, KK)
+//     workspace.
+//   merge_quant, one block per query: knn_select.cuh's merge_lists (the
+//     same filter and stage fold over the n_chunks x KK partial pairs,
+//     the eight warps' lists merged) gives the KK survivors, then the
+//     margin guard on the quantized k/(k+1) gap against the exact
+//     error |2 (q - sq qi) . x~| of the two boundary survivors (0 in
+//     bf16), the survivors' rows gathered by index, dequantized and
+//     re-scored exactly, q2 - 2 (q . x~) + y2_q, re-ranked to k by
+//     (d2, index) and weighted (knn_select.cuh's idw_weights) with y2
+//     taken from y2_q.
 //
 // Why the result stays the plain version's bit for bit: the KK
 // survivors are a set under (d2q asc, index asc), a total order over
@@ -53,8 +51,8 @@
 //
 // The plain version of all of this is kernels/common.py's quant helpers
 // with core/predictors.knn_quant_scan; both repeat the same rounded
-// operations in the same order. Limits: KK <= kQKMax = 256 and a d whose
-// tiles fit one block's shared memory (kernels/knn_topk.py's
+// operations in the same order. Limits: KK <= kListMax = 256 and a d
+// whose tiles fit one block's shared memory (kernels/knn_topk.py's
 // quant_sweep_geometry, which also picks the tile and the chunk).
 //
 // Bound on an H100: at the serving bucket the pack's bytes (1 or 2 bytes
@@ -68,20 +66,13 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 
-#include "knn_sweep.cuh"
-#include "rank_audit.cuh"
+#include "knn_select.cuh"
 
 namespace knn {
 
-constexpr int kQW = 4;                  // queries a warp scores together
-constexpr int kWarps = kBlock / 32;
-constexpr int kQB = kWarps * kQW;       // KNN_QUANT_QTILE: queries a block
-constexpr int kQKMax = 256;             // KNN_QUANT_MAX_KEEP: survivors
-static_assert(kQKMax <= kBlock, "a thread a survivor in merge_quant");
-
-// Pairs a lane holds of a list of KK: the list is L = 32 RL >= KK long.
-__host__ __device__ inline int quant_rl(int KK) {
-  return KK <= 32 ? 1 : KK <= 64 ? 2 : KK <= 128 ? 4 : 8;
+// a is nearer than b: a smaller d2, or an equal d2 and a lower index
+__device__ __forceinline__ bool nearer(float da, int ia, float db, int ib) {
+  return da < db || (da == db && ia < ib);
 }
 
 // sq = max|q| / 127 over the row's D coordinates, 1 for a zero row
@@ -95,130 +86,6 @@ __device__ __forceinline__ float query_scale(const float* q, int D) {
 // qi = rint(q / sq) clipped to [-127, 127] (round half to even)
 __device__ __forceinline__ float quantize(float q, float sq) {
   return fminf(fmaxf(rintf(__fdiv_rn(q, sq)), -127.0f), 127.0f);
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// -- a warp's running top-KK -------------------------------------------
-// L = 32 RL pairs (key, index), best first under rk::ahead (key desc,
-// index asc), keys -d2q; pair i = lane * RL + r lives in register r.
-
-template <int RL>
-__device__ __forceinline__ void list_init(float (&k)[RL], int (&x)[RL]) {
-#pragma unroll
-  for (int r = 0; r < RL; ++r) { k[r] = -INFINITY; x[r] = INT_MAX; }
-}
-
-// Sorts the warp's L pairs best first: a bitonic network whose strides
-// of RL and more are lane exchanges, the rest register swaps.
-template <int RL>
-__device__ __forceinline__ void warp_sort(float (&k)[RL], int (&x)[RL],
-                                          int lane) {
-  constexpr int L = 32 * RL;
-#pragma unroll
-  for (int size = 2; size <= L; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride >= RL; stride >>= 1)
-      rk::shfl_stage<RL>(k, x, lane, size, stride);
-    rk::reg_stages<RL, RL / 2>(k, x, lane * RL, size);
-  }
-}
-
-// The list (k, x) takes the best L of itself and the sorted (ok, ox):
-// the better of pair i and the other's pair L-1-i (lane 31-lane's
-// register RL-1-r) form a bitonic sequence of exactly those L, which a
-// half-cleaner network sorts.
-template <int RL>
-__device__ __forceinline__ void warp_merge(float (&k)[RL], int (&x)[RL],
-                                           const float (&ok)[RL],
-                                           const int (&ox)[RL], int lane) {
-#pragma unroll
-  for (int r = 0; r < RL; ++r) {
-    const float b = __shfl_xor_sync(rk::kFull, ok[RL - 1 - r], 31);
-    const int bi = __shfl_xor_sync(rk::kFull, ox[RL - 1 - r], 31);
-    if (rk::ahead(b, bi, k[r], x[r])) { k[r] = b; x[r] = bi; }
-  }
-#pragma unroll
-  for (int stride = 16 * RL; stride >= RL; stride >>= 1)
-    rk::shfl_stage<RL>(k, x, lane, rk::kAllBest, stride);
-  rk::reg_stages<RL, RL / 2>(k, x, lane * RL, rk::kAllBest);
-}
-
-// Folds the cnt <= L pairs staged in (sk, sx) into the list. Warp-wide.
-template <int RL>
-__device__ __forceinline__ void fold(float (&k)[RL], int (&x)[RL],
-                                     const float* sk, const int* sx,
-                                     int cnt, int lane) {
-  __syncwarp();  // the staged pairs are written
-  float nk[RL];
-  int nx[RL];
-#pragma unroll
-  for (int r = 0; r < RL; ++r) {
-    const int i = lane * RL + r;
-    nk[r] = i < cnt ? sk[i] : -INFINITY;
-    nx[r] = i < cnt ? sx[i] : INT_MAX;
-  }
-  __syncwarp();  // read before the stage refills
-  warp_sort<RL>(nk, nx, lane);
-  warp_merge<RL>(k, x, nk, nx, lane);
-}
-
-// The list's pair at place p (p = KK-1: the threshold), on every lane.
-template <int RL>
-__device__ __forceinline__ void pair_at(const float (&k)[RL],
-                                        const int (&x)[RL], int p,
-                                        float& tk, int& tx) {
-  float v = k[0];
-  int vi = x[0];
-#pragma unroll
-  for (int r = 1; r < RL; ++r)
-    if (r == p % RL) { v = k[r]; vi = x[r]; }
-  tk = __shfl_sync(rk::kFull, v, p / RL);
-  tx = __shfl_sync(rk::kFull, vi, p / RL);
-}
-
-// Stages each lane's pair (key, id) where `pass`, behind the cnt pairs
-// already staged; a stage that would overflow is folded first, which
-// refreshes the threshold (tk, tx) at place KK-1. Warp-wide.
-template <int RL>
-__device__ __forceinline__ void offer(float (&k)[RL], int (&x)[RL],
-                                      float* sk, int* sx, int& cnt,
-                                      float& tk, int& tx, bool pass,
-                                      float key, int id, int lane, int KK) {
-  const unsigned m = __ballot_sync(rk::kFull, pass);
-  if (m == 0) return;
-  const int n = __popc(m);
-  if (cnt + n > 32 * RL) {
-    fold<RL>(k, x, sk, sx, cnt, lane);
-    pair_at<RL>(k, x, KK - 1, tk, tx);
-    cnt = 0;
-  }
-  if (pass) {
-    const int p = cnt + __popc(m & ((1u << lane) - 1u));
-    sk[p] = key;
-    sx[p] = id;
-  }
-  cnt += n;
 }
 
 // -- launch A' ----------------------------------------------------------
@@ -237,7 +104,7 @@ __host__ __device__ inline int row_words(int D, bool int8) {
 __host__ __device__ inline size_t quant_sweep_smem(int D, int KK, int st,
                                                    bool int8) {
   const int Dw = row_words(D, int8);
-  const int L = 32 * quant_rl(KK);
+  const int L = 32 * list_rl(KK);
   return ((size_t)kQB * Dw * (int8 ? 1 : 2) + 2 * kQB +
           2 * (size_t)st * (Dw | 1) + 4 * (size_t)st + 2 * (size_t)kQB * L) *
          4;
@@ -492,7 +359,7 @@ inline int launch_quant_chunk_topk(const float* xq, const void* xdbq,
                                    cudaStream_t stream) {
   const size_t smem = quant_sweep_smem(D, KK, st, int8);
   dim3 grid((B + kQB - 1) / kQB, n_chunks);
-  const int rl = quant_rl(KK);
+  const int rl = list_rl(KK);
   auto kernel = int8 ? quant_sweep_kernel<true>(rl)
                      : quant_sweep_kernel<false>(rl);
   const int err = allow_smem(kernel, smem);
@@ -505,65 +372,16 @@ inline int launch_quant_chunk_topk(const float* xq, const void* xdbq,
 
 // -- launch B' / B: the merge --------------------------------------------
 
-// Floats of shared memory merge_quant needs (its `work`): the warps'
-// stages and lists (4 kWarps L), the survivors' d2q, exact d2, y2,
+// Floats of shared memory merge_quant needs (its `work`): merge_lists'
+// scratch (the warps' stages and lists), the survivors' d2q, exact d2, y2,
 // error and index (KK each), the k winners' d2 and y2, the query row
 // and its quantization error (D each) and |q|^2.
 __host__ __device__ inline int quant_merge_floats(int D, int k, int KK) {
-  return 4 * kWarps * 32 * quant_rl(KK) + 5 * KK + 2 * k + 2 * D + 1;
-}
-
-// The row's KK survivors from its n_chunks partial lists of KK pairs,
-// with the whole block: each warp filters and folds a strided share of
-// them (offer), warp 0 merges the eight warps' lists, and the KK best go
-// ascending by (d2q, index) to sd and si. scratch: 4 kWarps L floats.
-// Ends synced.
-template <int RL>
-__device__ inline void select_quant(const float* __restrict__ ws_d2,
-                                    const int* __restrict__ ws_idx,
-                                    size_t row, int KK, int n_chunks,
-                                    float* scratch, float* sd, int* si) {
-  constexpr int L = 32 * RL;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* sk = scratch + warp * L;
-  int* sx = reinterpret_cast<int*>(scratch + kWarps * L) + warp * L;
-  float* lk = scratch + 2 * kWarps * L;
-  int* lx = reinterpret_cast<int*>(lk + kWarps * L);
-  float k[RL];
-  int x[RL];
-  list_init<RL>(k, x);
-  float tk = -INFINITY;
-  int tx = INT_MAX, cnt = 0;
-  const int total = n_chunks * KK;
-  const float* rd = ws_d2 + row * total;
-  const int* ri = ws_idx + row * total;
-  for (int base = warp * 32; base < total; base += kBlock) {
-    const int e = base + lane;
-    const bool valid = e < total;
-    const float key = valid ? -rd[e] : -INFINITY;
-    const int id = valid ? ri[e] : INT_MAX;
-    offer<RL>(k, x, sk, sx, cnt, tk, tx, valid && rk::ahead(key, id, tk, tx),
-              key, id, lane, KK);
-  }
-  if (cnt) fold<RL>(k, x, sk, sx, cnt, lane);
-#pragma unroll
-  for (int r = 0; r < RL; ++r) {
-    lk[warp * L + lane * RL + r] = k[r];
-    lx[warp * L + lane * RL + r] = x[r];
-  }
-  __syncthreads();
-  if (warp == 0) {
-    for (int w = 1; w < kWarps; ++w) {
-      rk::merge_top_warp<RL>(lk, lx, lk + w * L, lx + w * L, L);
-      __syncwarp();
-    }
-    for (int i = lane; i < KK; i += 32) { sd[i] = -lk[i]; si[i] = lx[i]; }
-  }
-  __syncthreads();
+  return merge_floats(KK) + 5 * KK + 2 * k + 2 * D + 1;
 }
 
 // One query's quantized merge, with the whole block: the row's KK
-// survivors (select_quant), the margin guard written to guard_out[row],
+// survivors (merge_lists), the margin guard written to guard_out[row],
 // the exact re-score and re-rank to k, then the weights to nw and the
 // neighbours' indices to ni (k each). work: quant_merge_floats(D, k, KK)
 // floats of shared memory. Ends synced.
@@ -574,7 +392,7 @@ __device__ inline void merge_quant(
     const float* __restrict__ ws_d2, const int* __restrict__ ws_idx,
     size_t row, int D, int k, int KK, int slab, int n_chunks, float* work,
     float* nw, int* ni, int* guard_out) {
-  float* sd = work + 4 * kWarps * 32 * RL;
+  float* sd = work + merge_floats(32 * RL);
   float* sx = sd + KK;
   float* sy2 = sx + KK;
   float* serr = sy2 + KK;
@@ -585,7 +403,7 @@ __device__ inline void merge_quant(
   float* erow = qrow + D;
   float* x2_s = erow + D;
   const int tid = threadIdx.x;
-  select_quant<RL>(ws_d2, ws_idx, row, KK, n_chunks, work, sd, si);
+  merge_lists<RL>(ws_d2, ws_idx, row, KK, n_chunks, work, sd, si);
   for (int d = tid; d < D; d += blockDim.x) qrow[d] = xq[row * D + d];
   __syncthreads();
   if (tid == 0) {

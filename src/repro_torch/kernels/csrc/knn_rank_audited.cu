@@ -22,19 +22,19 @@
 // Bound on an H100: at the serving bucket (B = 32) the db's bytes,
 // N * D * 4 read once at 3.35 TB/s; at a large batch the distance
 // FLOPs, B * N * (2D + 3), at the fp32 rate. The sweep keeps both the
-// query tile and the db tile in shared memory, so each db byte is read
-// from device memory once per query tile, and query tiles of one chunk
-// run next to each other (grid x is the query tile) so a chunk is
+// query tile and a ring of db tiles in shared memory, so each db byte is
+// read from device memory once per query tile, and query tiles of one
+// chunk run next to each other (grid x is the query tile) so a chunk is
 // reused from L2.
 #include "knn_sweep.cuh"
 #include "rank_audit.cuh"
 
 static_assert(knn::kBlock == rk::kBlock, "one block size for both stages");
 
-// Launch B. Shared memory: first the lists of the tree merge, then,
-// reused, the rank routine's coef, top-L and staging buffer. Lists of
-// length KM >= k.
-template <int KM>
+// Launch B. Shared memory: first merge_lists' scratch, then, reused,
+// the rank routine's coef, top-L and staging buffer. Lists of
+// L = 32 RL >= k.
+template <int RL>
 __global__ void __launch_bounds__(rk::kBlock) knn_rank_audited_kernel(
     const float* __restrict__ xq, const float* __restrict__ xdb,
     const float* __restrict__ lamdb, const float* __restrict__ ws_d2,
@@ -45,12 +45,13 @@ __global__ void __launch_bounds__(rk::kBlock) knn_rank_audited_kernel(
     float* vals, int* idx, float* util, float* expo, int* comp,
     float* lam_out) {
   extern __shared__ float smem[];
-  __shared__ float nw[KM];
-  __shared__ int ni[KM];
+  __shared__ float nw[32 * RL];
+  __shared__ int ni[32 * RL];
   const size_t row = blockIdx.x / split;
   const bool first = blockIdx.x % split == 0;
 
-  knn::merge_idw<KM>(xq, xdb, ws_d2, ws_idx, row, D, k, n_chunks, smem, nw, ni);
+  knn::merge_idw<RL>(xq, xdb, ws_d2, ws_idx, row, D, k, n_chunks, smem, nw,
+                     ni);
   const rk::Smem s = rk::carve(smem, K, m2);
   for (int t = threadIdx.x; t < K; t += blockDim.x) {
     // bucket-padded constraint rows beyond the predictor's width get 0
@@ -72,18 +73,20 @@ extern "C" int knn_rank_audited_launch(
     const void* a, const void* b, const void* gamma, void* ws_d2,
     void* ws_idx, void* vals, void* idx, void* util, void* expo, void* comp,
     void* lam_out, int B, int N, int D, int k, int Kpred, int m1, int K,
-    int m2, int split, int chunk, int st, int n_chunks, float c, float tol,
-    void* stream) {
+    int m2, int split, int chunk, int st, int dc, int n_chunks, float c,
+    float tol, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int err = knn::launch_chunk_topk(
-      (const float*)xq, (const float*)xdb, B, N, D, k, chunk, st, n_chunks,
-      (float*)ws_d2, (int*)ws_idx, s);
+      (const float*)xq, (const float*)xdb, B, N, D, k, chunk, st, dc,
+      n_chunks, (float*)ws_d2, (int*)ws_idx, s);
   if (err) return err;
-  const size_t lists = (size_t)knn::merge_smem_floats(k) * sizeof(float);
+  const size_t lists = (size_t)knn::merge_floats(k) * sizeof(float);
   const size_t rank = rk::smem_bytes(K, m2);
-  auto kernel = knn::list_len(k) == 16   ? knn_rank_audited_kernel<16>
-                : knn::list_len(k) == 32 ? knn_rank_audited_kernel<32>
-                                         : knn_rank_audited_kernel<64>;
+  const int rl = knn::list_rl(k);
+  auto kernel = rl == 1   ? knn_rank_audited_kernel<1>
+                : rl == 2 ? knn_rank_audited_kernel<2>
+                : rl == 4 ? knn_rank_audited_kernel<4>
+                          : knn_rank_audited_kernel<8>;
   return rk::launch_rows(
       kernel, B, split, lists > rank ? lists : rank, s,
       (const float*)xq, (const float*)xdb, (const float*)lamdb,

@@ -93,7 +93,7 @@ extern "C" int knn_rank_audited_quant_launch(
   const size_t merge =
       (size_t)knn::quant_merge_floats(D, k, KK) * sizeof(float);
   const size_t rank = rk::smem_bytes(K, m2);
-  const int rl = knn::quant_rl(KK);
+  const int rl = knn::list_rl(KK);
   auto kernel = int8 ? rank_kernel<true>(rl) : rank_kernel<false>(rl);
   return rk::launch_rows(
       kernel, B, split, 2 * k * sizeof(float) + (merge > rank ? merge : rank),

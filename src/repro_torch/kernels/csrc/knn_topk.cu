@@ -5,9 +5,9 @@
 // (pallas_call at line 129), a db sweep slab by slab on one core with a
 // running top-k of -d2 in VMEM scratch. Here:
 //
-//   Launch A: knn_sweep.cuh's chunked db sweep, unchanged: partial top-k
-//     lists per (query, chunk) into a workspace.
-//   Launch B, one block per query: knn_sweep.cuh's merge_lists writes
+//   Launch A: knn_sweep.cuh's chunked db sweep: partial top-k lists per
+//     (query, chunk) into a workspace.
+//   Launch B, one block per query: knn_select.cuh's merge_lists writes
 //     the k winners' (d2, idx).
 //
 // So the top-k takes two launches where the TPU took one. The selection
@@ -19,33 +19,21 @@
 // design; launch B reads only the (B, n_chunks, k) workspace.
 #include "knn_sweep.cuh"
 
-// Launch B with lists of length KM >= k. Shared memory: the lists of
-// the tree merge.
-template <int KM>
+// Launch B with lists of L = 32 RL >= k. Shared memory: merge_lists'
+// scratch.
+template <int RL>
 __global__ void __launch_bounds__(knn::kBlock) knn_topk_merge_kernel(
     const float* __restrict__ ws_d2, const int* __restrict__ ws_idx, int k,
     int n_chunks, float* d2_out, int* idx_out) {
   extern __shared__ float smem[];
-  __shared__ float od[KM];
-  __shared__ int oi[KM];
+  __shared__ float od[32 * RL];
+  __shared__ int oi[32 * RL];
   const size_t row = blockIdx.x;
-  knn::merge_lists<KM>(ws_d2, ws_idx, row, k, n_chunks, smem, od, oi);
+  knn::merge_lists<RL>(ws_d2, ws_idx, row, k, n_chunks, smem, od, oi);
   if (threadIdx.x < k) {
     d2_out[row * k + threadIdx.x] = od[threadIdx.x];
     idx_out[row * k + threadIdx.x] = oi[threadIdx.x];
   }
-}
-
-template <int KM>
-static int launch_merge(const float* ws_d2, const int* ws_idx, int B, int k,
-                        int n_chunks, float* d2_out, int* idx_out,
-                        cudaStream_t s) {
-  const size_t smem = (size_t)knn::merge_smem_floats(k) * sizeof(float);
-  const int err = knn::allow_smem(knn_topk_merge_kernel<KM>, smem);
-  if (err) return err;
-  knn_topk_merge_kernel<KM><<<B, knn::kBlock, smem, s>>>(
-      ws_d2, ws_idx, k, n_chunks, d2_out, idx_out);
-  return (int)cudaGetLastError();
 }
 
 // Launches A then B on `stream`. Returns the first nonzero
@@ -53,16 +41,23 @@ static int launch_merge(const float* ws_d2, const int* ws_idx, int B, int k,
 extern "C" int knn_topk_launch(const void* xq, const void* xdb,
                                void* ws_d2, void* ws_idx, void* d2_out,
                                void* idx_out, int B, int N, int D, int k,
-                               int chunk, int st, int n_chunks,
+                               int chunk, int st, int dc, int n_chunks,
                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int err = knn::launch_chunk_topk(
-      (const float*)xq, (const float*)xdb, B, N, D, k, chunk, st, n_chunks,
-      (float*)ws_d2, (int*)ws_idx, s);
+  int err = knn::launch_chunk_topk(
+      (const float*)xq, (const float*)xdb, B, N, D, k, chunk, st, dc,
+      n_chunks, (float*)ws_d2, (int*)ws_idx, s);
   if (err) return err;
-  auto launch = knn::list_len(k) == 16   ? launch_merge<16>
-                : knn::list_len(k) == 32 ? launch_merge<32>
-                                         : launch_merge<64>;
-  return launch((const float*)ws_d2, (const int*)ws_idx, B, k, n_chunks,
-                (float*)d2_out, (int*)idx_out, s);
+  const int rl = knn::list_rl(k);
+  auto kernel = rl == 1   ? knn_topk_merge_kernel<1>
+                : rl == 2 ? knn_topk_merge_kernel<2>
+                : rl == 4 ? knn_topk_merge_kernel<4>
+                          : knn_topk_merge_kernel<8>;
+  const size_t smem = (size_t)knn::merge_floats(k) * sizeof(float);
+  err = knn::allow_smem(kernel, smem);
+  if (err) return err;
+  kernel<<<B, knn::kBlock, smem, s>>>((const float*)ws_d2,
+                                      (const int*)ws_idx, k, n_chunks,
+                                      (float*)d2_out, (int*)idx_out);
+  return (int)cudaGetLastError();
 }

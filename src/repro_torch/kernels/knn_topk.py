@@ -18,12 +18,14 @@ wrapper runs the plain version (`ref.knn_topk_ref`,
 `ref.knn_rank_audited_quant_ref`, `ref.knn_lambda_quant_ref`), which
 takes any k and d. On the card the shapes a sweep takes, and its tile,
 chunk and list length, come from one pure function per sweep:
-`sweep_geometry` (f32: k <= KNN_MAX_K = 64, any d whose tiles leave 8
-rows beside the query tile in KNN_SMEM_BYTES: d <= 1407 at k = 10) and
+`sweep_geometry` (f32: k <= KNN_MAX_K = 256, any d whose resident
+queries leave a ring of 32-row pieces of 32 coordinates in
+KNN_SMEM_BYTES: d <= 1629 at k <= 32, 1181 at k = 256) and
 `quant_sweep_geometry` (a pack: k + k_extra <= KNN_QUANT_MAX_KEEP =
 256, any d whose tiles leave 32 rows: d <= 2252 int8, 844 bf16 at 18
 survivors); past them a ValueError names the ROADMAP item that would
-lift the limit.
+lift the limit. Both sweeps keep a query's running list spread over a
+warp's lanes (csrc/knn_select.cuh), so their merges run one routine.
 """
 
 from __future__ import annotations
@@ -38,11 +40,9 @@ from repro_torch.core.ranking import AUDIT_TOL
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (
-    KNN_CHUNK,
     KNN_MAX_K,
     KNN_QTILE,
     KNN_QUANT_MAX_KEEP,
-    KNN_QUANT_QTILE,
     KNN_SMEM_BYTES,
     QUANT_EXTRA,
     check_tensor,
@@ -67,45 +67,69 @@ __all__ = ["knn_lambda_cuda", "knn_lambda_quant_cuda", "knn_lambda_ref",
            "knn_rank_audited_ref", "knn_topk_cuda", "knn_topk_ref",
            "SweepGeometry", "quant_sweep_geometry", "sweep_geometry"]
 
-_KNN_SUB = 8                    # threads per query in the f32 sweep
 _SHAPE_LIMIT = "(lifting it is ROADMAP Queue 2 item 5)"
-_MAX_GRID_Y = 65535             # the sweeps' grid y extent: db chunks
-_SWEEP_BLOCKS_PER_SM = 4        # quantized sweep blocks an SM holds
+_SWEEP_BLOCKS_PER_SM = 4        # sweep blocks an SM holds at k <= 32
+_MIN_PIECE = 32                 # coordinates a piece of a wide row holds
 H100_SMS = 132
 
 
 class SweepGeometry(NamedTuple):
     """A KNN sweep's shape on the card (launch A / A')."""
-    tile: int         # db rows per shared-memory tile
-    chunk: int        # db rows per block
+    tile: int         # db rows per shared-memory tile (a multiple of 32)
+    chunk: int        # db rows per block (a multiple of the tile)
     n_chunks: int     # blocks along the db: the grid's y extent
     list_len: int     # pairs of a query's running list (>= k or k_keep)
     smem_bytes: int   # dynamic shared memory of one sweep block
+    piece: int        # coordinates of a row a tile holds (d: whole rows)
 
 
-def sweep_geometry(N: int, D: int, k: int) -> SweepGeometry:
-    """The f32 sweep (csrc/knn_sweep.cuh) over N db rows of width D
-    keeping k neighbours: tiles of up to 256 rows, in multiples of 8,
-    that fit beside the KNN_QTILE query tile in KNN_SMEM_BYTES, chunks
-    of KNN_CHUNK rows, register lists of 16, 32 or 64. Raises past the
-    kernel's limits."""
+def _list_len(k_keep: int) -> int:
+    """A warp list's length: 32, 64, 128 or 256 pairs (knn_select.cuh's
+    list_rl)."""
+    return 32 * (1 if k_keep <= 32 else 2 if k_keep <= 64
+                 else 4 if k_keep <= 128 else 8)
+
+
+def _chunking(B: int, N: int, tile: int, n_sm: int) -> tuple[int, int]:
+    """(chunk, n_chunks): a chunk, a multiple of the tile, that gives the
+    card about _SWEEP_BLOCKS_PER_SM blocks on each of its n_sm SMs over
+    the batch's query tiles of 32."""
+    q_tiles = max(1, -(-B // KNN_QTILE))
+    per_tile = max(1, _SWEEP_BLOCKS_PER_SM * n_sm // q_tiles)
+    chunk = -(-max(1, -(-N // per_tile)) // tile) * tile
+    return chunk, -(-N // chunk)
+
+
+def sweep_geometry(B: int, N: int, D: int, k: int,
+                   n_sm: int = H100_SMS) -> SweepGeometry:
+    """The f32 sweep (csrc/knn_sweep.cuh) for B queries over N db rows
+    of width D keeping k neighbours: a list of L = 32, 64, 128 or 256
+    pairs a query; the block's 32 queries, their |q|^2 and a stage of L
+    pairs each resident in KNN_SMEM_BYTES, beside a two-slot ring of
+    tiles at the odd row stride piece | 1 (sweep_smem): whole rows in
+    tiles of up to 256 rows, in multiples of 32, where 32 of them fit,
+    else 32-row tiles of the widest piece of d that fits (at least
+    _MIN_PIECE coordinates); a chunk as in quant_sweep_geometry. Raises
+    past the kernel's limits."""
     if not 1 <= k <= KNN_MAX_K:
         raise ValueError(f"the f32 KNN kernel keeps 1 <= k <= {KNN_MAX_K} "
                          f"neighbours, got k={k} {_SHAPE_LIMIT}")
-    budget = KNN_SMEM_BYTES // 4 - KNN_QTILE * (D + 1)
-    lists = KNN_QTILE * _KNN_SUB * k * 2
-    st = max(0, min(256, budget // (D + 1)) // 8 * 8)
-    if st < 8 or lists > budget:
-        raise ValueError(f"d={D}, k={k}: the f32 KNN sweep's tiles exceed "
-                         f"{KNN_SMEM_BYTES} bytes of shared memory "
-                         f"{_SHAPE_LIMIT}")
-    n_chunks = -(-N // KNN_CHUNK)
-    if n_chunks > _MAX_GRID_Y:
-        raise ValueError(f"n_train={N} exceeds {_MAX_GRID_Y * KNN_CHUNK} "
-                         f"rows")
-    smem = 4 * (KNN_QTILE * (D + 1) + max(st * (D + 1), lists))
-    return SweepGeometry(st, KNN_CHUNK, n_chunks,
-                         16 if k <= 16 else 32 if k <= 32 else 64, smem)
+    L = _list_len(k)
+    fixed = KNN_QTILE * (D + 1 + 2 * L)
+    avail = KNN_SMEM_BYTES // 4 - fixed
+    if avail >= 2 * 32 * (D | 1):
+        piece = D
+        tile = min(256, avail // (2 * (D | 1)) // 32 * 32)
+    else:
+        tile, piece = 32, (avail // 64 - 1) | 1
+        if piece < _MIN_PIECE:
+            raise ValueError(f"d={D}, k={k}: the f32 KNN sweep's resident "
+                             f"queries leave no 32-row tiles of "
+                             f"{_MIN_PIECE} coordinates in {KNN_SMEM_BYTES} "
+                             f"bytes of shared memory {_SHAPE_LIMIT}")
+    chunk, n_chunks = _chunking(B, N, tile, n_sm)
+    return SweepGeometry(tile, chunk, n_chunks, L,
+                         4 * (fixed + 2 * tile * (piece | 1)), piece)
 
 
 def quant_merge_floats(D: int, k: int, k_keep: int) -> int:
@@ -113,13 +137,8 @@ def quant_merge_floats(D: int, k: int, k_keep: int) -> int:
     ni (knn_quant_sweep.cuh's quant_merge_floats): a stage and a list of
     L pairs for each of its 8 warps, then the survivors' and winners'
     rows and the query."""
-    L = _quant_list_len(k_keep)
+    L = _list_len(k_keep)
     return 4 * 8 * L + 5 * k_keep + 2 * k + 2 * D + 1
-
-
-def _quant_list_len(k_keep: int) -> int:
-    return 32 * (1 if k_keep <= 32 else 2 if k_keep <= 64
-                 else 4 if k_keep <= 128 else 8)
 
 
 def quant_sweep_geometry(B: int, N: int, D: int, k: int, k_extra: int,
@@ -138,9 +157,9 @@ def quant_sweep_geometry(B: int, N: int, D: int, k: int, k_extra: int,
                          f"{KNN_QUANT_MAX_KEEP} survivors, got k={k}, "
                          f"k_extra={k_extra} {_SHAPE_LIMIT}")
     int8 = mode == "int8"
-    L = _quant_list_len(k_keep)
+    L = _list_len(k_keep)
     words = (D + 3) // 4 if int8 else (D + 1) // 2
-    fixed = KNN_QUANT_QTILE * (words * (1 if int8 else 2) + 2 + 2 * L)
+    fixed = KNN_QTILE * (words * (1 if int8 else 2) + 2 + 2 * L)
     per_row = 2 * (words | 1) + 4
     st = max(0, min(256, (KNN_SMEM_BYTES // 4 - fixed) // per_row)
              // 32 * 32)
@@ -149,11 +168,9 @@ def quant_sweep_geometry(B: int, N: int, D: int, k: int, k_extra: int,
         raise ValueError(f"d={D}: the quantized KNN sweep's tiles exceed "
                          f"{KNN_SMEM_BYTES} bytes of shared memory "
                          f"{_SHAPE_LIMIT}")
-    q_tiles = max(1, -(-B // KNN_QUANT_QTILE))
-    per_tile = max(1, _SWEEP_BLOCKS_PER_SM * n_sm // q_tiles)
-    chunk = -(-max(1, -(-N // per_tile)) // st) * st
-    return SweepGeometry(st, chunk, -(-N // chunk), L,
-                         4 * (fixed + per_row * st))
+    chunk, n_chunks = _chunking(B, N, st, n_sm)
+    return SweepGeometry(st, chunk, n_chunks, L, 4 * (fixed + per_row * st),
+                         D)
 
 
 def _check_sweep(xq, xdb, k: int, dev: torch.device):
@@ -168,7 +185,8 @@ def _check_sweep(xq, xdb, k: int, dev: torch.device):
     check_tensor("xdb", xdb, (N, D), torch.float32, dev)
     if dev.type == "cpu":
         return B, N, D, None
-    return B, N, D, sweep_geometry(N, D, k)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return B, N, D, sweep_geometry(B, N, D, k, n_sm)
 
 
 def _check_lam_db(lam_db, N: int, dev: torch.device) -> int:
@@ -204,7 +222,7 @@ def knn_topk_cuda(xq, xdb, *, k: int = 10, device=None):
         build.launch(
             "knn_topk", xq.data_ptr(), xdb.data_ptr(), ws_d2.data_ptr(),
             ws_idx.data_ptr(), d2.data_ptr(), idx.data_ptr(), B, N, D, k,
-            g.chunk, g.tile, g.n_chunks,
+            g.chunk, g.tile, g.piece, g.n_chunks,
             torch.cuda.current_stream(dev).cuda_stream)
         knn_topk_cuda.launches += 2
     return d2, idx
@@ -228,7 +246,7 @@ def knn_lambda_cuda(xq, xdb, lam_db, *, k: int = 10, device=None):
         build.launch(
             "knn_lambda", xq.data_ptr(), xdb.data_ptr(), lam_db.data_ptr(),
             ws_d2.data_ptr(), ws_idx.data_ptr(), lam.data_ptr(), B, N, D, k,
-            k_pred, g.chunk, g.tile, g.n_chunks,
+            k_pred, g.chunk, g.tile, g.piece, g.n_chunks,
             torch.cuda.current_stream(dev).cuda_stream)
         knn_lambda_cuda.launches += 2
     return lam
@@ -275,8 +293,7 @@ def knn_rank_audited_cuda(xq, xdb, lam_db, u, a, b, gamma, *, k: int = 10,
             vals.data_ptr(), idx.data_ptr(), util.data_ptr(),
             expo.data_ptr(), comp.data_ptr(), lam.data_ptr(), B, N, D, k,
             k_pred, m1, K, m2, rank_split(B, m1, dev), g.chunk, g.tile,
-            g.n_chunks,
-            float(np.float32(1.0 + eps)), float(tol),
+            g.piece, g.n_chunks, float(np.float32(1.0 + eps)), float(tol),
             torch.cuda.current_stream(dev).cuda_stream)
         knn_rank_audited_cuda.launches += 2
     return vals, idx, util, expo, comp != 0, lam

@@ -394,12 +394,12 @@ def test_large_m2_routes_on_the_card(card, route):
 
 
 def test_knn_shape_limits_raise_on_the_card(card):
-    """Just past the sweeps' limits: k = 65 or d = 1408 over the f32 db,
-    k + k_extra = 257 or a d whose tiles leave no 32 rows over a pack
-    (int8 d = 2256, bf16 d = 848). Each names the ROADMAP item that
-    would lift it; one step inside, each is served."""
+    """Just past the sweeps' limits: k = 257 or d = 1630 (at k = 10) over
+    the f32 db, k + k_extra = 257 or a d whose tiles leave no 32 rows
+    over a pack (int8 d = 2256, bf16 d = 848). Each names the ROADMAP
+    item that would lift it; one step inside, each is served."""
     rng = np.random.default_rng(9)
-    for k, d, inside in ((65, 20, (64, 20)), (10, 1408, (10, 1407))):
+    for k, d, inside in ((257, 20, (256, 20)), (10, 1630, (10, 1629))):
         X_db = _t(rng.normal(size=(600, d)), card)
         X = _t(rng.normal(size=(4, d)), card)
         with pytest.raises(ValueError, match="Queue 2 item 5"):
@@ -519,25 +519,67 @@ def test_quant_kernels_at_the_new_limits(card, mode, k, d, slab):
                 mode)
 
 
+def _f32_all(X, X_db, lam_db, card, k):
+    """The three f32 KNN kernels against their plain versions, bitwise,
+    and knn_lambda's lambda-hat knn_rank_audited's."""
+    got = knn_topk_cuda(X, X_db, k=k)
+    want = ref.knn_topk_ref(X, X_db, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    lam = knn_lambda_cuda(X, X_db, lam_db, k=k)
+    assert torch.equal(lam, ref.knn_lambda_ref(X, X_db, lam_db, k))
+    u, a, b, _, g = _rank(np.random.default_rng(k), X.shape[0], 1024, 8, 64,
+                          card)
+    args = (X, X_db, lam_db, u, a, b, g)
+    fused = knn_rank_audited_cuda(*args, k=k, m2=64)
+    for gt, w in zip(fused, ref.knn_rank_audited_ref(*args, k=k, m2=64)):
+        assert torch.equal(gt, w)
+    assert torch.equal(fused[5][:, :lam.shape[1]], lam)
+    return got
+
+
 @pytest.mark.parametrize("k,d", [(20, 20), (33, 20), (64, 20), (10, 300),
-                                 (10, 512), (64, 512)])
+                                 (10, 512), (64, 512), (100, 20), (256, 20),
+                                 (10, 1407), (10, 1629), (64, 735),
+                                 (256, 300)])
 def test_f32_knn_kernels_take_larger_k_and_d(card, k, d):
-    """The three f32 KNN kernels at k = 20, 33, 64 (lists of 32 and 64)
-    and d = 300, 512 (tiles from the shared-memory budget), bitwise."""
+    """The three f32 KNN kernels at k = 20 to 256 (lists of 32 to 256)
+    and d = 300 to 1629 (d = 512 and wider scored in pieces of d beside
+    the resident queries), bitwise."""
     rng = np.random.default_rng(k + d)
     n_db = 9001
     X_db = _t(rng.normal(size=(n_db, d)), card)
     lam_db = _t(np.abs(rng.normal(size=(n_db, 5))), card)
     X = _t(rng.normal(size=(37, d)), card)
     X[2] = X_db[n_db - 1]
-    got = knn_topk_cuda(X, X_db, k=k)
-    want = ref.knn_topk_ref(X, X_db, k)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    lam = knn_lambda_cuda(X, X_db, lam_db, k=k)
-    assert torch.equal(lam, ref.knn_lambda_ref(X, X_db, lam_db, k))
-    u, a, b, _, g = _rank(rng, 37, 1024, 8, 64, card)
-    args = (X, X_db, lam_db, u, a, b, g)
-    fused = knn_rank_audited_cuda(*args, k=k, m2=64)
-    for gt, w in zip(fused, ref.knn_rank_audited_ref(*args, k=k, m2=64)):
-        assert torch.equal(gt, w)
-    assert torch.equal(fused[5][:, :5], lam)
+    got = _f32_all(X, X_db, lam_db, card, k)
+    assert int(got[1][2, 0]) == n_db - 1
+
+
+@pytest.mark.parametrize("ordering", ["rising", "falling", "identical",
+                                      "planted"])
+@pytest.mark.parametrize("k", [10, 100])
+def test_f32_knn_kernels_on_hard_orderings(card, ordering, k):
+    """The f32 twin of test_quant_kernels_on_hard_orderings: every row
+    passing the filter (rising distance), none after the first
+    (falling), all rows tied (the lowest indices win) and exact ties
+    planted across chunks and stage folds; 40 queries (not a multiple of
+    the 32-query tile) over 70,000 rows."""
+    rng = np.random.default_rng(23)
+    d, n_db = 20, 70_000
+    X = rng.normal(size=(40, d)) * 1e-3
+    X_db = _t(_ordered_db(ordering, n_db, d, rng, X), card)
+    lam_db = _t(np.abs(rng.normal(size=(n_db, 5))), card)
+    got = _f32_all(_t(X, card), X_db, lam_db, card, k)
+    if ordering == "planted":          # query 0's copies, lowest index first
+        assert got[1][0, :5].tolist() == [0, 2999, 5998, 8997, 11996]
+
+
+@pytest.mark.parametrize("n_db,B,k", [(20, 5, 10), (31, 37, 31),
+                                      (100, 33, 64), (257, 1, 256)])
+def test_f32_knn_kernels_on_small_dbs(card, n_db, B, k):
+    """A db smaller than one tile (down to k = n_db: every row is a
+    neighbour) and batches that are not a multiple of the query tile."""
+    rng = np.random.default_rng(n_db * B)
+    X_db = _t(rng.normal(size=(n_db, 20)), card)
+    lam_db = _t(np.abs(rng.normal(size=(n_db, 5))), card)
+    _f32_all(_t(rng.normal(size=(B, 20)), card), X_db, lam_db, card, k)

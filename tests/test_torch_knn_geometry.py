@@ -24,10 +24,9 @@ from repro.kernels import ref as jax_ref
 from repro_torch.core import predictors as pred
 from repro_torch.kernels import ref
 from repro_torch.kernels.common import (
-    KNN_CHUNK,
     KNN_MAX_K,
+    KNN_QTILE,
     KNN_QUANT_MAX_KEEP,
-    KNN_QUANT_QTILE,
     KNN_SMEM_BYTES,
 )
 from repro_torch.kernels.knn_topk import (
@@ -44,36 +43,71 @@ LIMIT = "Queue 2 item 5"
 N_DB = 1_048_576
 
 
+def _sweep_smem(d, k, tile, piece):
+    """csrc/knn_sweep.cuh's sweep_smem: the 32 queries, their |q|^2 and
+    a stage of L pairs each, and two ring slots of `tile` rows at the
+    odd stride piece | 1."""
+    L = 32 * (1 if k <= 32 else 2 if k <= 64 else 4 if k <= 128 else 8)
+    return 4 * (KNN_QTILE * (d + 1 + 2 * L) + 2 * tile * (piece | 1))
+
+
 @pytest.mark.parametrize("d", [1, 13, 20, 128, 256, 300, 512, 1024, 1407])
 def test_f32_geometry_fits_and_holds_k(d):
-    for k in (1, 10, 16, 17, 32, 33, 64):
-        for n in (k, 5001, N_DB):
-            try:
-                g = sweep_geometry(n, d, k)
-            except ValueError as e:      # only long lists at the widest d
-                assert LIMIT in str(e) and k > 16 and d >= 1024
-                continue
-            assert g.smem_bytes <= KNN_SMEM_BYTES
-            assert g.tile % 8 == 0 and 8 <= g.tile <= 256
-            assert g.list_len in (16, 32, 64) and g.list_len >= k
-            assert g.list_len == 16 or g.list_len // 2 < k
-            assert g.chunk == KNN_CHUNK
-            assert g.n_chunks * g.chunk >= n > (g.n_chunks - 1) * g.chunk
-            assert g.n_chunks <= 65535
+    for k in (1, 10, 32, 33, 64, 65, 100, 128, 129, 256):
+        for B in (1, 32, 33, 1024):
+            for n in (k, 5001, N_DB):
+                try:
+                    g = sweep_geometry(B, n, d, k)
+                except ValueError as e:  # only 256-long lists at d = 1407
+                    assert LIMIT in str(e) and k > 128 and d == 1407
+                    continue
+                assert g.smem_bytes == _sweep_smem(d, k, g.tile, g.piece)
+                assert g.smem_bytes <= KNN_SMEM_BYTES
+                assert g.tile % 32 == 0 and 32 <= g.tile <= 256
+                # whole rows, or 32-row tiles of pieces of >= 32 coordinates
+                assert g.piece == d or (g.tile == 32 and 32 <= g.piece < d)
+                assert g.list_len in (32, 64, 128, 256) and g.list_len >= k
+                assert g.list_len == 32 or g.list_len // 2 < k
+                assert g.chunk % g.tile == 0
+                assert g.n_chunks * g.chunk >= n > (g.n_chunks - 1) * g.chunk
+                q_tiles = -(-B // KNN_QTILE)
+                blocks = q_tiles * g.n_chunks
+                assert blocks <= max(q_tiles, 4 * H100_SMS)
+                if n >= H100_SMS * g.tile:
+                    assert blocks >= H100_SMS
 
 
 def test_f32_geometry_keeps_the_bucket_tile():
-    """k <= 16 at d = 20 runs the tile and list it always ran."""
-    g = sweep_geometry(N_DB, 20, 10)
-    assert (g.tile, g.chunk, g.n_chunks, g.list_len) == (256, 2048, 512, 16)
+    """The bucket (B = 32 over 1M rows, d = 20, k = 10): 256-row tiles of
+    whole rows, 512 chunks of 2048 (512 blocks on 132 SMs), lists of 32;
+    B = 1024: 16 chunks of 65,536, so the merge folds 16 lists a query."""
+    g = sweep_geometry(32, N_DB, 20, 10)
+    assert (g.tile, g.chunk, g.n_chunks, g.list_len, g.piece) == (
+        256, 2048, 512, 32, 20)
+    g = sweep_geometry(1024, N_DB, 20, 10)
+    assert (g.tile, g.chunk, g.n_chunks, g.list_len) == (256, 65536, 16, 32)
 
 
-@pytest.mark.parametrize("k,d", [(KNN_MAX_K + 1, 20), (10, 1408),
-                                 (0, 20)])
+@pytest.mark.parametrize("k,d", [(KNN_MAX_K + 1, 20), (10, 1630),
+                                 (0, 20), (256, 1182)])
 def test_f32_geometry_raises_just_past_its_limits(k, d):
     with pytest.raises(ValueError, match=LIMIT):
-        sweep_geometry(5001, d, k)
-    sweep_geometry(5001, d - 1 if d > 20 else d, max(1, k - 1))
+        sweep_geometry(32, 5001, d, k)
+    sweep_geometry(32, 5001, d - 1 if d > 20 else d, max(1, k - 1))
+
+
+@pytest.mark.parametrize("k,d,tile,piece", [
+    (65, 20, 256, 20), (100, 20, 256, 20), (256, 20, 256, 20),
+    (10, 1407, 32, 143), (10, 1629, 32, 33), (64, 735, 32, 447),
+    (256, 1181, 32, 33)])
+def test_f32_geometry_serves_the_lifted_limits(k, d, tile, piece):
+    """k = 65 to 256 (lists of 128 and 256), every d the old sweep took
+    (1407 at k <= 16, 735 at k = 64) and more: a row wider than the ring
+    holds is scored in pieces of d, 32 rows a tile."""
+    g = sweep_geometry(32, 5001, d, k)
+    assert (g.tile, g.piece) == (tile, piece)
+    assert g.list_len == (32 if k <= 32 else 64 if k <= 64 else 128
+                          if k <= 128 else 256)
 
 
 @pytest.mark.parametrize("mode", ["int8", "bf16"])
@@ -95,7 +129,7 @@ def test_quant_geometry_fits_and_fills_the_card(mode, d):
                                              or g.list_len // 2 < kk)
                 assert g.n_chunks * g.chunk >= n > (g.n_chunks - 1) * g.chunk
                 assert g.n_chunks <= 65535
-                q_tiles = -(-B // KNN_QUANT_QTILE)
+                q_tiles = -(-B // KNN_QTILE)
                 blocks = q_tiles * g.n_chunks
                 # no more than 4 blocks an SM, and the card filled
                 # unless the pack runs out of tiles first
@@ -171,7 +205,8 @@ def test_quant_plain_versions_match_jax_at_the_new_limits(mode, k, d, n_db):
 
 
 @pytest.mark.parametrize("k,d,n_db", [(64, 20, 3000), (10, 512, 700),
-                                      (64, 512, 700)])
+                                      (64, 512, 700), (256, 20, 3000),
+                                      (10, 1407, 700)])
 def test_f32_plain_versions_match_jax_at_the_new_limits(k, d, n_db):
     rng = np.random.default_rng(k * d)
     X_db = rng.normal(size=(n_db, d)).astype(np.float32)
