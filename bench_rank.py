@@ -1,5 +1,5 @@
-"""Times the rank and KNN kernels of one checkout of the port on one CUDA
-card.
+"""Times the rank, KNN and embedding_bag kernels of one checkout of the
+port on one CUDA card.
 
   python3 bench_rank.py [--tree DIR] [--seed N] [--out FILE]
 
@@ -13,11 +13,18 @@ chip_smoke.knn_timings over a 1,048,576-row db and its int8 and bf16
 packs: knn_topk, knn_lambda and knn_rank_audited, knn_lambda_quant and
 knn_rank_audited_quant in both modes, each at the bucket (B = 32) and
 at B = 1024, with the profiler's split of the f32 kernels and of
-knn_lambda_quant between their sweep and their second launch. Each
-case reports the kernel's ms, a library yardstick's, the card's bound
-and whether the outputs equal the plain version's bit for bit (the
-rank cases also the plain version's ms). Prints the card's name and
-power limit, then one JSON line, also written to FILE.
+knn_lambda_quant between their sweep and their second launch; then
+chip_smoke.bag_timings over chip_smoke.BAG_SHAPES: embedding_bag with an
+f32 and a bf16 table at kernel_bench's shape (1,000,000 x 64, 4096 bags
+of 32), MIND's at serve_bulk (262,144 bags of 50) and DeepFM's at
+serve_bulk (10,223,616 one-slot bags over 39,000,000 x 10), with its
+cold (fresh index sets), device and host times, its bound and its
+sector count (slot_ms), on indices every tree's kernel takes (none
+past the table). Each case reports the kernel's ms, a library
+yardstick's, the card's bound and whether the outputs equal the plain
+version's bit for bit (the rank cases also the plain version's ms).
+Prints the card's name and power limit, then one JSON line, also
+written to FILE.
 
 To compare two checkouts, run both in one call on one card, in turns:
 the parent, this tree, this tree, the parent (each in its own process,
@@ -27,6 +34,7 @@ since both packages are named repro_torch).
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import subprocess
 import sys
@@ -57,6 +65,8 @@ def main() -> int:
         rank_audited_cuda,
     )
     from repro_torch.core.predictors import pack_knn_db
+    # the module, not the entry point of the same name the package exports
+    bag_mod = importlib.import_module("repro_torch.kernels.embedding_bag")
     from repro_torch.kernels.knn_topk import (
         knn_lambda_cuda,
         knn_lambda_quant_cuda,
@@ -83,6 +93,10 @@ def main() -> int:
         {m: pack_knn_db(X_db, mode=m, device=dev) for m in cs.MODES},
         plain=False)
     timing.update(knn)
+    timing.update(cs.bag_timings(SimpleNamespace(
+        embedding_bag_cuda=bag_mod.embedding_bag_cuda,
+        bag_geometry=getattr(bag_mod, "bag_geometry", None), ref=ref),
+        gen, dev, plain=False))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

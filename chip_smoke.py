@@ -36,9 +36,13 @@ Phases (any failure exits non-zero before a result is printed):
      knn_topk at B=32 and 1024 over n_db=1,048,576, a ragged n_db and
      d=256 with k=16 over 100,003 rows, (d2, idx) bitwise;
      knn_predict_kernel's lambda-hat against the knn_lambda kernel's
-     within rtol=1e-5, atol=1e-6; embedding_bag at kernel_bench's shape
-     (V=1,000,000, D=64, 4096 bags x 32, weights, ~10% padding) with an
-     f32 and a bf16 table, bitwise; the rank kernels (fused_rank,
+     within rtol=1e-5, atol=1e-6; embedding_bag with an f32 and a bf16
+     table, bitwise, at kernel_bench's shape (V=1,000,000, D=64, 4096
+     bags x 32, weights, ~10% padding), at MIND's and DeepFM's
+     serve_bulk shapes (BAG_SHAPES) and on BAG_EDGES (D = 10 to 256,
+     empty and one-slot bags, a row-sliced and a misaligned table), each
+     with an all-padded bag, a bag naming one row in every slot and
+     indices past the table; the rank kernels (fused_rank,
      rank_audited, linear_rank_audited) bitwise at K=64, on rows whose
      scores rise with the item index (every candidate passes the
      filter), tie or fall, at the bucket and split over a cluster
@@ -69,15 +73,17 @@ Phases (any failure exits non-zero before a result is printed):
      2's plain version, with 1 launch per fused_rank and embedding_bag
      call and 2 per knn_topk and knn_predict_kernel call;
   4. time the nine kernels (CUDA events, medians) at the bucket shape and
-     at a large batch (the quantized ones in both modes, embedding_bag
-     with both tables; fused_rank at 64 x m1=100,000; rank_audited and
-     knn_rank_audited also at serve_retrieval), beside the plain
+     at a large batch (the quantized ones in both modes; fused_rank at
+     64 x m1=100,000; rank_audited and knn_rank_audited also at
+     serve_retrieval; embedding_bag at BAG_SHAPES with both tables, hot
+     and on fresh index sets, its device and host time apart), beside the plain
      version, a library yardstick that only this script calls, and the
      card's bound; and split each KNN lambda-hat kernel's device time
      at the bucket and at B=1024 between its sweep and its merge
      (torch.profiler), and likewise knn_topk and knn_rank_audited. The
-     rank and KNN kernels' timings are rank_timings and knn_timings,
-     which bench_rank.py runs on two checkouts for a before/after pair.
+     rank, KNN and embedding_bag timings are rank_timings, knn_timings
+     and bag_timings, which bench_rank.py runs on two checkouts for a
+     before/after pair.
 The launch counters are set to 0 just before the offline phase's
 holdout path, the serving path and the kernel library path, and read
 just after each.
@@ -88,6 +94,7 @@ limit, and last {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import subprocess
@@ -121,6 +128,35 @@ SERVE_RETRIEVAL = dict(B=256, m1=1_048_576, K=5, m2=50, n_db=65_536)
 WIDE_K = 64                   # the engine's K tier after 32
 WIDE = dict(n_db=100_003, d=256, k=16)   # the JAX tests' widest knn_topk
 BAG = dict(V=1_000_000, D=64, n_bags=4096, bag=32)
+# embedding_bag's measured shapes (bag_timings): kernel_bench's (S1),
+# MIND at the recsys family's serve_bulk batch of 262,144 (S2: D = 64, a
+# 50-item behaviour window; src/repro/configs/mind.py,
+# recsys_family.py) and DeepFM there (S3: 39 one-slot field lookups a
+# sample over its flat 39,000,000 x 10 table, no weights; deepfm.py)
+BAG_SHAPES = {
+    "kernel_bench": dict(BAG, weighted=True),
+    "mind_serve_bulk": dict(V=1_000_000, D=64, n_bags=262_144, bag=50,
+                            weighted=True),
+    "deepfm_serve_bulk": dict(V=39_000_000, D=10, n_bags=39 * 262_144,
+                              bag=1, weighted=False)}
+# embedding_bag's edge cases: every plan of bag_geometry (8-byte vectors
+# and 6 bags a warp at D = 10, column passes at D = 256), empty and
+# one-slot bags, a row slice big[1:] and a table one item past an
+# aligned pointer ("flat": 4-byte f32, 2-byte bf16 vectors)
+BAG_EDGES = {
+    "D=10 bag=1": dict(V=50_000, D=10, n_bags=4099, bag=1, weighted=False),
+    "D=10 bag=50 rows": dict(V=50_000, D=10, n_bags=1000, bag=50,
+                             weighted=True, view="rows"),
+    "D=50 bag=50": dict(V=50_000, D=50, n_bags=1000, bag=50, weighted=True),
+    "D=50 bag=1": dict(V=50_000, D=50, n_bags=1001, bag=1, weighted=True),
+    "D=64 bag=0": dict(V=50_000, D=64, n_bags=100, bag=0, weighted=True),
+    "D=64 bag=50 rows": dict(V=50_000, D=64, n_bags=1000, bag=50,
+                             weighted=False, view="rows"),
+    "D=64 bag=7 flat": dict(V=50_000, D=64, n_bags=1000, bag=7,
+                            weighted=True, view="flat"),
+    "D=256 bag=3": dict(V=50_000, D=256, n_bags=1000, bag=3, weighted=True)}
+L2_BYTES = 50e6               # H100 L2
+SECTOR_BYTES = 32
 MODES = ("int8", "bf16")
 QUANT_EXTRA = 8
 LIMIT_K = (20, 33, 64)        # k past 16: lists of 32, 64 and 128 (pack)
@@ -225,6 +261,23 @@ def time_auto(fn, budget_ms=100.0, groups=5):
                    groups)
 
 
+def enqueue_ms(fn, calls=100, groups=5):
+    """ms of host time per call: the host clock around `calls` calls that
+    are not waited for, after the card has caught up (median of
+    `groups`); the card's queue takes them without stalling the host
+    while a call's device time stays under its host time."""
+    times = []
+    for _ in range(groups):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
 def bitwise(got, want):
     """Every output of a kernel equals its plain version's, bit for bit."""
     got = got if isinstance(got, tuple) else (got,)
@@ -278,17 +331,73 @@ def topk_work(B, n_db, d, k=KNN_K):
             B * n_db * (2 * d + 3) + 2 * n_db * d)
 
 
-def bag_work(table, idx):
+def bag_work(table, idx, weighted=True):
     """(bytes, fp32 flops) of the bag on this run's indices: each distinct
-    row a valid slot names read once, the indices and weights read, the
-    output written; a product and a sum per valid slot and column."""
+    row a valid slot names read once, the indices and weights (where
+    there are any) read, the output written; a product and a sum per
+    valid slot and column."""
     n_bags, bag = idx.shape
     V, width = table.shape
     valid = idx[idx >= 0]
     rows = int(torch.unique(valid).numel())
     item = table.element_size()
-    return (rows * width * item + 8 * n_bags * bag + n_bags * width * item,
-            2 * int(valid.numel()) * width)
+    return (rows * width * item + (8 if weighted else 4) * n_bags * bag
+            + n_bags * width * item, 2 * int(valid.numel()) * width)
+
+
+def bag_slot_bytes(table, idx, weighted=True):
+    """Bytes of the bag when no row is found in L2: the 32-byte sectors
+    each valid slot's row spans, once a slot, plus bag_work's indices,
+    weights and output."""
+    n_bags, bag = idx.shape
+    row = table.shape[1] * table.element_size()
+    start = table.data_ptr() % SECTOR_BYTES + idx[idx >= 0].long() * row
+    sectors = int(((start + row - 1) // SECTOR_BYTES
+                   - start // SECTOR_BYTES + 1).sum())
+    return (SECTOR_BYTES * sectors + (8 if weighted else 4) * n_bags * bag
+            + n_bags * row)
+
+
+def bag_indices(gen, dev, V, n_bags, bag, weighted):
+    """int32 indices uniform in [0, V), about 10% of the slots padded
+    where a bag has more than one, and f32 weights where `weighted`."""
+    idx = torch.randint(0, V, (n_bags, bag), generator=gen, device=dev,
+                        dtype=torch.int32)
+    if bag > 1:
+        pad = torch.rand(idx.shape, generator=gen, device=dev) < 0.1
+        idx = torch.where(pad, torch.full_like(idx, -1), idx)
+    w = (torch.randn(idx.shape, generator=gen, device=dev) if weighted
+         else None)
+    return idx, w
+
+
+def bag_inputs(gen, dev, V, D, n_bags, bag, weighted, edges=False):
+    """(big, indices, weights): an f32 (V + 1, D) table that bag_table
+    cuts to V rows, and bag_indices'; with `edges`, bag 0 all padded,
+    bag 1 one row in every slot and bag 2's first slots past the table
+    (V, V + 7, 2**31 - 1)."""
+    big = torch.randn((V + 1, D), generator=gen, device=dev)
+    idx, w = bag_indices(gen, dev, V, n_bags, bag, weighted)
+    if edges and bag:
+        idx[0] = -1
+        idx[1] = V // 2
+        past = [V, V + 7, 2**31 - 1][:bag]
+        idx[2, :len(past)] = torch.tensor(past, dtype=torch.int32,
+                                          device=dev)
+    return big, idx, w
+
+
+def bag_table(big, dtype, view=None):
+    """big in dtype, cut to its V = len(big) - 1 rows: its first V (None),
+    its last V (a row slice big[1:], "rows") or V * D items one past its
+    start ("flat")."""
+    big = big.to(dtype)
+    V, width = big.shape[0] - 1, big.shape[1]
+    if view == "rows":
+        return big[1:]
+    if view == "flat":
+        return big.view(-1)[1:1 + V * width].view(V, width)
+    return big[:V]
 
 
 def linear_work(B, m1, K, m2):
@@ -531,6 +640,90 @@ def knn_timings(k, gen, dev, X_db, lam_db, packs, plain=True):
     return out, library
 
 
+def bag_timings(k, gen, dev, shapes=BAG_SHAPES, plain=True):
+    """Times the embedding_bag kernel of the namespace `k`
+    (embedding_bag_cuda, the module ref, and bag_geometry where the tree
+    has it) at each shape of `shapes` with an f32 and a bf16 table, on
+    inputs drawn from `gen` with no index past the table, so that every
+    tree's kernel takes them: `ms`, CUDA events around back-to-back calls
+    on one index set (S1's rows fit L2); `cold_ms`, each call on the next
+    of several index sets drawn beforehand, whose rows together exceed
+    twice L2; `device_ms` and `cold_device_ms`, the profiler's device
+    time of the kernels a call launches (None where it gives none), and
+    `host_ms` = ms - device_ms; `enqueue_ms`, the wrapper's host time a
+    call on the host's clock; `bound_ms` (bag_work: each distinct row
+    once) and `slot_ms` (bag_slot_bytes: each valid slot's 32-byte
+    sectors); `library_ms` and `library_device_ms` of
+    torch.nn.functional.embedding_bag (weight 0 at a padded slot);
+    `bitwise`, the output against the plain version's; and the plain
+    version's ms where `plain`. Returns rows by ("embedding_bag", shape,
+    "f32" | "bf16"). bench_rank.py runs this for two checkouts."""
+    def device_ms(fn):
+        split = device_split({"x": fn})["x"]
+        return None if isinstance(split, str) else sum(split.values())
+
+    out = {}
+    for label, sh in shapes.items():
+        V, width, n_bags, bag = sh["V"], sh["D"], sh["n_bags"], sh["bag"]
+        big, idx, w = bag_inputs(gen, dev, V, width, n_bags, bag,
+                                 sh["weighted"])
+        # enough index sets that a set's rows are out of L2 by its turn
+        # (counted at bf16's row bytes, the fewer)
+        valid = int((idx >= 0).sum())
+        n_sets = min(16, max(2, math.ceil(2 * L2_BYTES
+                                          / max(1, valid * width * 2))))
+        sets = [(idx, w)] + [bag_indices(gen, dev, V, n_bags, bag,
+                                         sh["weighted"])
+                             for _ in range(n_sets - 1)]
+        pad = idx < 0
+        bag_in = torch.where(pad, torch.zeros_like(idx), idx).long()
+        for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            table = bag_table(big, dtype)
+            got = k.embedding_bag_cuda(table, idx, w)
+            torch.cuda.synchronize()
+            want = k.ref.embedding_bag_ref(table, idx, w)
+            row = dict(V=V, D=width, bags=n_bags, bag=bag,
+                       weighted=sh["weighted"],
+                       padded_share=float(pad.float().mean()) if bag else 0.0,
+                       index_sets=n_sets, bitwise=bitwise(got, want))
+            del got, want
+            if getattr(k, "bag_geometry", None) is not None:
+                row["plan"] = k.bag_geometry(width, table.element_size(), 16,
+                                             bag)._asdict()
+            fn = lambda: k.embedding_bag_cuda(table, idx, w)  # noqa: E731
+            turn = itertools.cycle(sets)
+            cold = lambda: k.embedding_bag_cuda(table, *next(turn))  # noqa: E731
+            w_lib = None
+            if sh["weighted"] or bool(pad.any()):
+                ones = torch.ones(idx.shape, device=dev) if w is None else w
+                w_lib = torch.where(pad, torch.zeros_like(ones),
+                                    ones).to(dtype)
+            lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+                bag_in, table, per_sample_weights=w_lib, mode="sum")
+            row["ms"] = time_auto(fn)
+            row["enqueue_ms"] = enqueue_ms(fn)
+            row["cold_ms"] = time_auto(cold)
+            row["device_ms"] = device_ms(fn)
+            row["host_ms"] = (None if row["device_ms"] is None
+                              else row["ms"] - row["device_ms"])
+            row["cold_device_ms"] = device_ms(cold)
+            row["library_device_ms"] = device_ms(lib)
+            bms, by = bound(*bag_work(table, idx, sh["weighted"]))
+            row.update(bound_ms=bms, bound_by=by,
+                       slot_ms=bag_slot_bytes(table, idx, sh["weighted"])
+                       / HBM_BYTES_PER_S * 1e3,
+                       library_ms=time_auto(lib))
+            if plain:
+                row["plain_ms"] = time_ms(
+                    lambda: k.ref.embedding_bag_ref(table, idx, w), 1,
+                    groups=3)
+            out[("embedding_bag", label, dt)] = row
+            del table, w_lib
+        del big, idx, w, sets, bag_in, pad
+        torch.cuda.empty_cache()
+    return out
+
+
 def reset_counters(wrappers):
     for w in wrappers.values():
         w.launches = 0
@@ -577,7 +770,10 @@ def main() -> int:
     from repro_torch.core import ranking
     from repro_torch.core.predictors import KNNLambdaPredictor, pack_knn_db
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+    from repro_torch.kernels.embedding_bag import (
+        bag_geometry,
+        embedding_bag_cuda,
+    )
     from repro_torch.kernels.fused_rank import (
         MAX_KERNEL_M2,
         fused_rank_cuda,
@@ -1018,6 +1214,27 @@ def main() -> int:
             err["embedding_bag"],
             float((got.float() - want.float()).abs().max()))
         lib[("embedding_bag", label)] = ((table, bag_idx, bag_w), {}, want)
+    # embedding_bag at MIND's and DeepFM's serve_bulk shapes and on the
+    # edge cases, each with an all-padded bag, a bag that names one row
+    # in every slot and indices past the table; drawn from a generator of
+    # their own
+    gen_b = torch.Generator(device=dev)
+    gen_b.manual_seed(args.seed + 29)
+    bag_cases = {k: v for k, v in BAG_SHAPES.items() if k != "kernel_bench"}
+    for label, case in {**bag_cases, **BAG_EDGES}.items():
+        case = dict(case)
+        view = case.pop("view", None)
+        big, idx, w = bag_inputs(gen_b, dev, **case, edges=True)
+        for dt in (torch.float32, torch.bfloat16):
+            table = bag_table(big, dt, view)
+            got = embedding_bag_cuda(table, idx, w)
+            torch.cuda.synchronize()
+            if not bitwise(got, ref.embedding_bag_ref(table, idx, w)):
+                fail(f"embedding_bag {label} {dt}: differs from the plain "
+                     f"version")
+            del got, table
+        del big, idx, w
+    torch.cuda.empty_cache()
     log(f"phase 2: kernels equal their plain versions, max abs err {err}; "
         f"knn_lambda's lambda-hat is bitwise knn_rank_audited's, "
         f"knn_lambda_quant's lambda-hat and guard bitwise "
@@ -1034,7 +1251,8 @@ def main() -> int:
         f"falling rows and at serve_retrieval {SERVE_RETRIEVAL}; "
         f"m2=256 took the sort route with no launch; knn_predict_kernel "
         f"within {pk_err} of knn_lambda; padded bag slots "
-        f"{float(pad.float().mean())}")
+        f"{float(pad.float().mean())}; embedding_bag bitwise in f32 and "
+        f"bf16 at {sorted(bag_cases)} and {sorted(BAG_EDGES)}")
 
     # -- offline phase: fit_pipeline, then the Fig. 2 strategies -----------
     o = OFFLINE
@@ -1284,24 +1502,18 @@ def main() -> int:
         if not row.pop("bitwise"):
             fail(f"{' '.join(key)}: differs from the plain version")
     timing.update(knn_t)
-    # knn_predict_kernel and embedding_bag, on phase 2's inputs
+    # knn_predict_kernel, on phase 2's inputs
     (Xd, ld, xq), kw, _ = lib[("knn_predict_kernel", "bucket")]
     predict_ms = time_ms(lambda: ops.knn_predict_kernel(Xd, ld, xq, **kw), 10)
-    # the yardstick sums w * row over the slots with w = 0 at a padded
-    # slot (the JAX oracle's function), its weights in the table's type
-    bag_in = torch.where(pad, torch.zeros_like(bag_idx), bag_idx).long()
-    for label in ("f32", "bf16"):
-        (table, idx, w), _, _ = lib[("embedding_bag", label)]
-        w_lib = torch.where(pad, torch.zeros_like(w), w).to(table.dtype)
-        bms, by = bound(*bag_work(table, idx))
-        timing[("embedding_bag", label)] = dict(
-            bags=idx.shape[0],
-            ms=time_ms(lambda: embedding_bag_cuda(table, idx, w), 20),
-            plain_ms=time_ms(lambda: ref.embedding_bag_ref(table, idx, w),
-                             2, groups=3),
-            library_ms=time_ms(lambda: torch.nn.functional.embedding_bag(
-                bag_in, table, per_sample_weights=w_lib, mode="sum"), 20),
-            bound_ms=bms, bound_by=by)
+    # embedding_bag at S1, S2 and S3 (bag_timings, which bench_rank.py
+    # also runs on another checkout)
+    bag_t = bag_timings(SimpleNamespace(
+        embedding_bag_cuda=embedding_bag_cuda, bag_geometry=bag_geometry,
+        ref=ref), gen, dev)
+    for key, row in bag_t.items():
+        if not row.pop("bitwise"):
+            fail(f"{' '.join(key)}: differs from the plain version")
+    timing.update(bag_t)
     for key, tm in timing.items():
         log(f"phase 4: {' '.join(key)} {json.dumps(tm)}")
     log(f"phase 4: knn_predict_kernel at the bucket {predict_ms} ms")
@@ -1331,7 +1543,7 @@ def main() -> int:
                "embedding_bag": (csrc + "embedding_bag.cu",
                                  "src/repro/kernels/embedding_bag.py:76")}
     main_key = {"fused_rank": ("fused_rank", "bucket"),
-                "embedding_bag": ("embedding_bag", "f32")}
+                "embedding_bag": ("embedding_bag", "kernel_bench", "f32")}
     rows = []
     for name, (source, replaces) in sources.items():
         quant = name.endswith("_quant")
@@ -1356,8 +1568,8 @@ def main() -> int:
         elif name == "knn_topk":
             shape = {"batch": B, "n_db": N_DB, "d": D, "k": KNN_K}
         elif name == "embedding_bag":
-            shape = dict(BAG, table="f32", padded_share=float(
-                pad.float().mean()))
+            shape = dict(BAG, table="f32", padded_share=main_t[
+                "padded_share"])
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -1385,7 +1597,9 @@ def main() -> int:
             rows[-1]["device_ms"] = {k: v for k, v in rank_split_ms.items()
                                      if k.startswith(name)}
         elif name == "embedding_bag":
-            rows[-1]["bf16"] = timing[(name, "bf16")]
+            rows[-1]["shapes"] = {
+                label: {dt: timing[(name, label, dt)]
+                        for dt in ("f32", "bf16")} for label in BAG_SHAPES}
         else:
             rows[-1]["large"] = timing[(name, "large")]
             if name in ("rank_audited", "linear_rank_audited"):

@@ -42,11 +42,12 @@ SIGNATURES = {
                                [_P] * 18 + [_I] * 16 + [_F, _F, _P]),
     "fused_rank": ("fused_rank_launch", [_P] * 5 + [_I] * 5 + [_F, _P]),
     "knn_topk": ("knn_topk_launch", [_P] * 6 + [_I] * 8 + [_P]),
-    "embedding_bag": ("embedding_bag_launch", [_P] * 4 + [_I] * 4 + [_P]),
+    "embedding_bag": ("embedding_bag_launch", [_P] * 4 + [_I] * 10 + [_P]),
 }
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_entry: dict = {}      # name -> the bound C entry point, after its first call
 
 
 def _nvcc() -> str:
@@ -123,9 +124,13 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def launch(name: str, *args) -> None:
-    """Call kernel `name`'s C entry point; raise if it reports an error."""
-    fn_name, _ = SIGNATURES[name]
-    err = getattr(load(name), fn_name)(*args)
+    """Call kernel `name`'s C entry point; raise if it reports an error.
+    The bound function is kept after the first call, so later calls take
+    neither the lock nor the attribute lookup."""
+    fn = _entry.get(name)
+    if fn is None:
+        fn = _entry[name] = getattr(load(name), SIGNATURES[name][0])
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{err}")

@@ -261,9 +261,11 @@ def embedding_bag_ref(table, indices, weights=None):
     with each product and sum rounded on its own, and casts once at the
     end: the embedding_bag kernel's order. A padded slot adds nothing
     (the JAX oracle adds 0 * table[0]; the two differ only where
-    table[0] holds an inf or a NaN)."""
+    table[0] holds an inf or a NaN). An index >= V reads row V - 1, as
+    the JAX oracle's clamped gather does."""
     valid = indices >= 0
-    rows = table[indices.clamp_min(0).long()].to(torch.float32)
+    rows = table[indices.clamp(0, table.shape[0] - 1).long()].to(
+        torch.float32)
     acc = torch.zeros((indices.shape[0], table.shape[1]),
                       dtype=torch.float32, device=table.device)
     for j in range(indices.shape[1]):

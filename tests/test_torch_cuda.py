@@ -223,19 +223,41 @@ def test_knn_topk_widens_bf16_operands(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("V,D,nb,bag,weighted", [
-    (100_000, 64, 4096, 32, True), (50, 13, 5, 10, False),
-    (200, 200, 16, 1, True), (1000, 64, 3, 0, True)])
+@pytest.mark.parametrize("V,D,nb,bag,weighted,view", [
+    (100_000, 64, 4096, 32, True, None), (50, 13, 5, 10, False, None),
+    (200, 200, 16, 1, True, None), (1000, 64, 3, 0, True, None),
+    (1000, 10, 257, 1, False, None), (1000, 10, 64, 50, True, "rows"),
+    (1000, 50, 64, 50, True, None), (1000, 50, 19, 1, True, None),
+    (1000, 64, 64, 50, False, "rows"), (1000, 64, 33, 7, True, "flat"),
+    (300, 256, 40, 3, True, None), (300, 1000, 9, 5, True, None)])
 def test_embedding_bag_kernel_equals_plain(card, dtype, V, D, nb, bag,
-                                           weighted):
+                                           weighted, view):
+    """Bitwise at every plan of bag_geometry's: D = 10 (8-byte vectors
+    in f32, 6 bags a warp), 50, 64 (16-byte), 256 and 1000 (column
+    passes); empty, one-slot and 50-slot bags; an all-padded bag, a bag
+    that names one row many times and indices >= V (the last row). A
+    row slice big[1:] keeps its plan; a table one item past an aligned
+    pointer ("flat") takes 4-byte (f32) or 2-byte (bf16) vectors."""
     rng = np.random.default_rng(V + D)
-    table = _t(rng.normal(size=(V, D)), card).to(dtype)
-    idx = torch.tensor(rng.integers(-V // 10 - 1, V, (nb, bag)),
-                       dtype=torch.int32, device=card)
+    big = _t(rng.normal(size=(V + 1, D)), card).to(dtype)
+    if view == "rows":
+        table = big[1:]
+    elif view == "flat":
+        table = big.view(-1)[1:1 + V * D].view(V, D)
+    else:
+        table = big[:V].contiguous()
+    idx = rng.integers(-V // 10 - 1, V, (nb, bag))
+    if bag:
+        idx[0] = -1                              # all padded
+        idx[1] = rng.integers(0, V)              # one row, many times
+        idx[2, :3] = [V, V + 7, 2**31 - 1][:bag]  # past the table
+    idx = torch.tensor(idx, dtype=torch.int32, device=card)
     w = _t(rng.normal(size=(nb, bag)), card) if weighted else None
+    before = embedding_bag_cuda.launches
     got = embedding_bag_cuda(table, idx, w)
     want = ref.embedding_bag_ref(table, idx, w)
     assert got.dtype == dtype and torch.equal(got, want)
+    assert embedding_bag_cuda.launches == before + 1
 
 
 def test_large_m2_takes_the_sort_route_on_the_card(card):

@@ -31,6 +31,11 @@ from repro.core.predictors import knn_predict as jax_knn_predict
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.embedding_bag import (
+    VECTOR_BYTES,
+    BagGeometry,
+    bag_geometry,
+)
 from repro_torch.kernels.fused_rank import fused_rank_cuda, rank_audited_cuda
 
 CPU = "cpu"
@@ -137,6 +142,10 @@ def _bag(V, D, nb, bag, seed):
     (100, 32, 8, 4),
     (50, 16, 5, 10),
     (200, 128, 16, 1),
+    (1000, 10, 64, 1),     # DeepFM's width, one field a bag
+    (1000, 10, 16, 50),
+    (500, 50, 32, 1),
+    (500, 50, 8, 50),      # MIND's 50-item window
 ])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_embedding_bag_matches_oracle(V, D, nb, bag, weighted):
@@ -188,6 +197,82 @@ def test_a_padded_slot_adds_nothing():
     want = jax_ref.embedding_bag_ref(jnp.asarray(table), jnp.asarray(idx))
     assert np.isfinite(got.numpy()).all()
     assert np.isnan(np.asarray(want)).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_an_index_past_the_table_clamps_as_the_oracle(dtype):
+    """An index >= V reads row V - 1, as the JAX oracle's gather clamps
+    it, beside valid and padded slots (tolerances as the module's other
+    bag tests)."""
+    V = 40
+    table, idx, w = _bag(V, 24, 6, 8, 21)
+    idx[:, :3] = [V, V + 5, 2**31 - 1]
+    idx[0, 3] = -1
+    idx[1] = [2**31 - 1] * 7 + [-3]
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jax_ref.embedding_bag_ref(jnp.asarray(table, jdt),
+                                     jnp.asarray(idx), jnp.asarray(w))
+    got = ops.embedding_bag(_t(table, tdt), idx, w, device=CPU)
+    tol = 5e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+    clamped = np.minimum(idx, V - 1)
+    assert torch.equal(got, ops.embedding_bag(_t(table, tdt), clamped, w,
+                                              device=CPU))
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("D", [1, 10, 16, 50, 64, 100, 128, 256, 1000])
+def test_bag_geometry_covers_every_column_once(D, itemsize):
+    """The card's plan for every row width, item size and pointer
+    alignment: the vector divides the row's bytes and the alignment and
+    holds at least one item, a warp's lane groups fit its 32 lanes, and
+    the passes' vectors cover each column exactly once."""
+    row = D * itemsize
+    for align in (4, 8, 16):
+        for bag in (1, 32, 50):
+            geo = bag_geometry(D, itemsize, align, bag)
+            assert geo.vec in VECTOR_BYTES and geo.vec >= itemsize
+            assert row % geo.vec == 0 and align % geo.vec == 0
+            assert 1 <= geo.lanes <= 32 and geo.groups * geo.lanes <= 32
+            assert geo.groups == 32 // geo.lanes and geo.rounds >= 1
+            per = geo.vec // itemsize
+            seen = np.zeros(D, int)
+            for p in range(geo.passes):
+                for lane in range(geo.lanes):
+                    v = p * geo.lanes + lane
+                    if v * geo.vec < row:
+                        seen[v * per:(v + 1) * per] += 1
+            assert (seen == 1).all()
+            # the widest vector both divide: none wider would do
+            wider = [v for v in VECTOR_BYTES if v > geo.vec
+                     and row % v == 0 and align % v == 0]
+            assert not wider
+
+
+def test_bag_geometry_at_the_measured_shapes():
+    """kernel_bench's and MIND's D = 64 and DeepFM's D = 10: 16-byte
+    vectors, two f32 (four bf16) bags a warp at D = 64; 8 bytes, 5 lanes
+    a row and 6 bags a warp at D = 10 in f32, each group taking five
+    one-slot bags in turn; a row slice of the D = 10 table (pointer 40
+    bytes past an aligned one) keeps its plan."""
+    assert bag_geometry(64, 4, 16, 32) == BagGeometry(16, 16, 2, 1, 1)
+    assert bag_geometry(64, 2, 16, 50) == BagGeometry(16, 8, 4, 1, 1)
+    assert bag_geometry(10, 4, 16, 1) == BagGeometry(8, 5, 6, 5, 1)
+    assert bag_geometry(10, 4, 8, 1) == BagGeometry(8, 5, 6, 5, 1)
+    assert bag_geometry(10, 2, 4, 1) == BagGeometry(4, 5, 6, 5, 1)
+    assert bag_geometry(1000, 4, 16, 2) == BagGeometry(16, 32, 1, 16, 8)
+    assert bag_geometry(64, 4, 4, 32) == BagGeometry(4, 32, 1, 1, 2)
+
+
+def test_embedding_bag_refuses_a_table_without_rows():
+    idx = np.zeros((2, 3), np.int32)
+    with pytest.raises(ValueError, match="no rows"):
+        ops.embedding_bag(np.zeros((0, 4), np.float32), idx, device=CPU)
+    out = ops.embedding_bag(np.zeros((0, 4), np.float32),
+                            np.zeros((2, 0), np.int32), device=CPU)
+    assert out.shape == (2, 4) and not out.any()
 
 
 @pytest.mark.parametrize("one_row", [False, True])
