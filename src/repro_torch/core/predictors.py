@@ -1,6 +1,7 @@
 """Shadow-price predictors f(X) -> lambda (counterpart of
-repro.core.predictors): the paper's mean baseline, its KNN regressor
-and the ridge-regression linear family.
+repro.core.predictors): the paper's mean baseline, its KNN regressor,
+the ridge-regression linear family and a two-layer MLP trained with
+the port's Adam.
 
 The KNN estimator is sklearn's KNN regressor with inverse-distance
 weights (k = 10, Euclidean), computed by brute force: d2(x, xi) =
@@ -8,13 +9,13 @@ weights (k = 10, Euclidean), computed by brute force: d2(x, xi) =
 database index, then the weights of `_idw_lambda`. A KNN predictor may
 also carry a quantized copy of its database (`quantized`, int8 or bf16
 rows with one scale per slab); it then predicts through the quantized
-sweep with an exact f32 re-score of its survivors. The MLP family is a
-later slice (ROADMAP Queue 1 item 3).
+sweep with an exact f32 re-score of its survivors.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -33,6 +34,7 @@ from repro_torch.kernels.common import (
     quant_d2_tile,
     sq_norm_seq,
 )
+from repro_torch.optim import adam_init, adam_update
 
 # Above this many train rows KNNLambdaPredictor.predict streams the
 # database in chunks: the one-product form's (b, n_train) distance matrix
@@ -467,13 +469,115 @@ def knn_predict_quant(X_q, q_scale, y2_q, lam_db, X, *, k: int = 10,
     return lam[0] if squeeze else lam
 
 
-# The array fields of each ported family: the state a predictor carries
-# across from the JAX package and swaps in place. KNN's packed-db triple
-# takes part only when present (state_fields).
+def _softplus(x) -> torch.Tensor:
+    """log(1 + e^x) as jax.nn.softplus computes it, logaddexp(x, 0) =
+    max(x, 0) + log1p(exp(-|x|)), with no threshold (F.softplus returns
+    x above 20 and rounds differently below it)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+MLP_PARAMS = ("w1", "b1", "w2", "b2")
+
+
+@dataclass(frozen=True)
+class MLPLambdaPredictor:
+    """Two-layer MLP lam ~ softplus(relu(X w1 + b1) w2 + b2), fitted by
+    full-batch MSE with the port's Adam (optim.adam). The softplus head
+    keeps lambda-hat >= 0. Its parameters (a dict of f32 tensors, the
+    JAX names) live on one device; `predict` runs there."""
+
+    params: dict
+
+    @staticmethod
+    def init_params(gen: torch.Generator, d_in: int, d_hidden: int,
+                    K: int) -> dict:
+        """Normal weights scaled by 1/sqrt(fan-in), zero biases, on the
+        generator's device: the JAX initialiser's law, not its draws."""
+        dev = gen.device
+        w1 = torch.randn((d_in, d_hidden), generator=gen, device=dev)
+        w2 = torch.randn((d_hidden, K), generator=gen, device=dev)
+        return {"w1": w1 * (1.0 / math.sqrt(d_in)),
+                "b1": torch.zeros((d_hidden,), device=dev),
+                "w2": w2 * (1.0 / math.sqrt(d_hidden)),
+                "b2": torch.zeros((K,), device=dev)}
+
+    @staticmethod
+    def apply(params: dict, X) -> torch.Tensor:
+        h = torch.relu(X @ params["w1"] + params["b1"])
+        return _softplus(h @ params["w2"] + params["b2"])
+
+    @staticmethod
+    def fit(X_train, lam_train, *, d_hidden: int = 64, num_steps: int = 500,
+            lr: float = 1e-2, seed: int = 0, return_trace: bool = False,
+            init_params=None, device=None):
+        """Full-batch Adam on the mean squared error over `num_steps`
+        steps on `device` (None = the card). `init_params` warm-starts
+        from a parameter dict (then `d_hidden` and `seed` are unused);
+        otherwise init_params draws from a generator seeded with `seed`.
+        With `return_trace`, returns (predictor, losses (num_steps,)):
+        the loss at the parameters each step started from."""
+        dev = resolve_device(device)
+        X, Y = _f32(X_train, dev), _f32(lam_train, dev)
+        if init_params is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(seed))
+            params = MLPLambdaPredictor.init_params(gen, X.shape[1],
+                                                    d_hidden, Y.shape[1])
+        else:
+            params = {k: _f32(init_params[k], dev) for k in MLP_PARAMS}
+        opt = adam_init(params, device=dev)
+        losses = []
+        for _ in range(num_steps):
+            leaves = {k: p.detach().requires_grad_(True)
+                      for k, p in params.items()}
+            loss = torch.mean(
+                (MLPLambdaPredictor.apply(leaves, X) - Y) ** 2)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            params, opt = adam_update(dict(zip(leaves, grads)), opt, params,
+                                      lr=lr)
+            losses.append(loss.detach())
+        predictor = MLPLambdaPredictor(
+            params={k: p.detach() for k, p in params.items()})
+        if not return_trace:
+            return predictor
+        trace = (torch.stack(losses) if losses
+                 else torch.zeros((0,), device=dev))
+        return predictor, trace
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["w1"].device
+
+    @property
+    def num_constraints(self) -> int:
+        return int(self.params["w2"].shape[1])
+
+    def to(self, device) -> "MLPLambdaPredictor":
+        dev = resolve_device(device)
+        return MLPLambdaPredictor(
+            params={k: v.to(dev) for k, v in self.params.items()})
+
+    def predict(self, X) -> torch.Tensor:
+        return MLPLambdaPredictor.apply(self.params, _f32(X, self.device))
+
+
+PREDICTOR_REGISTRY = {
+    "mean": MeanLambdaPredictor,
+    "knn": KNNLambdaPredictor,
+    "linear": LinearLambdaPredictor,
+    "mlp": MLPLambdaPredictor,
+}
+
+
+# The array fields of each family: the state a predictor carries across
+# from the JAX package and swaps in place (the MLP's is its parameter
+# dict). KNN's packed-db triple takes part only when present
+# (state_fields).
 STATE_FIELDS = {
     MeanLambdaPredictor: ("mean_lam",),
     KNNLambdaPredictor: ("X_db", "lam_db", "X_q", "q_scale", "y2_q"),
     LinearLambdaPredictor: ("W", "c"),
+    MLPLambdaPredictor: ("params",),
 }
 
 
@@ -510,7 +614,7 @@ def from_numpy(state: dict, k: int | None = None, device=None,
     np.asarray): the weights carried across from the reference. The
     family follows from the keys: {X_db, lam_db} is KNN (and needs k),
     with {X_q, q_scale, y2_q} besides a quantized KNN, {W, c} linear,
-    {mean_lam} mean.
+    {mean_lam} mean, {params} (a dict of w1, b1, w2, b2) the MLP.
 
     A quantized state keeps its storage: an int8 X_q stays int8. numpy
     may have no bfloat16, so a bf16 X_q may arrive as float32 values
@@ -518,13 +622,17 @@ def from_numpy(state: dict, k: int | None = None, device=None,
     defaults to "int8" for an int8 X_q and must be given otherwise."""
     keys = set(state)
     knn2, packed = {"X_db", "lam_db"}, {"X_q", "q_scale", "y2_q"}
-    if keys not in ({"mean_lam"}, {"W", "c"}, knn2, knn2 | packed):
-        raise NotImplementedError(
-            f"state fields {sorted(keys)}: only the mean, linear and KNN "
-            f"families are ported; the MLP family is ROADMAP Queue 1 item 3")
+    if keys not in ({"mean_lam"}, {"W", "c"}, {"params"}, knn2,
+                    knn2 | packed):
+        raise ValueError(
+            f"state fields {sorted(keys)} name no predictor family (mean: "
+            f"mean_lam; linear: W, c; MLP: params; KNN: X_db, lam_db and "
+            f"optionally X_q, q_scale, y2_q)")
+    dev = resolve_device(device)
+    if keys == {"params"}:
+        return _mlp_from_numpy(state["params"], dev)
     arrays = {f: np.array(v, np.float32) for f, v in state.items()
               if f != "X_q"}
-    dev = resolve_device(device)
     if keys == {"mean_lam"}:
         mean_lam = arrays["mean_lam"]
         if mean_lam.ndim != 1:
@@ -552,6 +660,20 @@ def from_numpy(state: dict, k: int | None = None, device=None,
     check_pack(X_q, q_scale, y2_q, mode, n_train=X_db.shape[0])
     return dataclasses.replace(knn, X_q=X_q, q_scale=q_scale, y2_q=y2_q,
                                quant=mode)
+
+
+def _mlp_from_numpy(params: dict, dev: torch.device) -> MLPLambdaPredictor:
+    """An MLP predictor from its four host arrays, shapes checked."""
+    if set(params) != set(MLP_PARAMS):
+        raise ValueError(f"MLP params {sorted(params)} != "
+                         f"{sorted(MLP_PARAMS)}")
+    p = {k: np.array(params[k], np.float32) for k in MLP_PARAMS}
+    w1, b1, w2, b2 = (p[k] for k in MLP_PARAMS)
+    if not (w1.ndim == 2 and w2.ndim == 2 and w2.shape[0] == w1.shape[1]
+            and b1.shape == (w1.shape[1],) and b2.shape == (w2.shape[1],)):
+        raise ValueError(f"MLP params {({k: v.shape for k, v in p.items()})}"
+                         f" are not w1 (d, h), b1 (h,), w2 (h, K), b2 (K,)")
+    return MLPLambdaPredictor(params={k: _f32(v, dev) for k, v in p.items()})
 
 
 def _packed_rows(X_q, quant: str | None) -> torch.Tensor:

@@ -7,9 +7,9 @@ epsilon tie-break on the train users (the paper's footnote 3 grid).
 
 Online stage: predict lam_hat = f(X), rank by s = u + (1+eps) lam_hat @ a,
 audit. `rank_with_strategy` runs the paper's Fig. 2 strategies ('none',
-'optimal', 'mean', 'knn', and 'linear' beyond the paper) behind one
-entry point. backend='torch' is the plain einsum oracle; 'kernel' goes
-through the kernels' dispatcher (kernels.ops).
+'optimal', 'mean', 'knn', and beyond the paper 'linear' and 'mlp')
+behind one entry point. backend='torch' is the plain einsum oracle;
+'kernel' goes through the kernels' dispatcher (kernels.ops).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from repro_torch.core.predictors import (
     KNNLambdaPredictor,
     LinearLambdaPredictor,
     MeanLambdaPredictor,
+    MLPLambdaPredictor,
 )
 from repro_torch.device import resolve_device
 
@@ -158,13 +159,11 @@ def tune_eps(u, a, b, lam, gamma, *, m2: int, grid=EPS_GRID) -> float:
 
 def fit_pipeline(X_train, u_train, a_train, b, gamma, *, m2: int,
                  num_iters: int = 400, knn_k: int = 10,
-                 with_mlp: bool = False, device=None) -> RankingPipeline:
+                 with_mlp: bool = False, mlp_steps: int = 300,
+                 device=None) -> RankingPipeline:
     """The whole offline stage on `device` (None = the card): dual
-    solve, then the mean, KNN and linear predictors, then eps."""
-    if with_mlp:
-        raise NotImplementedError(
-            "the MLP predictor is not ported yet (ROADMAP Queue 1 item 3: "
-            "it needs optim/adam.py)")
+    solve, then the mean, KNN and linear predictors (and with `with_mlp`
+    the MLP, `mlp_steps` Adam steps), then eps."""
     dev = resolve_device(device)
     X, u, a = _f32(X_train, dev), _f32(u_train, dev), _f32(a_train, dev)
     b, gamma = _f32(b, dev), _f32(gamma, dev)
@@ -175,6 +174,10 @@ def fit_pipeline(X_train, u_train, a_train, b, gamma, *, m2: int,
         "knn": KNNLambdaPredictor.fit(X, lam, k=knn_k, device=dev),
         "linear": LinearLambdaPredictor.fit(X, lam, device=dev),
     }
+    if with_mlp:
+        predictors["mlp"] = MLPLambdaPredictor.fit(X, lam,
+                                                   num_steps=mlp_steps,
+                                                   device=dev)
     eps = tune_eps(u, a, b, lam, gamma, m2=m2)
     return RankingPipeline(m2=m2, gamma=gamma, eps=eps,
                            predictors=predictors, lam_train=lam,
@@ -208,7 +211,7 @@ def rank_with_strategy(pipe: RankingPipeline, strategy: str, X, u, a, b, *,
                        device=None) -> RankingOutput:
     """The paper's Fig. 2 strategies: 'none' (lam = 0, eps = 0),
     'optimal' (each user's own dual solve), or a fitted predictor's
-    name ('mean', 'knn', 'linear')."""
+    name ('mean', 'knn', 'linear', 'mlp')."""
     _check_backend(backend)
     dev = resolve_device(device)
     u, a, b = (_f32(x, dev) for x in (u, a, b))

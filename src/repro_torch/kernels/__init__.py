@@ -10,8 +10,10 @@ from repro_torch.kernels.ops import (
     knn_predict_kernel,
     knn_topk,
     predict_rank_audited,
+    predict_rank_audited_stateful,
     rank_audited,
 )
 
 __all__ = ["embedding_bag", "fused_rank", "knn_lambda", "knn_predict_kernel",
-           "knn_topk", "predict_rank_audited", "ref", "rank_audited"]
+           "knn_topk", "predict_rank_audited",
+           "predict_rank_audited_stateful", "ref", "rank_audited"]

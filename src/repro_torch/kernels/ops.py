@@ -10,15 +10,18 @@ card:
   KNN             `knn_rank_audited`, two launches (distance sweep, then
                   merge + weighting + rank + audit);
   KNN, knn_chain  `knn_lambda` (two launches) then `rank_audited` (one):
-                  three launches where the TPU chain took two.
+                  three launches where the TPU chain took two;
+  MLP, any other  lambda-hat = predictor.predict(X) as torch ops, zero-
+                  padded to a's K, then `rank_audited`, one launch.
 A KNN predictor that carries a quantized db (`quant` "int8" or "bf16")
 takes the same routes through the quantized twins,
 `knn_rank_audited_quant` and `knn_lambda_quant`, with the same launch
 counts.
 For m2 > MAX_KERNEL_M2 every route takes the JAX dispatcher's XLA
 route, chosen by m2 alone and on every device: lambda-hat first (given;
-X W^T + c as torch ops for mean and linear; `knn_lambda` or
-`knn_lambda_quant` for KNN, two launches on the card), then
+X W^T + c as torch ops for mean and linear; the MLP's predict;
+`knn_lambda` or `knn_lambda_quant` for KNN, two launches on the card),
+then
 core.ranking.rank_given_lambda's einsum score, stable sort and audit as
 torch ops (no launch). `fused_rank` takes the same sort.
 The kernel library's other entry points, as `repro.kernels` exports
@@ -29,8 +32,7 @@ launches its kernel or raises; only `device="cpu"` runs the plain
 PyTorch versions. Nothing is padded per call beyond the affine
 predictor's W and c to the problem's K (the serving engine builds those
 once per bucket): the kernels mask ragged edges themselves, and the
-1M-row KNN database (or its pack) is passed as it lies. The MLP family
-raises NotImplementedError (`unported`).
+1M-row KNN database (or its pack) is passed as it lies.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from repro_torch.core.predictors import (
     _idw_lambda,
     check_pack,
     pack_knn_db,
+    with_state,
 )
 from repro_torch.core.ranking import (
     AUDIT_TOL,
@@ -295,17 +298,10 @@ def linear_rank_audited(X, W, c, u, a, b, gamma, *, relu: bool, m2: int,
                          compliant=comp, lam=lam)
 
 
-def unported(predictor) -> NotImplementedError:
-    """The error for a predictor family the port does not serve yet."""
-    return NotImplementedError(
-        f"{type(predictor).__name__}: the mean, linear and KNN families "
-        f"(the KNN one also over its quantized db) are ported; the MLP is "
-        f"ROADMAP Queue 1 item 3")
-
-
 def route_of(predictor) -> str:
     """The route a predictor's batches take: 'lam' (None), 'affine'
-    (mean, linear) or 'knn'; any other family raises (`unported`)."""
+    (mean, linear), 'knn', or 'mlp' for the MLP and any other family
+    that has a `predict` (as the JAX dispatcher's "mlp / other")."""
     if predictor is None:
         return "lam"
     if isinstance(predictor, KNNLambdaPredictor):
@@ -313,7 +309,10 @@ def route_of(predictor) -> str:
     if isinstance(predictor, (LinearLambdaPredictor,
                               MeanLambdaPredictor)):
         return "affine"
-    raise unported(predictor)
+    if not callable(getattr(predictor, "predict", None)):
+        raise TypeError(f"{type(predictor).__name__} is no predictor: it "
+                        f"has no predict(X)")
+    return "mlp"
 
 
 def predict_rank_audited(X, predictor, u, a, b, gamma, *, m2: int,
@@ -326,9 +325,10 @@ def predict_rank_audited(X, predictor, u, a, b, gamma, *, m2: int,
     runs `knn_rank_audited` on its own tensors, or with `knn_chain`
     `knn_lambda` then `rank_audited` (the same lambda-hat, bitwise); a
     KNN predictor with a quantized db takes the quantized twins of both
-    (its static `quant` picks the route).
-    Any other family raises NotImplementedError. `affine` is an affine
-    predictor's (W, c, relu) already padded to a's K rows
+    (its static `quant` picks the route). The MLP, or any other family
+    with a `predict`, computes lambda-hat = predictor.predict(X) as torch
+    ops, zero-pads it to a's K and runs `rank_audited`. `affine` is an
+    affine predictor's (W, c, relu) already padded to a's K rows
     (`ref.affine_params`), as the serving engine keeps them per bucket;
     None builds them here."""
     route = route_of(predictor)
@@ -345,6 +345,10 @@ def predict_rank_audited(X, predictor, u, a, b, gamma, *, m2: int,
         W, c, relu = affine
         return linear_rank_audited(X, W, c, u, a, b, gamma, relu=relu,
                                    m2=m2, eps=eps, tol=tol, device=device)
+    if route == "mlp":
+        lam = ref.predicted_lambda(predictor, X, a.shape[-2])
+        return rank_audited(u, a, b, lam, gamma, m2=m2, eps=eps, tol=tol,
+                            device=device)
     quant = predictor.quant if predictor.X_q is not None else "off"
     pack = dict(quant=quant, X_q=predictor.X_q, q_scale=predictor.q_scale,
                 y2_q=predictor.y2_q)
@@ -361,10 +365,22 @@ def predict_rank_audited(X, predictor, u, a, b, gamma, *, m2: int,
                         device=device)
 
 
+def predict_rank_audited_stateful(state: dict, predictor, X, u, a, b,
+                                  gamma, **kw) -> RankingOutput:
+    """predict_rank_audited with the predictor's array state passed
+    apart from it (core.predictors.predictor_state): the predictor is
+    the template whose family and non-array fields (KNN's k, its quant
+    mode) pick the route, `state` the arrays it serves with. The seam
+    through which a refresh swaps a predictor's state in."""
+    return predict_rank_audited(X, with_state(predictor, state), u, a, b,
+                                gamma, **kw)
+
+
 def kernel_launch_count(predictor, m2: int, *, device=None,
                         knn_chain: bool = False) -> int:
     """Kernel launches one dispatcher call makes, by route: 1 for the
-    lambda-given route (`predictor=None`) and for mean and linear, 2 for
+    lambda-given route (`predictor=None`), for mean and linear and for
+    the MLP (its lambda-hat is torch ops, then `rank_audited`), 2 for
     KNN, 3 for KNN with `knn_chain`, over the f32 or the quantized db
     alike; 0 where the plain PyTorch path runs (a CPU device). For
     m2 > MAX_KERNEL_M2 the ranking is torch ops: 2 for KNN, fused or

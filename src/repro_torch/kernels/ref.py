@@ -230,11 +230,13 @@ def affine_params(predictor, d: int, K: int):
 
 def predict_rank_audited_ref(X, predictor, u, a, b, gamma, m2: int,
                              eps: float = 1e-4, tol: float | None = None):
-    """Predict-then-rank+audit for the ported families, each lambda-hat
-    from the plain version of its kernel's arithmetic (mean and linear:
-    the affine prologue; KNN: the sweep's order). Returns (vals, idx,
-    utility, exposure, compliant, lam); a quantized KNN predictor takes
-    the quantized plain version (its guard is dropped)."""
+    """Predict-then-rank+audit for every family, each lambda-hat from
+    the plain version of its kernel's arithmetic (mean and linear: the
+    affine prologue; KNN: the sweep's order; the MLP and any other
+    family: its own predict, zero-padded to a's K, then
+    rank_audited_ref). Returns (vals, idx, utility, exposure, compliant,
+    lam); a quantized KNN predictor takes the quantized plain version
+    (its guard is dropped)."""
     if isinstance(predictor, KNNLambdaPredictor) and predictor.X_q is not None:
         return knn_rank_audited_quant_ref(
             X, predictor.X_q, predictor.q_scale, predictor.y2_q,
@@ -248,9 +250,16 @@ def predict_rank_audited_ref(X, predictor, u, a, b, gamma, m2: int,
         W, c, relu = affine_params(predictor, X.shape[1], a.shape[1])
         return linear_rank_audited_ref(u, a, b, X, W, c, gamma, m2, eps,
                                        tol, relu)
-    raise NotImplementedError(
-        f"{type(predictor).__name__}: only the mean, linear and KNN "
-        f"families are ported (the MLP is ROADMAP Queue 1 item 3)")
+    lam = predicted_lambda(predictor, X, a.shape[1])
+    return (*rank_audited_ref(u, a, b, lam, gamma, m2, eps, tol), lam)
+
+
+def predicted_lambda(predictor, X, K: int) -> torch.Tensor:
+    """lambda-hat of the MLP route: predictor.predict(X) in f32,
+    zero-padded from the predictor's width to K constraint rows."""
+    lam = predictor.predict(X).to(torch.float32)
+    check_pred_width(lam.shape[-1], K)
+    return torch.nn.functional.pad(lam, (0, K - lam.shape[-1]))
 
 
 def embedding_bag_ref(table, indices, weights=None):

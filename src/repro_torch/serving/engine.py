@@ -10,9 +10,10 @@ the rank+audit kernel for lambda-carrying requests, the KNN kernel for
 a registered KNN predictor (its quantized twin when the predictor
 carries an int8 or bf16 pack), the affine kernel (`linear_rank_audited`)
 for a mean or linear predictor, whose W and c the engine pads to the
-bucket's K once, when the bucket's staging is allocated. The batch's
-outputs come home in one copy per output and the futures resolve
-inline.
+bucket's K once, when the bucket's staging is allocated, and for an MLP
+predictor its lambda-hat as torch ops, then the rank+audit kernel. The
+batch's outputs come home in one copy per output and the futures
+resolve inline.
 
 Not in this slice: the async pipeline worker, admission control, the
 adaptive lattice, lambda refresh and predictor swaps, the replica fleet
@@ -28,7 +29,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.predictors import LinearLambdaPredictor
+from repro_torch.core.predictors import (
+    LinearLambdaPredictor,
+    MLPLambdaPredictor,
+)
 from repro_torch.core.ranking import RankingOutput
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, ops, ref
@@ -110,7 +114,7 @@ class ServingEngine:
     # -- predictors ---------------------------------------------------------
 
     def register_predictor(self, tag: str, predictor, *, d_cov: int) -> None:
-        """Attach a fitted KNN (f32 or quantized), linear or mean
+        """Attach a fitted KNN (f32 or quantized), linear, mean or MLP
         predictor under `tag`. Its tensors, a KNN pack included, move to
         the engine's device once, here, and stay there; it prices
         `predictor.num_constraints` constraints."""
@@ -118,10 +122,12 @@ class ServingEngine:
             raise ValueError(f"{LAM_TAG!r} is reserved for raw-lam requests")
         if predictor is None:
             raise ValueError("register_predictor needs a fitted predictor")
-        if ops.route_of(predictor) == "knn":   # raises for an unported one
+        if ops.route_of(predictor) == "knn":   # raises for a non-predictor
             d_pred = predictor.X_db.shape[1]
         elif isinstance(predictor, LinearLambdaPredictor):
             d_pred = predictor.W.shape[1]
+        elif isinstance(predictor, MLPLambdaPredictor):
+            d_pred = predictor.params["w1"].shape[0]
         else:
             d_pred = d_cov          # the mean family ignores covariates
         if d_pred != d_cov:

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from repro_torch.core import ranking
-from repro_torch.core.predictors import pack_knn_db
+from repro_torch.core.predictors import MLPLambdaPredictor, pack_knn_db
+from repro_torch.data.synthetic import build_experiment
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.fused_rank import (
@@ -29,6 +30,7 @@ from repro_torch.kernels.knn_topk import (
     knn_rank_audited_quant_cuda,
     knn_topk_cuda,
 )
+from repro_torch.optim import adam_init, adam_update
 
 pytestmark = pytest.mark.cuda
 
@@ -605,3 +607,77 @@ def test_f32_knn_kernels_on_small_dbs(card, n_db, B, k):
     X_db = _t(rng.normal(size=(n_db, 20)), card)
     lam_db = _t(np.abs(rng.normal(size=(n_db, 5))), card)
     _f32_all(_t(rng.normal(size=(B, 20)), card), X_db, lam_db, card, k)
+
+
+@pytest.mark.parametrize("m2", [50, 500])
+def test_mlp_route_on_the_card_equals_plain(card, m2):
+    """The MLP route (lambda-hat = predict(X) as torch ops, zero-padded
+    to K, then the rank_audited kernel at m2 <= 128 and the sort route
+    above it) against its plain version on the same card (the plain
+    rank_audited for m2 <= 128, rank_given_lambda above, as the route
+    itself sorts there): perm, compliant and lambda-hat exact, one
+    launch or none."""
+    rng = np.random.default_rng(m2)
+    n, m1, K = 32, 1024, 8
+    u, a, b, _, g = _rank(rng, n, m1, K, m2, card)
+    X_db = _t(rng.normal(size=(400, 20)), card)
+    lam_db = _t(np.abs(rng.normal(size=(400, 5))), card)
+    mlp = MLPLambdaPredictor.fit(X_db, lam_db, d_hidden=16, num_steps=20,
+                                 device=card)
+    X = _t(rng.normal(size=(n, 20)), card)
+    before = rank_audited_cuda.launches
+    got = ops.predict_rank_audited(X, mlp, u, a, b, g, m2=m2, device=card)
+    torch.cuda.synchronize()
+    assert rank_audited_cuda.launches - before == \
+        ops.kernel_launch_count(mlp, m2) == (1 if m2 <= 128 else 0)
+    if m2 <= 128:
+        want = ref.predict_rank_audited_ref(X, mlp, u, a, b, g, m2)
+    else:
+        lam = ref.predicted_lambda(mlp, X, K)
+        out = ranking.rank_given_lambda(u, a, b, lam, g, m2=m2)
+        want = (None, out.perm, out.utility, out.exposure, out.compliant,
+                out.lam)
+    assert torch.equal(got.perm, want[1])
+    assert torch.equal(got.compliant, want[4])
+    assert torch.equal(got.lam, want[5])
+    assert not got.lam[:, 5:].any()
+
+
+def test_build_experiment_on_the_card(card):
+    """The data stage at the system test's size on the card: finite u,
+    X and a of the experiment's shapes, slates in descending order."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(11)
+    for dataset, K in (("movielens", 5), ("yow", 8)):
+        exp = build_experiment(gen, dataset=dataset, n_users=80,
+                               n_items=500, m1=200, m2=50,
+                               recommender_epochs=2, device=card)
+        assert exp.u.shape == (80, 200) and exp.X.shape == (80, 20)
+        assert exp.a.shape == (80, K, 200) and exp.b.shape == (K,)
+        for x in (exp.u, exp.X, exp.a):
+            assert x.device == card and bool(torch.isfinite(x).all())
+        assert bool((exp.u[:, :-1] >= exp.u[:, 1:]).all())
+        assert exp.train_idx.numel() == 60 and exp.test_idx.numel() == 20
+
+
+def test_adam_update_on_the_card_matches_the_cpu(card):
+    """50 Adam steps on the card and on the CPU from the same numpy
+    parameters and gradients: rtol=1e-6, atol=1e-7 (the same operations
+    in the same order; the two devices' sqrt and pow may part by an
+    ulp)."""
+    rng = np.random.default_rng(50)
+    p0 = {"w": rng.normal(size=(200, 20)), "b": rng.normal(size=(20,))}
+    sides = {}
+    for dev in (torch.device("cpu"), card):
+        p = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+             for k, v in p0.items()}
+        state = adam_init(p, device=dev)
+        for i in range(50):
+            g = {k: torch.tensor(np.random.default_rng(i).normal(
+                size=v.shape), dtype=torch.float32, device=dev)
+                for k, v in p0.items()}
+            p, state = adam_update(g, state, p, lr=0.01, weight_decay=0.01)
+        sides[dev.type] = {k: v.cpu().numpy() for k, v in p.items()}
+    for k in p0:
+        np.testing.assert_allclose(sides["cuda"][k], sides["cpu"][k],
+                                   rtol=1e-6, atol=1e-7)

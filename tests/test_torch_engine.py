@@ -73,8 +73,12 @@ def _jax_predictors():
                                                            0.0, 0.0]))}
 
 
-def _serve_both(stream, max_batch, tags=("knn",)):
-    jpreds = {t: p for t, p in _jax_predictors().items() if t in tags}
+def _serve_both(stream, max_batch, tags=("knn",), jpreds=None):
+    """Serve `stream` through both engines with the JAX predictors of
+    `tags` (from _jax_predictors, or the dict `jpreds`), each carried
+    across to the port by from_numpy."""
+    if jpreds is None:
+        jpreds = {t: p for t, p in _jax_predictors().items() if t in tags}
     jeng = JaxEngine(max_batch=max_batch, max_wait_ms=1e9, executor="xla",
                      pipeline_depth=0, clock=FrozenClock())
     for tag, jp in jpreds.items():
@@ -84,7 +88,9 @@ def _serve_both(stream, max_batch, tags=("knn",)):
     eng = ServingEngine(max_batch=max_batch, max_wait_ms=1e9,
                         clock=FrozenClock(), device="cpu")
     for tag, jp in jpreds.items():
-        state = {f: np.asarray(v) for f, v in predictor_state(jp).items()}
+        state = {f: ({k: np.asarray(x) for k, x in v.items()}
+                     if isinstance(v, dict) else np.asarray(v))
+                 for f, v in predictor_state(jp).items()}
         quant = getattr(jp, "quant", "off")
         eng.register_predictor(tag, from_numpy(
             state, k=10, device="cpu",

@@ -291,9 +291,13 @@ def test_knn_predict_kernel_matches_reference_predictor(one_row):
 
 
 def test_exports_match_the_jax_kernel_package():
-    """repro_torch.kernels exports the entry points repro.kernels does."""
+    """repro_torch.kernels exports the entry points repro.kernels does,
+    and besides them the stateful seam, which the JAX package keeps in
+    repro.kernels.ops."""
     jax_names = {n for n in dir(jax_kernels) if not n.startswith("_")
                  and callable(getattr(jax_kernels, n))}
-    assert set(kernels.__all__) == jax_names | {"ref"}
-    for name in jax_names:
+    seam = "predict_rank_audited_stateful"
+    assert seam not in jax_names and callable(getattr(jax_ops, seam))
+    assert set(kernels.__all__) == jax_names | {"ref", seam}
+    for name in jax_names | {seam}:
         assert getattr(kernels, name) is getattr(ops, name)

@@ -242,8 +242,15 @@ def test_state_seam_and_from_numpy_by_family():
         pred.from_numpy({"X_db": X_tr, "lam_db": lam_tr}, device=CPU)
     mlp = jax_pred.MLPLambdaPredictor.fit(jnp.asarray(X_tr),
                                           jnp.asarray(lam_tr), num_steps=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        pred.from_numpy({"params": mlp.params}, device=CPU)
+    p = pred.from_numpy({"params": {k: np.asarray(v) for k, v in
+                                    mlp.params.items()}}, device=CPU)
+    assert isinstance(p, pred.MLPLambdaPredictor)
+    for f, v in p.params.items():
+        np.testing.assert_array_equal(v.numpy(), np.asarray(mlp.params[f]))
+    assert set(pred.predictor_state(p)) == set(
+        jax_pred.predictor_state(mlp)) == {"params"}
+    with pytest.raises(ValueError, match="name no predictor family"):
+        pred.from_numpy({"weights": np.ones(3)}, device=CPU)
 
 
 @pytest.mark.parametrize("n_db,d,K,k", [(64, 4, 1, 1), (300, 10, 2, 5),

@@ -254,9 +254,8 @@ def test_serve_kernel_backend_equals_torch_backend(pipelines, predictor):
 
 def test_pipeline_errors_and_with_predictor(pipelines):
     pipe, _, (X, u, a, b) = pipelines
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ranking.fit_pipeline(X, u, a, b, pipe.gamma, m2=8, with_mlp=True,
-                             device=CPU)
+    with pytest.raises(KeyError, match="mlp"):     # fitted without it
+        ranking.rank_with_strategy(pipe, "mlp", X, u, a, b, device=CPU)
     with pytest.raises(ValueError, match="backend"):
         ranking.serve(pipe, X, u, a, b, backend="xla", device=CPU)
     swapped = ranking.with_predictor(pipe, "knn", pipe.predictors["mean"])

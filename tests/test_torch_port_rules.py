@@ -12,16 +12,31 @@ import torch
 
 from repro.core.predictors import MLPLambdaPredictor as JaxMLP
 from repro_torch.core import ranking
-from repro_torch.core.constraints import make_constraints
+from repro_torch.core.constraints import (
+    exposure_quota_constraints,
+    make_constraints,
+    movielens_style_constraints,
+)
+from repro_torch.data.synthetic import (
+    build_experiment,
+    make_interactions,
+    make_movielens_corpus,
+    make_yow_corpus,
+    movielens_constraints,
+)
+from repro_torch.models.recommender import PaperRecommender, RecommenderConfig
+from repro_torch.optim import adam_init
 from repro_torch.core.predictors import (
     KNNLambdaPredictor,
     LinearLambdaPredictor,
     MeanLambdaPredictor,
+    MLPLambdaPredictor,
     from_numpy,
     knn_quant_scan,
     pack_knn_db,
 )
 from repro_torch.kernels import ops
+from repro_torch.kernels.ops import predict_rank_audited_stateful
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.fused_rank import MAX_KERNEL_M2
 from repro_torch.kernels.fused_rank import (
@@ -90,6 +105,8 @@ def _default_device_calls():
     pipe = ranking.fit_pipeline(*train, m2=8, num_iters=2, knn_k=1,
                                 device="cpu")
     hold = (t["X"], t["u"], t["a"], t["b"][0])
+    mlp = MLPLambdaPredictor.fit(t["X_db"], t["lam_db"], num_steps=1,
+                                 device="cpu")
     bag = torch.tensor([[0, 3, -1], [19, 2, 2]], dtype=torch.int32)
     return {
         "ServingEngine": lambda: ServingEngine(),
@@ -163,6 +180,38 @@ def _default_device_calls():
         "serve": lambda: ranking.serve(pipe, *hold, predictor="linear"),
         "rank_with_strategy": lambda: ranking.rank_with_strategy(
             pipe, "none", *hold),
+        "fit_pipeline(with_mlp)": lambda: ranking.fit_pipeline(
+            *train, m2=8, num_iters=2, knn_k=1, with_mlp=True, mlp_steps=1),
+        "MLPLambdaPredictor.fit": lambda: MLPLambdaPredictor.fit(
+            t["X_db"], t["lam_db"], num_steps=1),
+        "from_numpy(mlp)": lambda: from_numpy({"params": {
+            "w1": np.ones((4, 2)), "b1": np.ones(2), "w2": np.ones((2, 3)),
+            "b2": np.ones(3)}}),
+        "MLPLambdaPredictor.to": lambda: mlp.to(None),
+        "ops.predict_rank_audited(mlp)": lambda: ops.predict_rank_audited(
+            t["X"], mlp, t["u"], t["a"], t["b"], t["gamma"], m2=8),
+        "predict_rank_audited_stateful":
+            lambda: predict_rank_audited_stateful(
+                {"mean_lam": fam["mean"].mean_lam}, fam["mean"], t["X"],
+                t["u"], t["a"], t["b"], t["gamma"], m2=8),
+        "adam_init": lambda: adam_init({"w": t["X"]}),
+        "PaperRecommender": lambda: PaperRecommender(
+            RecommenderConfig(n_users=3, n_items=4)),
+        "make_interactions": lambda: make_interactions(
+            torch.Generator(), n_users=3, n_items=4, n_obs=5),
+        "make_movielens_corpus": lambda: make_movielens_corpus(
+            torch.Generator(), 10),
+        "make_yow_corpus": lambda: make_yow_corpus(torch.Generator(), 10),
+        "movielens_constraints": lambda: movielens_constraints(
+            make_movielens_corpus(torch.Generator(), 10, device="cpu"),
+            np.arange(4), t["gamma"][0], 8),
+        "exposure_quota_constraints": lambda: exposure_quota_constraints(
+            np.ones((2, 3)), [0.1, 0.1], [1, -1], t["gamma"][0]),
+        "movielens_style_constraints": lambda: movielens_style_constraints(
+            np.ones((4, 3)), np.zeros(3), 0.1, t["gamma"][0]),
+        "build_experiment": lambda: build_experiment(
+            torch.Generator(), dataset="yow", n_users=8, n_items=20, m1=10,
+            m2=4, recommender_epochs=1),
     }
 
 
@@ -205,31 +254,41 @@ def test_kernel_launch_count_by_route():
 
 
 def test_mlp_predictor_raises_not_implemented():
+    """The MLP family, once refused by name, now has its route: a JAX
+    MLP's parameters carried across by from_numpy give the port's MLP,
+    which counts one rank_audited launch at m2 <= 128 and none above,
+    ranks on the CPU as the plain version does and registers with the
+    engine."""
     t = _small()
-    mlp = JaxMLP.fit(jnp.asarray(t["X_db"].numpy()),
-                     jnp.asarray(t["lam_db"].numpy()), num_steps=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ops.kernel_launch_count(mlp, 64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ops.predict_rank_audited(t["X"], mlp, t["u"], t["a"], t["b"],
-                                 t["gamma"], m2=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ServingEngine(device="cpu").register_predictor("mlp", mlp, d_cov=4)
+    jmlp = JaxMLP.fit(jnp.asarray(t["X_db"].numpy()),
+                      jnp.asarray(t["lam_db"].numpy()), num_steps=2)
+    mlp = from_numpy({"params": {k: np.asarray(v) for k, v in
+                                 jmlp.params.items()}}, device="cpu")
+    assert isinstance(mlp, MLPLambdaPredictor) and ops.route_of(mlp) == "mlp"
+    assert ops.kernel_launch_count(mlp, 64) == 1
+    assert ops.kernel_launch_count(mlp, MAX_KERNEL_M2 + 1) == 0
+    out = ops.predict_rank_audited(t["X"], mlp, t["u"], t["a"], t["b"],
+                                   t["gamma"], m2=8, device="cpu")
+    want = ranking.rank_given_lambda(t["u"], t["a"], t["b"],
+                                     mlp.predict(t["X"]), t["gamma"], m2=8)
+    assert torch.equal(out.perm, want.perm)
+    ServingEngine(device="cpu").register_predictor("mlp", mlp, d_cov=4)
 
 
 def test_unported_routes_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ops.kernel_launch_count(object(), 64)
+    """An object that is no predictor (it has no predict) is refused on
+    every route, at any m2, before anything runs."""
     t = _small()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ops.predict_rank_audited(t["X"], object(), t["u"], t["a"], t["b"],
-                                 t["gamma"], m2=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ops.kernel_launch_count(object(), 129)
     g = torch.ones((2, 64))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ops.predict_rank_audited(t["X"], object(), t["u"], t["a"], t["b"],
-                                 g, m2=64 + MAX_KERNEL_M2, device="cpu")
+    for m2, gamma in ((8, t["gamma"]), (64 + MAX_KERNEL_M2, g)):
+        with pytest.raises(TypeError, match="no predictor"):
+            ops.kernel_launch_count(object(), m2)
+        with pytest.raises(TypeError, match="no predictor"):
+            ops.predict_rank_audited(t["X"], object(), t["u"], t["a"],
+                                     t["b"], gamma, m2=m2, device="cpu")
+    with pytest.raises(TypeError, match="no predictor"):
+        ServingEngine(device="cpu").register_predictor("x", object(),
+                                                       d_cov=4)
 
 
 def test_large_m2_route_is_chosen_by_shape(monkeypatch):
