@@ -76,12 +76,35 @@ Phases (any failure exits non-zero before a result is printed):
      and 64 lambda-given requests at serve_online widths (m2=50, m1
      jittered in 512-1024), and 32 KNN, 32 int8 KNN, 32 linear and 16
      MLP requests at m2=500 (the 512 bucket: lambda-hat, then the sort
-     route), through ServingEngine(device="cuda") with phase O's
-     MovieLens m2 = 50 linear, mean and MLP predictors, check every
-     result against the plain version on the same padded batch (for
-     m2=500 the route's plain lambda-hat and rank_given_lambda), and
-     check that each wrapper's launch counter equals the sum over
-     batches of the route's kernel_launch_count;
+     route), through ServingEngine(device="cuda") at pipeline depth 1
+     with phase O's MovieLens m2 = 50 linear, mean and MLP predictors,
+     check every result against the plain version on the same padded
+     batch (for m2=500 the route's plain lambda-hat and
+     rank_given_lambda), and check that each wrapper's launch counter
+     equals the sum over batches of the route's kernel_launch_count;
+  S. serving under offered load (benchmarks/latency_serve.py's
+     run_frontier at serve_online's width): 2048 requests of
+     serving.DEFAULT_MIX plus the serve_online KNN surface (m1=1024,
+     m2=50, K=5, d=20, weight 4) over phase 2's 1,048,576-row db,
+     through ServingEngine(max_batch=32, max_wait_ms=2.0,
+     pipeline_depth=1): a closed-loop pass gives the capacity C (its
+     overlap_ratio must exceed 0), the same stream at depth 0 and 1 in
+     turns, and at depth 1 with a 0.1 ms thread switch interval, gives
+     every request the same perm and compliant (each pass's wall time
+     logged), then Poisson arrivals
+     through serve_open_loop at 0.25, 0.5, 0.7, 0.85, 1.0 and 1.2 x C,
+     each on a fresh, warmed engine, log one row each (offered and
+     achieved QPS, p50/p95/p99, queueing lag, pacing drift, deadline hit
+     share against 50 ms, fill rate, overlap ratio, assembly, dispatch
+     and launch-to-home ms a batch, saturated, the largest latency and
+     queueing lag, and the garbage collector's pauses); admission on at
+     0.25 x C must shed and degrade nothing and change no output bit;
+     a deadline run at 1.2 x C with admission and a knn -> mean ladder
+     (phase O's mean predictor) logs its sheds, degrades and hits by
+     rung. Every served row equals the plain version on its own padded
+     row (ref.*, its rung's bucket, in full batches), every run has one
+     dispatch a batch, and its launch counters and metrics equal the
+     sum over its batches of the route's kernel_launch_count;
   L. the kernel library path: the entry points of repro_torch.kernels
      (ops.fused_rank, ops.knn_topk, ops.knn_predict_kernel,
      ops.embedding_bag) on phase 2's inputs, each output equal to phase
@@ -100,8 +123,8 @@ Phases (any failure exits non-zero before a result is printed):
      and bag_timings, which bench_rank.py runs on two checkouts for a
      before/after pair.
 The launch counters are set to 0 just before each of phase O's holdout
-paths, the serving path and the kernel library path, and read just
-after each.
+paths, the serving path, each run of phase S and the kernel library
+path, and read just after each.
 Prints the kernel table as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 """
@@ -109,6 +132,8 @@ limit, and last {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -181,6 +206,9 @@ BAG_EDGES = {
     "D=256 bag=3": dict(V=50_000, D=256, n_bags=1000, bag=3, weighted=True)}
 L2_BYTES = 50e6               # H100 L2
 SECTOR_BYTES = 32
+# phase S: latency_serve.py's run_frontier at serve_online's width
+SERVE_LOAD = dict(n_requests=2048, max_batch=32, max_wait_ms=2.0,
+                  fracs=(0.25, 0.5, 0.7, 0.85, 1.0, 1.2), budget_ms=50.0)
 MODES = ("int8", "bf16")
 QUANT_EXTRA = 8
 LIMIT_K = (20, 33, 64)        # k past 16: lists of 32, 64 and 128 (pack)
@@ -756,6 +784,263 @@ def reset_counters(wrappers):
 
 def read_counters(wrappers):
     return {name: w.launches for name, w in wrappers.items()}
+
+
+def serve_under_load(seed, dev, knn, mean_pred, wrappers, route_wrapper):
+    """Phase S: the engine at pipeline depth 1 under open-loop Poisson
+    traffic (benchmarks/latency_serve.py's run_frontier). A closed-loop
+    pass gives the capacity C, then each offered load, a fraction of C,
+    runs on a fresh, warmed engine. Every served row is held to the
+    plain version on its own padded row (a row's answer does not depend
+    on its batchmates), every run's launch counters to its batches'
+    routes. Returns (launches summed over the runs, frontier rows,
+    report)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving import (
+        DEFAULT_MIX,
+        AdmissionController,
+        Scenario,
+        ServingEngine,
+        Shed,
+        alloc_staging,
+        fill_staging,
+        make_stream,
+        poisson_arrivals,
+        serve_open_loop,
+    )
+
+    cfg = SERVE_LOAD
+    mix = DEFAULT_MIX + (Scenario("serve_online_knn", m1=1024, m2=50,
+                                  K=K_PRED, tag="knn", d_cov=D, weight=4.0),)
+    stream = make_stream(mix, n_requests=cfg["n_requests"], seed=seed)
+    n = len(stream)
+    total = dict.fromkeys(wrappers, 0)
+
+    class LoadEngine(ServingEngine):
+        """Records each batch's bucket and rids."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.batches = []
+
+        def _materialize_batch(self, pending):
+            self.batches.append((pending.bucket,
+                                 [e.req.rid for e in pending.entries]))
+            super()._materialize_batch(pending)
+
+    def engine(depth=1, admission=None):
+        eng = LoadEngine(max_batch=cfg["max_batch"],
+                         max_wait_ms=cfg["max_wait_ms"], eps=EPS,
+                         pipeline_depth=depth, admission=admission,
+                         device=dev)
+        eng.register_predictor("knn", knn, d_cov=D)
+        eng.register_predictor("mean", mean_pred, d_cov=D)
+        if admission is not None:
+            eng.set_degradation_ladder("knn", ["mean"])
+        eng.warmup(stream)
+        return eng
+
+    def plain(eng, rung):
+        """rid -> (perm, compliant) of the plain version on the request's
+        padded row in its bucket of `rung`, in full batches."""
+        groups = {}
+        for r in stream:
+            bk = dict(eng._rung_buckets(r, eng.bucket_of(r))).get(rung)
+            if bk is not None:
+                groups.setdefault(bk, []).append(r)
+        table = {}
+        for bk, rs in groups.items():
+            pred = eng._predictors.get(bk.tag)
+            for i in range(0, len(rs), bk.batch):
+                chunk = rs[i:i + bk.batch]
+                staged = fill_staging(alloc_staging(
+                    bk, d_cov=eng._d_cov.get(bk.tag), device="cpu"),
+                    chunk, bk)
+                t = {k: torch.tensor(v, device=dev)
+                     for k, v in staged.items()}
+                if pred is None:
+                    want = ref.rank_audited_ref(t["u"], t["a"], t["b"],
+                                                t["lam"], t["gamma"], bk.m2,
+                                                EPS)
+                else:
+                    want = ref.predict_rank_audited_ref(
+                        t["X"], pred, t["u"], t["a"], t["b"], t["gamma"],
+                        bk.m2, EPS)
+                perm, comp = want[1].cpu().numpy(), want[4].cpu().numpy()
+                for j, r in enumerate(chunk):
+                    table[r.rid] = (perm[j, :r.m2], bool(comp[j]))
+        return table
+
+    def run(label, eng, drive, tables,
+            required=("rank_audited", "knn_rank_audited")):
+        """Drive `eng` with the counters at 0, check every result and the
+        launch counts, and close it."""
+        pauses, started = [], []
+
+        def on_gc(phase, info):
+            if phase == "start":
+                started.append(time.perf_counter())
+            else:
+                pauses.append((time.perf_counter() - started.pop()) * 1e3)
+
+        gc.callbacks.append(on_gc)
+        reset_counters(wrappers)
+        try:
+            results, extra = drive(eng)
+        finally:
+            gc.callbacks.remove(on_gc)
+        launches = read_counters(wrappers)
+        eng.close()
+        for name, count in launches.items():
+            total[name] += count
+        if sorted(r.rid for r in results) != list(range(n)):
+            fail(f"phase S {label}: {len(results)} results for {n} requests")
+        for r in results:
+            if isinstance(r, Shed):
+                continue
+            perm, comp = tables[r.rung][r.rid]
+            if not np.array_equal(r.perm, perm) or r.compliant != comp:
+                fail(f"phase S {label}: request {r.rid} (rung {r.rung}) "
+                     f"differs from the plain version")
+        expect = dict.fromkeys(wrappers, 0)
+        for bucket, _ in eng.batches:
+            pred = eng._predictors.get(bucket.tag)
+            expect[route_wrapper(pred, bucket.m2)] += \
+                ops.kernel_launch_count(pred, bucket.m2)
+        s = eng.metrics.summary()
+        if (launches != expect or s["dispatches_per_batch"] != 1.0
+                or s["kernel_launches"] != sum(expect.values())
+                or len(eng.batches) != s["batches"]):
+            fail(f"phase S {label}: launch counters {launches} != batches "
+                 f"x route launches {expect} (metrics "
+                 f"{s['kernel_launches']}, dispatches per batch "
+                 f"{s['dispatches_per_batch']})")
+        for name in required:
+            if launches[name] == 0:
+                fail(f"phase S {label}: {name} never launched")
+        s["gc_ms"] = {"collections": len(pauses), "total": sum(pauses),
+                      "max": max(pauses, default=0.0)}
+        s["latency_ms"]["max"] = max(eng.metrics.latencies_ms, default=0.0)
+        return results, extra, s
+
+    def closed_loop(eng, switch_s=None):
+        """Back to back; `switch_s` sets the interpreter's thread switch
+        interval for the pass (a probe of the GIL hand-off between the
+        submitting thread and the pipeline worker)."""
+        old = sys.getswitchinterval()
+        if switch_s is not None:
+            sys.setswitchinterval(switch_s)
+        try:
+            t0 = time.perf_counter()
+            results = eng.serve_stream(stream, warmup=False)
+            return results, time.perf_counter() - t0
+        finally:
+            sys.setswitchinterval(old)
+
+    def open_loop(arrivals, reqs=stream, **kw):
+        return lambda eng: serve_open_loop(eng, reqs, arrivals, **kw)
+
+    def same(label, got, want, floats=False):
+        want = {r.rid: r for r in want}
+        for r in got:
+            w = want[r.rid]
+            if (isinstance(r, Shed) or r.rung != 0
+                    or not np.array_equal(r.perm, w.perm)
+                    or r.compliant != w.compliant
+                    or (floats and (r.utility != w.utility or
+                                    not np.array_equal(r.exposure,
+                                                       w.exposure)))):
+                fail(f"phase S {label}: request {r.rid} differs")
+
+    t_phase = time.perf_counter()
+    heap = len(gc.get_objects())       # what a full collection traverses
+    probe = engine()
+    tables = {0: plain(probe, 0)}
+    closed, wall, s = run("capacity probe", probe, closed_loop, tables)
+    capacity = n / wall
+    report = {"capacity_qps": capacity, "closed_loop_wall_s": wall,
+              "gc_tracked_objects_at_start": heap,
+              "closed_loop": {k: s[k] for k in ("batches", "fill_rate",
+                                                "latency_ms", "pipeline",
+                                                "gc_ms")}}
+    if not s["pipeline"]["overlap_ratio"] > 0.0:
+        fail(f"phase S: overlap_ratio {s['pipeline']['overlap_ratio']} "
+             f"at depth 1 on a back-to-back stream")
+    # depth 0 against depth 1, in turns, and depth 1 with a 0.1 ms switch
+    # interval: the same perm and compliant for every request
+    report["closed_loop_turns"] = []
+    for depth, switch_s in ((0, None), (1, None), (0, None), (1, 1e-4)):
+        label = f"closed loop at depth {depth}, switch interval {switch_s}"
+        res, wall_t, s_t = run(label, engine(depth=depth),
+                               lambda eng: closed_loop(eng, switch_s), tables)
+        same(label, res, closed)
+        report["closed_loop_turns"].append({
+            "depth": depth, "switch_interval_s": switch_s or
+            sys.getswitchinterval(), "wall_s": wall_t,
+            "batches": s_t["batches"],
+            "overlap_ratio": s_t["pipeline"]["overlap_ratio"],
+            "exec_ms_per_batch": s_t["pipeline"]["exec_ms_per_batch"],
+            "latency_ms": s_t["latency_ms"], "gc_ms": s_t["gc_ms"]})
+    rows = []
+    for frac in cfg["fracs"]:
+        qps = capacity * frac
+        arrivals = poisson_arrivals(n, qps, seed=seed + 1)
+        results, ol, s = run(f"load {frac} x C", engine(),
+                             open_loop(arrivals), tables)
+        pipe, lat = s["pipeline"], s["latency_ms"]
+        rows.append({
+            "offered_frac_of_capacity": frac, "target_qps": qps,
+            "offered_qps": ol["offered_qps"],
+            "achieved_qps": ol["achieved_qps"], "capacity_qps": capacity,
+            "p50_ms": lat["p50"], "p95_ms": lat["p95"], "p99_ms": lat["p99"],
+            "queue_lag_ms_last": ol["queue_lag_ms"]["last"],
+            "drift_ms_p99": ol["drift_ms"]["p99"],
+            "deadline_hit_rate": s["deadline"]["hit_rate"],
+            "fill_rate": s["fill_rate"], "batches": s["batches"],
+            "overlap_ratio": pipe["overlap_ratio"],
+            "assembly_ms_per_batch": pipe["assembly_ms_per_batch"],
+            "dispatch_ms_per_batch": pipe["dispatch_ms_per_batch"],
+            "exec_ms_per_batch": pipe["exec_ms_per_batch"],
+            "queue_depth_mean": pipe["queue_depth_mean"],
+            "latency_ms_max": lat["max"],
+            "queue_lag_ms_max": ol["queue_lag_ms"]["max"],
+            "gc_ms": s["gc_ms"],
+            "saturated": ol["queue_lag_ms"]["last"] > max(5.0, 1e4 / qps),
+            "within_50ms": lat["p99"] <= cfg["budget_ms"]})
+        log(f"phase S frontier {json.dumps(rows[-1])}")
+        if frac == cfg["fracs"][0]:
+            quarter = (arrivals, results)
+    # admission at the lowest load changes nothing
+    eng = engine(admission=AdmissionController())
+    tables[1] = plain(eng, 1)                    # the knn -> mean rung
+    results, _, s = run("admission at the lowest load", eng,
+                        open_loop(quarter[0]), tables)
+    if s["deadline"]["sheds"] or s["deadline"]["degrades"]:
+        fail(f"phase S: admission shed or degraded at "
+             f"{cfg['fracs'][0]} x C: {s['deadline']}")
+    same("admission on against off", results, quarter[1], floats=True)
+    # a deadline run past capacity: admission and a knn -> mean ladder
+    frac = cfg["fracs"][-1]
+    results, ol, s = run(
+        f"deadline run at {frac} x C", engine(admission=AdmissionController()),
+        open_loop(poisson_arrivals(n, capacity * frac, seed=seed + 2),
+                  [dataclasses.replace(r) for r in stream],
+                  deadline_budget_s=cfg["budget_ms"] / 1e3), tables,
+        required=())
+    by_rung = {}
+    for r in results:
+        if not isinstance(r, Shed):
+            hit = by_rung.setdefault(str(r.rung), {"served": 0, "hits": 0})
+            hit["served"] += 1
+            hit["hits"] += int(r.deadline_hit)
+    report["deadline_run"] = {
+        "offered_frac_of_capacity": frac, "achieved_qps": ol["achieved_qps"],
+        "sheds": s["deadline"]["sheds"], "degrades": s["deadline"]["degrades"],
+        "hit_rate": s["deadline"]["hit_rate"], "by_rung": by_rung,
+        "rungs": s["deadline"]["rungs"], "latency_ms": s["latency_ms"],
+        "queue_lag_ms_last": ol["queue_lag_ms"]["last"]}
+    report["seconds"] = time.perf_counter() - t_phase
+    return total, rows, report
 
 
 def table23(rows):
@@ -1496,18 +1781,19 @@ def main() -> int:
         reqs.append(RankRequest(**kw))
 
     class CheckedEngine(ServingEngine):
-        """Keeps each batch's padded inputs and outputs for the check."""
+        """Keeps each batch's padded inputs and outputs for the check
+        (the inputs copied before the slot goes back to its ring)."""
 
         def __init__(self, **kw):
             super().__init__(**kw)
             self.captured = []
 
         def _materialize_batch(self, pending):
+            staged = {k: v.copy() for k, v in pending.staged.items()}
             super()._materialize_batch(pending)
-            staged = self._staging[pending.bucket]
             self.captured.append(
-                (pending.bucket, {k: v.copy() for k, v in staged.items()},
-                 [r.rid for r, _ in pending.entries], pending.out))
+                (pending.bucket, staged,
+                 [e.req.rid for e in pending.entries], pending.out))
 
     eng = CheckedEngine(max_batch=32, max_wait_ms=2.0, eps=EPS, device="cuda")
     for tag, p in predictors.items():
@@ -1573,7 +1859,16 @@ def main() -> int:
         f"{summary['batches']} batches {n_batches}, buckets "
         f"{warm['buckets']}, launches {serve_launches}, compliance "
         f"{summary['compliance']}, latency_ms {summary['latency_ms']}")
+    eng.close()
+    mean_pred = serve_pipe.predictors["mean"]    # phase S's degradation rung
     del eng, serve_pipe
+
+    # -- phase S: serving under offered load ---------------------------------
+    load_launches, frontier, load_report = serve_under_load(
+        args.seed, dev, knn, mean_pred, wrappers, route_wrapper)
+    del mean_pred
+    log(f"phase S: capacity {load_report['capacity_qps']} req/s; "
+        f"{json.dumps(load_report)}; launches {load_launches}")
 
     # -- phase L: the kernel library's entry points --------------------------
     entry = {"fused_rank": ops.fused_rank, "knn_topk": ops.knn_topk,
@@ -1715,9 +2010,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (offline_launches[name] + serve_launches[name]
-                         + lib_launches[name]),
+                         + load_launches[name] + lib_launches[name]),
             "launches_by_path": {"offline_holdout": offline_launches[name],
                                  "serving": serve_launches[name],
+                                 "serving_under_load": load_launches[name],
                                  "kernel_library": lib_launches[name]},
             "max_abs_err": err[name], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],

@@ -1,2 +1,50 @@
-"""Ranking core of the port: discounts, sort assignment, the online
-rank+audit oracle and the KNN shadow-price predictor."""
+"""Ranking core of the port: discounts and constraints, sort
+assignment, the batched dual solver, the lambda predictors and the
+ranking pipeline (the names of repro.core that the port has)."""
+
+from repro_torch.core.assignment import rank_by_sort
+from repro_torch.core.constraints import (
+    ConstraintSet,
+    dcg_discount,
+    exposure_quota_constraints,
+    geometric_discount,
+    make_constraints,
+    movielens_style_constraints,
+)
+from repro_torch.core.dual_solver import (
+    DualSolution,
+    serve_rank,
+    solve_dual,
+    solve_dual_batch,
+)
+from repro_torch.core.predictors import (
+    KNNLambdaPredictor,
+    LinearLambdaPredictor,
+    MeanLambdaPredictor,
+    MLPLambdaPredictor,
+    knn_predict,
+)
+from repro_torch.core.ranking import (
+    AUDIT_TOL,
+    EPS_GRID,
+    RankingOutput,
+    RankingPipeline,
+    audit_selected,
+    fit_pipeline,
+    rank_given_lambda,
+    rank_with_strategy,
+    serve,
+    tune_eps,
+)
+
+__all__ = [
+    "rank_by_sort",
+    "ConstraintSet", "dcg_discount", "exposure_quota_constraints",
+    "geometric_discount", "make_constraints", "movielens_style_constraints",
+    "DualSolution", "serve_rank", "solve_dual", "solve_dual_batch",
+    "KNNLambdaPredictor", "LinearLambdaPredictor", "MeanLambdaPredictor",
+    "MLPLambdaPredictor", "knn_predict",
+    "AUDIT_TOL", "EPS_GRID", "RankingOutput", "RankingPipeline",
+    "audit_selected", "fit_pipeline", "rank_given_lambda",
+    "rank_with_strategy", "serve", "tune_eps",
+]

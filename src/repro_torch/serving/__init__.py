@@ -1,2 +1,60 @@
-"""Synchronous serving engine of the port: shape buckets, micro-batches,
-one dispatch per batch through kernels.ops."""
+"""Streaming serving engine of the port: shape-bucketed micro-batching
+with async double-buffered execution on a CUDA stream, deadlines and
+admission, and open-loop traffic (see engine.py and pipeline.py)."""
+
+from repro_torch.serving.admission import (
+    SHED_RUNG,
+    AdmissionController,
+    AdmissionDecision,
+)
+from repro_torch.serving.buckets import (
+    K_TIERS,
+    MIN_M1,
+    MIN_M2,
+    NEG_FILL,
+    Bucket,
+    alloc_staging,
+    assemble_batch,
+    bucket_for,
+    ceil_pow2,
+    fill_staging,
+    k_tier,
+    unpad_result,
+)
+from repro_torch.serving.engine import (
+    DEFAULT_BUDGET_S,
+    LAM_TAG,
+    RankRequest,
+    RankResult,
+    ServingEngine,
+    Shed,
+)
+from repro_torch.serving.metrics import EngineMetrics
+from repro_torch.serving.pipeline import (
+    ExecutionPipeline,
+    PendingBatch,
+    RankFuture,
+    StagingRing,
+)
+from repro_torch.serving.traffic import (
+    DEFAULT_MIX,
+    Scenario,
+    make_drift_stream,
+    make_request,
+    make_stream,
+    poisson_arrivals,
+    serve_open_loop,
+)
+
+__all__ = [
+    "Bucket", "K_TIERS", "MIN_M1", "MIN_M2", "NEG_FILL",
+    "alloc_staging", "assemble_batch", "bucket_for", "ceil_pow2",
+    "fill_staging", "k_tier", "unpad_result",
+    "SHED_RUNG", "AdmissionController", "AdmissionDecision",
+    "DEFAULT_BUDGET_S", "LAM_TAG", "RankRequest", "RankResult",
+    "ServingEngine", "Shed",
+    "EngineMetrics",
+    "ExecutionPipeline", "PendingBatch", "RankFuture", "StagingRing",
+    "DEFAULT_MIX", "Scenario", "make_drift_stream", "make_request",
+    "make_stream", "poisson_arrivals", "serve_open_loop",
+]

@@ -18,8 +18,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from repro_torch.core.constraints import dcg_discount
+from repro_torch.device import resolve_device
 
 # Finite "minus infinity" for padded candidate utilities: keeps padded
 # candidates out of every top-m2 while 0.0 * NEG_FILL == 0.0 exactly.
@@ -68,22 +70,32 @@ def bucket_for(*, m1: int, m2: int, K: int, tag: str, batch: int) -> Bucket:
     return Bucket(tag=tag, m1=m1p, m2=m2p, K=k_tier(K), batch=int(batch))
 
 
-def alloc_staging(bucket: Bucket, *, d_cov: int | None = None) -> dict:
+def host_empty(shape, dtype: torch.dtype, device: torch.device) -> np.ndarray:
+    """An uninitialised host array for batches bound to `device`: for a
+    CUDA device the numpy view of a page-locked torch tensor (the view
+    keeps the tensor alive), which a non-blocking copy moves without
+    blocking the host; torch raises if the memory cannot be pinned. A
+    plain numpy array for the CPU."""
+    if device.type == "cuda":
+        return torch.empty(shape, dtype=dtype, pin_memory=True).numpy()
+    return torch.empty(shape, dtype=dtype).numpy()
+
+
+def alloc_staging(bucket: Bucket, *, d_cov: int | None = None,
+                  device=None) -> dict:
     """Host staging arrays for one batch of `bucket`: u (B, m1),
     a (B, K, m1), b (B, K), gamma (B, m2) and either lam (B, K)
-    (d_cov None) or X (B, d_cov)."""
+    (d_cov None) or X (B, d_cov). Pinned when `device` (None = the
+    card) is CUDA (`host_empty`)."""
+    dev = resolve_device(device)
     B, m1p, m2p, Kp = bucket.batch, bucket.m1, bucket.m2, bucket.K
-    staged = {
-        "u": np.empty((B, m1p), np.float32),
-        "a": np.empty((B, Kp, m1p), np.float32),
-        "b": np.empty((B, Kp), np.float32),
-        "gamma": np.empty((B, m2p), np.float32),
-    }
+    shapes = {"u": (B, m1p), "a": (B, Kp, m1p), "b": (B, Kp),
+              "gamma": (B, m2p)}
     if d_cov is None:
-        staged["lam"] = np.empty((B, Kp), np.float32)
+        shapes["lam"] = (B, Kp)
     else:
-        staged["X"] = np.empty((B, d_cov), np.float32)
-    return staged
+        shapes["X"] = (B, d_cov)
+    return {k: host_empty(s, torch.float32, dev) for k, s in shapes.items()}
 
 
 def fill_staging(staged: dict, requests, bucket: Bucket) -> dict:
@@ -111,24 +123,37 @@ def fill_staging(staged: dict, requests, bucket: Bucket) -> dict:
     return staged
 
 
-def assemble_batch(requests, bucket: Bucket, *, d_cov: int | None = None):
+def assemble_batch(requests, bucket: Bucket, *, d_cov: int | None = None,
+                   device=None):
     """Pack up to `bucket.batch` requests into fresh padded arrays."""
-    return fill_staging(alloc_staging(bucket, d_cov=d_cov), requests, bucket)
+    return fill_staging(alloc_staging(bucket, d_cov=d_cov, device=device),
+                        requests, bucket)
 
 
 def unpad_result(out, i: int, request):
-    """Slice row `i` of a batched RankingOutput of host arrays back to
+    """Row `i` of a batched RankingOutput of host arrays, cut back to
     the request's geometry: (perm (m2,), utility, exposure (K,),
-    compliant)."""
+    compliant). perm and exposure are copies, so a result never aliases
+    the batch's output buffers, which the engine recycles."""
     m2, K = request.m2, request.a.shape[0]
-    perm = np.asarray(out.perm[i, :m2])
+    perm = np.array(out.perm[i, :m2])
     utility = float(out.utility[i])
-    exposure = np.asarray(out.exposure[i, :K])
+    exposure = np.array(out.exposure[i, :K])
     compliant = bool(out.compliant[i])
     return perm, utility, exposure, compliant
 
 
 def fill_stats(requests, bucket: Bucket) -> dict:
-    """Real vs padded (batch x m1) cells of a micro-batch."""
-    real = sum(int(r.u.shape[0]) for r in requests)
-    return {"real_cells": real, "padded_cells": bucket.batch * bucket.m1}
+    """Padding overhead of a micro-batch: real vs padded (batch x m1)
+    cells and real vs padded sweep work (rank m1*m2 + audit K*m1 per
+    request)."""
+    real = real_flops = 0
+    for r in requests:
+        m1, K, m2 = int(r.u.shape[0]), int(r.a.shape[0]), int(r.m2)
+        real += m1
+        real_flops += m1 * m2 + K * m1
+    padded = bucket.batch * bucket.m1
+    padded_flops = bucket.batch * (bucket.m1 * bucket.m2
+                                   + bucket.K * bucket.m1)
+    return {"real_cells": real, "padded_cells": padded,
+            "real_flops": real_flops, "padded_flops": padded_flops}

@@ -1,30 +1,52 @@
-"""Synchronous streaming serving engine of the port (counterpart of
-repro.serving.ServingEngine at pipeline_depth=0).
+"""Streaming serving engine of the port (counterpart of
+repro.serving.ServingEngine): shape-bucketed micro-batching over the
+online stage, with async double-buffered execution on a CUDA stream.
 
-Each RankRequest is routed to a shape Bucket and queued; a queue flushes
-at the bucket's capacity, when its oldest request has waited
-max_wait_ms (`poll`), or on `drain`. A flush packs the batch into the
-bucket's host staging arrays, copies them to the device, and makes ONE
-dispatcher call into kernels.ops, whose route the bucket's tag fixes:
-the rank+audit kernel for lambda-carrying requests, the KNN kernel for
-a registered KNN predictor (its quantized twin when the predictor
-carries an int8 or bf16 pack), the affine kernel (`linear_rank_audited`)
-for a mean or linear predictor, whose W and c the engine pads to the
-bucket's K once, when the bucket's staging is allocated, and for an MLP
-predictor its lambda-hat as torch ops, then the rank+audit kernel. The
-batch's outputs come home in one copy per output and the futures
-resolve inline.
+The unit of work is one RankRequest: one user's candidate utilities,
+constraint attributes and thresholds, slot count, and either shadow
+prices (lam) or the covariates X of a registered lambda predictor. The
+engine
 
-Not in this slice: the async pipeline worker, admission control, the
-adaptive lattice, lambda refresh and predictor swaps, the replica fleet
-and the autotune table (ROADMAP Queue 1 items 7-8).
+  1. maps each request to a shape Bucket, runs admission (deadline,
+     degradation ladder, shed), mints its RankFuture and appends it to
+     the bucket's queue;
+  2. flushes a queue when it reaches the bucket's capacity, when its
+     oldest request has waited max_wait_ms (`poll`), or on `drain`;
+  3. SUBMISSION SIDE (the caller's thread): packs the flushed batch into
+     a recycled StagingRing slot (page-locked host memory on the card),
+     then on the engine's own CUDA stream copies it to the slot's device
+     set without blocking, makes ONE dispatcher call into kernels.ops
+     (the bucket's tag fixes the route: `rank_audited` for lambda-given
+     requests, `knn_rank_audited` or its quantized twin for a KNN
+     predictor, `linear_rank_audited` for a mean or linear predictor,
+     whose W and c the engine pads to the bucket's K once, and the MLP's
+     lambda-hat as torch ops before `rank_audited`; above m2 = 128 the
+     sort route's torch ops, on the same stream), copies the five
+     outputs into the slot's page-locked output set without blocking,
+     and records an event after them;
+  4. COMPLETION SIDE (the pipeline worker): waits on batch N's event
+     while the card runs batch N+1, copies the outputs out of the slot,
+     stamps completion, feeds admission, recycles the slot and marks the
+     futures done. Unpadding runs lazily on the consuming thread.
+
+`pipeline_depth` bounds the in-flight window: 1 (the default) is double
+buffering; 0 retires every batch inline on the calling thread, through
+the same slots and copies, with bitwise the same results. On the CPU
+(`device="cpu"`) the same ring runs without page-locking or events, and
+the worker thread still retires the batches.
+
+Not in the port's engine yet: the adaptive lattice (buckets are the
+static `bucket_for`), predictor swaps and their epochs (`epoch` stays 0,
+as an unswapped JAX engine reports), the refresh lane, and the autotune
+table (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -36,23 +58,35 @@ from repro_torch.core.predictors import (
 from repro_torch.core.ranking import RankingOutput
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, ops, ref
+from repro_torch.serving.admission import SHED_RUNG, AdmissionController
 from repro_torch.serving.buckets import (
     Bucket,
-    alloc_staging,
     bucket_for,
     fill_staging,
     fill_stats,
     unpad_result,
 )
 from repro_torch.serving.metrics import EngineMetrics
-from repro_torch.serving.pipeline import PendingBatch, RankFuture
+from repro_torch.serving.pipeline import (
+    ExecutionPipeline,
+    PendingBatch,
+    RankFuture,
+    StagingRing,
+)
 
 LAM_TAG = "_lam"   # requests that carry shadow prices directly
+
+# Default per-request latency budget: the paper's 50 ms.
+DEFAULT_BUDGET_S = 0.050
 
 
 @dataclass
 class RankRequest:
-    """One user's ranking problem; arrays are host (numpy) payloads."""
+    """One user's ranking problem; arrays are host (numpy) payloads.
+
+    `deadline` is absolute (in the engine's clock); `budget_s` is
+    relative to enqueue. With neither, the request's surface budget (or
+    the engine's default_budget_s) applies; with both, `deadline` wins."""
 
     rid: int
     u: np.ndarray                     # (m1,) candidate utilities
@@ -63,6 +97,9 @@ class RankRequest:
     X: np.ndarray | None = None       # (d,) covariates for the predictor
     tag: str = LAM_TAG                # predictor tag
     gamma: np.ndarray | None = None   # (m2,) slot discounts; default DCG
+    deadline: float | None = None     # absolute deadline (engine clock)
+    budget_s: float | None = None     # relative budget (enqueue + budget_s)
+    surface: str = "default"          # budget class (surface_budgets)
 
     def __post_init__(self):
         if self.lam is None and self.X is None:
@@ -81,34 +118,92 @@ class RankResult:
     bucket: str
     latency_ms: float                 # enqueue -> result materialized
     wait_ms: float                    # enqueue -> batch launch
+    deadline_hit: bool | None = None  # materialized before the deadline?
+    rung: int = 0                     # degradation rung served (0 = own)
+    epoch: int = 0                    # predictor generation that served it
+
+
+@dataclass
+class Shed:
+    """Typed admission-shed outcome: the request's RankFuture resolves
+    with this (not an exception) when every rung of its ladder was
+    predicted to miss the deadline. `predicted_ms` is the cheapest
+    rung's prediction against `budget_ms`."""
+
+    rid: int
+    bucket: str                       # the request's home bucket
+    predicted_ms: float
+    budget_ms: float
+    reason: str = "predicted-miss-at-every-rung"
+    rung: int = SHED_RUNG
+
+
+@dataclass
+class _QueueEntry:
+    """One admitted request in (or flushed from) a bucket queue."""
+
+    req: RankRequest
+    t_enq: float
+    fut: Any                          # RankFuture
+    deadline: float                   # absolute, engine clock
+    rung: int                         # degradation rung being served
 
 
 class ServingEngine:
     """Shape-bucketed micro-batching over the online stage.
 
     device: None means the card (RuntimeError without CUDA); the tests
-    pass "cpu" to run the plain PyTorch path. clock: the engine's time
-    source, injectable so tests can freeze it.
+    pass "cpu" to run the plain PyTorch path. pipeline_depth: batches
+    the submission side may run ahead of the one retiring (0 = inline).
+    admission: None admits everything (results still carry
+    `deadline_hit`); True or an AdmissionController checks every submit
+    against its deadline: admit on rung 0, degrade down the tag's ladder
+    (`set_degradation_ladder`), or shed. surface_budgets: default budget
+    (s) per RankRequest.surface; others get default_budget_s. clock: the
+    engine's time source, injectable so tests can freeze it.
     """
 
     def __init__(self, *, max_batch: int = 32, max_wait_ms: float = 2.0,
-                 eps: float = 1e-4,
+                 eps: float = 1e-4, pipeline_depth: int = 1,
+                 admission: AdmissionController | bool | None = None,
+                 default_budget_s: float = DEFAULT_BUDGET_S,
+                 surface_budgets: dict[str, float] | None = None,
                  clock: Callable[[], float] = time.perf_counter,
                  device=None):
+        if pipeline_depth < 0:
+            raise ValueError(f"pipeline_depth must be >= 0, got "
+                             f"{pipeline_depth}")
         self.device = resolve_device(device)
         self.max_batch = int(max_batch)
         self.max_wait_ms = float(max_wait_ms)
         self.eps = float(eps)
+        self.pipeline_depth = int(pipeline_depth)
+        if admission is True:
+            admission = AdmissionController()
+        elif admission is False:
+            admission = None
+        self.admission: AdmissionController | None = admission
+        self.default_budget_s = float(default_budget_s)
+        self.surface_budgets = {str(k): float(v)
+                                for k, v in (surface_budgets or {}).items()}
         self.clock = clock
         self.metrics = EngineMetrics()
+        # every batch's copies and launches go to this one stream: the
+        # legacy default stream would serialise with all other work
+        self._stream = (torch.cuda.Stream(device=self.device)
+                        if self.device.type == "cuda" else None)
         self._predictors: dict = {}
         self._d_cov: dict[str, int] = {}
+        self._ladders: dict[str, tuple[str, ...]] = {}
         self._affine: dict[Bucket, tuple] = {}
         self._queues: dict[Bucket, list] = {}
-        self._staging: dict[Bucket, dict] = {}
+        self._rings: dict[Bucket, StagingRing] = {}
         self._launches: dict[Bucket, int] = {}
         self._warmed: set[Bucket] = set()
-        self._retired: list[PendingBatch] = []
+        self._uncollected_sheds: list[Shed] = []
+        self._retired_sync: list[PendingBatch] = []
+        self._pipeline = (ExecutionPipeline(depth=self.pipeline_depth)
+                          if self.pipeline_depth > 0 else None)
         self._closed = False
 
     # -- predictors ---------------------------------------------------------
@@ -135,8 +230,36 @@ class ServingEngine:
                              f"d_cov={d_cov}")
         if predictor.device != self.device:
             predictor = predictor.to(self.device)
+        if self._stream is not None:
+            # the move ran on the caller's stream; the engine's reads after
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
         self._predictors[tag] = predictor
         self._d_cov[tag] = int(d_cov)
+
+    def set_degradation_ladder(self, tag: str, fallbacks) -> None:
+        """Register `tag`'s degradation ladder: when admission predicts
+        that rung 0 (the tag's own predictor) would miss a deadline,
+        requests go to fallbacks[0], then fallbacks[1], ... before they
+        are shed. Every fallback must be registered, take the same
+        covariates and price at least as many constraints as `tag`."""
+        if tag not in self._predictors:
+            raise KeyError(f"no predictor registered for tag {tag!r}")
+        fallbacks = tuple(fallbacks)
+        K = self._predictors[tag].num_constraints
+        for fb in fallbacks:
+            if fb not in self._predictors:
+                raise KeyError(f"ladder fallback {fb!r} is not a "
+                               f"registered predictor")
+            if self._d_cov[fb] != self._d_cov[tag]:
+                raise ValueError(
+                    f"ladder fallback {fb!r}: d_cov {self._d_cov[fb]} != "
+                    f"{self._d_cov[tag]} of {tag!r}")
+            K_fb = self._predictors[fb].num_constraints
+            if K_fb < K:
+                raise ValueError(
+                    f"ladder fallback {fb!r} emits {K_fb} shadow prices "
+                    f"< the {K} that {tag!r} serves")
+        self._ladders[tag] = fallbacks
 
     # -- bucketing ----------------------------------------------------------
 
@@ -155,155 +278,342 @@ class ServingEngine:
         return bucket_for(m1=req.u.shape[0], m2=req.m2, K=K, tag=tag,
                           batch=self.max_batch)
 
-    def _staging_for(self, bucket: Bucket) -> dict:
-        """The bucket's host staging arrays, allocated on first use, with
-        the bucket's launch count and, for an affine predictor, its W and
-        c padded to the bucket's K (on the engine's device, where the
-        predictor lies)."""
-        staged = self._staging.get(bucket)
-        if staged is None:
-            staged = self._staging[bucket] = alloc_staging(
-                bucket, d_cov=self._d_cov.get(bucket.tag))
+    def _rung_buckets(self, req: RankRequest,
+                      home: Bucket) -> list[tuple[int, Bucket]]:
+        """The request's degradation ladder as (rung, bucket) pairs, rung
+        0 (its own bucket) first. Raw-lam requests have no ladder."""
+        rungs = [(0, home)]
+        if req.X is None or home.tag == LAM_TAG:
+            return rungs
+        K_req = req.a.shape[0]
+        for i, fb in enumerate(self._ladders.get(req.tag, ()), start=1):
+            K_fb = self._predictors[fb].num_constraints
+            if K_fb < K_req:         # cannot price this request's system
+                continue
+            rungs.append((i, bucket_for(m1=req.u.shape[0], m2=req.m2,
+                                        K=K_fb, tag=fb,
+                                        batch=self.max_batch)))
+        return rungs
+
+    # -- the card path ------------------------------------------------------
+
+    def _on_stream(self):
+        return (torch.cuda.stream(self._stream) if self._stream is not None
+                else contextlib.nullcontext())
+
+    def _ring_for(self, bucket: Bucket) -> StagingRing:
+        """The bucket's ring, allocated on first use with the bucket's
+        launch count and, for an affine predictor, its W and c padded to
+        the bucket's K. The ring holds one slot more than the in-flight
+        window (depth queued + 1 retiring), so assembly of the next batch
+        never waits for a slot."""
+        ring = self._rings.get(bucket)
+        if ring is None:
             predictor = self._predictors.get(bucket.tag)
+            with self._on_stream():
+                ring = StagingRing(bucket, d_cov=self._d_cov.get(bucket.tag),
+                                   depth=self.pipeline_depth + 2,
+                                   device=self.device)
+                if ops.route_of(predictor) == "affine":
+                    self._affine[bucket] = ref.affine_params(
+                        predictor, self._d_cov[bucket.tag], bucket.K)
             self._launches[bucket] = ops.kernel_launch_count(
                 predictor, bucket.m2, device=self.device)
-            if ops.route_of(predictor) == "affine":
-                self._affine[bucket] = ref.affine_params(
-                    predictor, self._d_cov[bucket.tag], bucket.K)
-        return staged
+            self._rings[bucket] = ring
+        return ring
 
-    def _call(self, bucket: Bucket, staged: dict) -> RankingOutput:
-        """One dispatcher call on a packed batch (inputs copied to the
-        device; the predictor's tensors are already there)."""
-        dev = self.device
-        # a copy even on the CPU: the staging arrays are refilled per batch
-        t = {k: torch.tensor(v, device=dev) for k, v in staged.items()}
-        if bucket.tag == LAM_TAG:
-            X, predictor = t["lam"], None
-        else:
-            X, predictor = t["X"], self._predictors[bucket.tag]
-        return ops.predict_rank_audited(
-            X, predictor, t["u"], t["a"], t["b"], t["gamma"],
-            m2=bucket.m2, eps=self.eps, affine=self._affine.get(bucket),
-            device=dev)
+    def _dispatch(self, bucket: Bucket, ring: StagingRing, staged: dict):
+        """One batch on the engine's stream: inputs to the slot's device
+        set, ONE dispatcher call, outputs into the slot's host set, then
+        the slot's event (returned; None on the CPU). Nothing here waits
+        for the card."""
+        slot = ring.slot(staged)
+        with self._on_stream():
+            t = slot.inputs
+            for k, host in slot.host.items():
+                t[k].copy_(host, non_blocking=True)
+            if bucket.tag == LAM_TAG:
+                X, predictor = t["lam"], None
+            else:
+                X, predictor = t["X"], self._predictors[bucket.tag]
+            out = ops.predict_rank_audited(
+                X, predictor, t["u"], t["a"], t["b"], t["gamma"],
+                m2=bucket.m2, eps=self.eps, affine=self._affine.get(bucket),
+                device=self.device)
+            for k, dst in slot.output_views.items():
+                dst.copy_(getattr(out, k), non_blocking=True)
+            if slot.event is not None:
+                slot.event.record(self._stream)
+        return slot.event
+
+    def _wait(self, event) -> None:
+        """Block until a batch's event has completed (the GIL is
+        released while waiting)."""
+        if event is not None:
+            with torch.cuda.device(self.device):
+                event.synchronize()
+
+    def _phantom(self, bucket: Bucket) -> None:
+        """One all-padding batch of `bucket` there and back."""
+        ring = self._ring_for(bucket)
+        staged = fill_staging(ring.acquire(), [], bucket)
+        try:
+            self._wait(self._dispatch(bucket, ring, staged))
+        finally:
+            ring.release(staged)
 
     def warmup(self, sample) -> dict:
         """Build the kernels and run one phantom batch per bucket that
-        `sample` (RankRequests or Buckets) reaches."""
-        buckets = {r if isinstance(r, Bucket) else self.bucket_of(r)
-                   for r in sample}
-        if self.device.type == "cuda":
+        `sample` (RankRequests or Buckets) reaches, every rung of each
+        request's degradation ladder included. With admission attached,
+        a second, timed phantom batch per bucket seeds the controller's
+        service-time EWMAs."""
+        buckets = set()
+        for r in sample:
+            if isinstance(r, Bucket):
+                buckets.add(r)
+                continue
+            buckets.update(bk for _, bk in self._rung_buckets(
+                r, self.bucket_of(r)))
+        if self._stream is not None:
             build.build_all()
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
         for bucket in sorted(buckets):
-            staged = fill_staging(self._staging_for(bucket), [], bucket)
-            self._call(bucket, staged)
+            self._phantom(bucket)
+            if self.admission is not None:
+                t0 = self.clock()
+                self._phantom(bucket)
+                self.admission.observe_service(
+                    bucket.name, (self.clock() - t0) * 1e3)
             self._warmed.add(bucket)
-        if self.device.type == "cuda":
+        if self._stream is not None:
             torch.cuda.synchronize(self.device)
         self.metrics.warmed = True
         return {"buckets": [b.name for b in sorted(buckets)]}
 
-    # -- submission ---------------------------------------------------------
+    # -- submission side ----------------------------------------------------
 
     def submit(self, req: RankRequest, now: float | None = None) -> list:
-        """Enqueue; returns the results retired so far (a capacity flush
-        retires its batch before this returns)."""
+        """Enqueue; returns the results retired so far (at depth >= 1 a
+        capacity-flushed batch retires later: collect it from a later
+        submit/poll or from `drain`)."""
         self._enqueue(req, now)
         return self._collect()
 
-    def _enqueue(self, req: RankRequest, now: float | None) -> None:
+    def submit_future(self, req: RankRequest,
+                      now: float | None = None) -> RankFuture:
+        """Enqueue and return the request's RankFuture: it resolves when
+        its batch retires, or at once with a typed `Shed` when admission
+        sheds it. Results also flow through submit/poll/drain."""
+        return self._enqueue(req, now)
+
+    def observe_submission_lag(self, lag_ms: float) -> None:
+        """Feed the open-loop load generator's queueing lag to the admission
+        controller as its saturation signal (no-op without one)."""
+        if self.admission is not None:
+            self.admission.observe_lag(lag_ms)
+
+    def _deadline_of(self, req: RankRequest, now: float) -> float:
+        if req.deadline is not None:
+            return float(req.deadline)
+        if req.budget_s is not None:
+            budget = req.budget_s
+        else:
+            budget = self.surface_budgets.get(req.surface,
+                                              self.default_budget_s)
+        return now + float(budget)
+
+    def _enqueue(self, req: RankRequest, now: float | None) -> RankFuture:
         if self._closed:
             raise RuntimeError("engine is closed")
         now = self.clock() if now is None else now
         bucket = self.bucket_of(req)
         self.metrics.on_submit(bucket, known=bucket in self._warmed)
         fut = RankFuture(req.rid, bucket.name)
+        deadline = self._deadline_of(req, now)
+        rung = 0
+        if self.admission is not None:
+            rungs = self._rung_buckets(req, bucket)
+            inflight = (self._pipeline.inflight()
+                        if self._pipeline is not None else 0)
+            preds = [(r, self.admission.predict_ms(
+                          bk.name,
+                          queue_len=len(self._queues.get(bk, ())),
+                          batch_cap=bk.batch, inflight=inflight,
+                          max_wait_ms=self.max_wait_ms))
+                     for r, bk in rungs]
+            decision = self.admission.decide(
+                budget_ms=(deadline - now) * 1e3, rung_predictions=preds)
+            if not decision.admitted:
+                self.metrics.on_shed(bucket, surface=req.surface)
+                shed = Shed(rid=req.rid, bucket=bucket.name,
+                            predicted_ms=decision.predicted_ms,
+                            budget_ms=decision.budget_ms)
+                fut._resolve(shed)
+                self._uncollected_sheds.append(shed)
+                return fut
+            if decision.rung > 0:
+                rung = decision.rung
+                bucket = dict(rungs)[rung]
+                self.metrics.on_degrade(rung, surface=req.surface)
         q = self._queues.setdefault(bucket, [])
-        q.append((req, now, fut))
+        q.append(_QueueEntry(req=req, t_enq=now, fut=fut,
+                             deadline=deadline, rung=rung))
         if len(q) >= bucket.batch:
             self._flush_bucket(bucket, trigger="capacity")
+        return fut
 
     def poll(self, now: float | None = None) -> list:
         """Flush every queue whose oldest request has waited max_wait_ms;
         returns the results retired so far."""
         now = self.clock() if now is None else now
         for bucket, q in list(self._queues.items()):
-            if q and (now - q[0][1]) * 1e3 >= self.max_wait_ms:
+            if q and (now - q[0].t_enq) * 1e3 >= self.max_wait_ms:
                 self._flush_bucket(bucket, trigger="deadline")
         return self._collect()
 
     def drain(self) -> list:
-        """Flush every queue; returns every result not yet collected."""
+        """Flush every queue and wait for every in-flight batch to
+        retire; returns every result (and Shed) not yet collected."""
         for bucket, q in list(self._queues.items()):
             if q:
                 self._flush_bucket(bucket, trigger="drain")
+        if self._pipeline is not None:
+            results = self._take_sheds()
+            for pending in self._pipeline.flush():
+                results += pending.results()
+            return results
         return self._collect()
 
+    def handoff_queued(self, error: BaseException | None = None) -> list:
+        """Evict every queued (not yet flushed) request: each one's
+        future fails with `error` and the requests are returned for
+        resubmission elsewhere. In-flight batches retire normally."""
+        if error is None:
+            error = RuntimeError("request evicted for handoff")
+        evicted = []
+        for bucket in list(self._queues):
+            entries, self._queues[bucket] = self._queues[bucket], []
+            for e in entries:
+                evicted.append(e.req)
+                e.fut._fail(error)
+        return evicted
+
     def close(self) -> None:
-        """Flush what is queued (so every future resolves) and refuse
-        further submissions."""
+        """Flush what is queued and retire what is in flight (so every
+        future resolves), stop the pipeline worker and refuse further
+        submissions. Idempotent."""
+        if self._closed:
+            return
         self.drain()
+        if self._pipeline is not None:
+            self._pipeline.close()
         self._closed = True
 
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _take_sheds(self) -> list:
+        sheds, self._uncollected_sheds = self._uncollected_sheds, []
+        return sheds
+
     def _collect(self) -> list:
-        batches, self._retired = self._retired, []
-        results = []
+        """Results of every batch retired since the last call, and the
+        Sheds since then, built on the caller's thread."""
+        if self._pipeline is not None:
+            batches = self._pipeline.collect()
+        else:
+            batches, self._retired_sync = self._retired_sync, []
+        results = self._take_sheds()
         for pending in batches:
             results += pending.results()
         return results
 
     def _flush_bucket(self, bucket: Bucket, *, trigger: str) -> None:
         entries, self._queues[bucket] = self._queues[bucket], []
-        reqs = [e[0] for e in entries]
+        reqs = [e.req for e in entries]
+        ring = self._ring_for(bucket)
         t0 = self.clock()
-        staged = fill_staging(self._staging_for(bucket), reqs, bucket)
+        staged = fill_staging(ring.acquire(), reqs, bucket)
         t_launch = self.clock()
-        assembly_ms = (t_launch - t0) * 1e3
         try:
-            out = self._call(bucket, staged)
+            event = self._dispatch(bucket, ring, staged)
         except BaseException as e:  # noqa: BLE001 - re-raised below
-            # every future still resolves exactly once
-            for _, _, fut in entries:
-                fut._fail(e)
+            # every future still resolves exactly once, and the slot
+            # goes back: a leaked slot would deadlock acquire() later
+            for entry in entries:
+                entry.fut._fail(e)
+            ring.release(staged)
             raise
+        t1 = self.clock()
         self.metrics.on_executable_call(self._launches[bucket])
         pending = PendingBatch(
-            bucket=bucket, entries=[e[:2] for e in entries],
-            futures=[e[2] for e in entries], out=out, t_launch=t_launch,
-            materialize=self._materialize_batch, build=self._build_result)
-        pending.finish()
-        self._retired.append(pending)
-        self.metrics.on_dispatch(trigger, fill_stats(reqs, bucket),
-                                 assembly_ms=assembly_ms)
+            bucket=bucket, entries=entries,
+            futures=[e.fut for e in entries], out=None, staged=staged,
+            ring=ring, t_launch=t_launch, trigger=trigger,
+            materialize=self._materialize_batch, build=self._build_result,
+            assembly_ms=(t_launch - t0) * 1e3,
+            dispatch_ms=(t1 - t_launch) * 1e3,
+            fill=fill_stats(reqs, bucket), event=event)
+        if self._pipeline is not None:
+            self._pipeline.submit(pending)      # may block: backpressure
+        else:
+            pending.finish()
+            self._retired_sync.append(pending)
+        self.metrics.on_dispatch(
+            trigger, pending.fill, assembly_ms=pending.assembly_ms,
+            dispatch_ms=pending.dispatch_ms,
+            depth=pending.depth_at_dispatch, t_now=t_launch)
 
-    # -- completion ---------------------------------------------------------
+    # -- completion side ----------------------------------------------------
 
     def _materialize_batch(self, pending: PendingBatch) -> None:
-        """Copy one batch's outputs to the host (this waits for the
-        device), one copy per output."""
-        out = pending.out
-        pending.out = RankingOutput(
-            perm=out.perm.cpu().numpy(), utility=out.utility.cpu().numpy(),
-            exposure=out.exposure.cpu().numpy(),
-            compliant=out.compliant.cpu().numpy(), lam=out.lam.cpu().numpy())
+        """Wait for one batch's event, take its outputs out of the slot,
+        stamp completion, feed admission and recycle the slot. Runs on
+        the pipeline worker (depth >= 1) or inline (depth 0); it touches
+        the card only through the event."""
+        self._wait(pending.event)
+        slot = pending.ring.slot(pending.staged)
+        # copies: the slot's outputs are rewritten by its next batch
+        pending.out = RankingOutput(**{k: np.array(v)
+                                       for k, v in slot.outputs.items()})
         pending.t_done = self.clock()
-        self.metrics.on_retire((pending.t_done - pending.t_launch) * 1e3)
+        exec_ms = (pending.t_done - pending.t_launch) * 1e3
+        self.metrics.on_retire(exec_ms, pending.t_done)
+        if self.admission is not None:
+            self.admission.observe_service(pending.bucket.name, exec_ms)
+        pending.ring.release(pending.staged)
+        pending.staged = None
 
     def _build_result(self, pending: PendingBatch, i: int) -> RankResult:
-        req, t_enq = pending.entries[i]
+        """Unpad row `i` into its RankResult, once per row, on whichever
+        consumer thread asks first."""
+        entry = pending.entries[i]
+        req, t_enq = entry.req, entry.t_enq
         perm, utility, exposure, compliant = unpad_result(pending.out, i, req)
+        deadline_hit = pending.t_done <= entry.deadline
+        shortfall = float(np.clip(req.b - exposure, 0.0, None).sum())
         latency_ms = (pending.t_done - t_enq) * 1e3
         wait_ms = (pending.t_launch - t_enq) * 1e3
-        self.metrics.on_result(latency_ms, wait_ms, compliant)
+        self.metrics.on_result(latency_ms, wait_ms, compliant,
+                               deadline_hit=deadline_hit, rung=entry.rung,
+                               shortfall=shortfall, surface=req.surface)
+        if self.admission is not None:
+            self.admission.observe_result(
+                latency_ms, (entry.deadline - t_enq) * 1e3)
         return RankResult(rid=req.rid, perm=perm, utility=utility,
                           exposure=exposure, compliant=compliant,
                           bucket=pending.bucket.name, latency_ms=latency_ms,
-                          wait_ms=wait_ms)
+                          wait_ms=wait_ms, deadline_hit=deadline_hit,
+                          rung=entry.rung, epoch=pending.epoch)
 
     def serve_stream(self, requests, *, warmup: bool = True) -> list:
         """Submit each request in arrival order, honouring max_wait_ms
-        between arrivals, and drain at the end. Results come in
-        retirement order."""
+        between arrivals, and drain at the end. Results (and Sheds) come
+        in retirement order."""
         requests = list(requests)
         if warmup and not self.metrics.warmed:
             self.warmup(requests)

@@ -9,14 +9,20 @@ The kernels and the plain versions round every operation in the same
 order, so every output must match bitwise.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import ranking
-from repro_torch.core.predictors import MLPLambdaPredictor, pack_knn_db
+from repro_torch.core.predictors import (
+    KNNLambdaPredictor,
+    MLPLambdaPredictor,
+    pack_knn_db,
+)
 from repro_torch.data.synthetic import build_experiment
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.fused_rank import (
     fused_rank_cuda,
@@ -31,6 +37,7 @@ from repro_torch.kernels.knn_topk import (
     knn_topk_cuda,
 )
 from repro_torch.optim import adam_init, adam_update
+from repro_torch.serving import Scenario, ServingEngine, make_stream
 
 pytestmark = pytest.mark.cuda
 
@@ -681,3 +688,70 @@ def test_adam_update_on_the_card_matches_the_cpu(card):
     for k in p0:
         np.testing.assert_allclose(sides["cuda"][k], sides["cpu"][k],
                                    rtol=1e-6, atol=1e-7)
+
+
+def _serving_stream(card, n=192, seed=30):
+    """A lambda-given and a KNN surface at serve_online widths, with a
+    5001-row db on the card."""
+    rng = np.random.default_rng(seed)
+    knn = KNNLambdaPredictor.fit(_t(rng.normal(size=(5001, 20)), card),
+                                 _t(np.abs(rng.normal(size=(5001, 5))),
+                                    card), k=10, device=card)
+    mix = (Scenario("feed", m1=1024, m2=50, K=5, weight=2.0),
+           Scenario("knn", m1=1024, m2=50, K=5, tag="knn", d_cov=20))
+    return knn, make_stream(mix, n_requests=n, seed=seed)
+
+
+def _serve(card, depth, knn, reqs):
+    eng = ServingEngine(max_batch=32, max_wait_ms=2.0, pipeline_depth=depth,
+                        device=card)
+    eng.register_predictor("knn", knn, d_cov=20)
+    eng.warmup(reqs)
+    return eng, {r.rid: r for r in eng.serve_stream(reqs)}
+
+
+def test_engine_buffers_are_pinned_and_depths_agree(card):
+    """Every slot's host inputs and outputs are page-locked, its inputs
+    lie on the card, and depth 0 and depth 1 give the same perm,
+    compliant, utility and exposure for every request."""
+    knn, reqs = _serving_stream(card)
+    served = {}
+    for depth in (0, 1):
+        eng, served[depth] = _serve(card, depth, knn, reqs)
+        assert eng.metrics.kernel_launches > 0   # the kernels, not the CPU
+        for ring in eng._rings.values():
+            assert ring.allocated == depth + 2
+            for slot in ring._slots.values():
+                assert all(t.is_pinned() for t in slot.host.values())
+                assert all(t.is_pinned() for t in slot.output_views.values())
+                assert all(t.device == card for t in slot.inputs.values())
+                assert slot.event is not None
+        eng.close()
+    assert sorted(served[0]) == sorted(served[1]) == list(range(len(reqs)))
+    for rid, r in served[0].items():
+        g = served[1][rid]
+        np.testing.assert_array_equal(g.perm, r.perm)
+        np.testing.assert_array_equal(g.exposure, r.exposure)
+        assert (g.utility, g.compliant) == (r.utility, r.compliant)
+
+
+def test_pipeline_overlaps_and_the_worker_never_launches(card, monkeypatch):
+    """At depth 1 a back-to-back stream overlaps host and card
+    (overlap_ratio > 0), and every kernel launch comes from the
+    submitting thread, none from the pipeline worker."""
+    knn, reqs = _serving_stream(card, n=512, seed=31)
+    threads = []
+    launch = build.launch
+
+    def spy(name, *args):
+        threads.append(threading.current_thread().name)
+        return launch(name, *args)
+
+    monkeypatch.setattr(build, "launch", spy)
+    eng, served = _serve(card, 1, knn, reqs)
+    s = eng.metrics.summary()
+    eng.close()
+    assert len(served) == len(reqs)
+    assert s["pipeline"]["overlap_ratio"] > 0.0
+    assert s["dispatches_per_batch"] == 1.0
+    assert threads and set(threads) == {threading.main_thread().name}

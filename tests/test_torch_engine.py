@@ -137,7 +137,7 @@ def test_engine_matches_jax_engine_on_a_four_route_stream(max_batch,
                                  tags=("knn", "linear", "mean"))
     _assert_streams_match(got, want, n_requests)
     assert eng.metrics.kernel_launches == 0     # the CPU runs the plain path
-    affine = {b for b in eng._staging if b.tag in ("linear", "mean")}
+    affine = {b for b in eng._rings if b.tag in ("linear", "mean")}
     assert set(eng._affine) == affine and affine
     for bucket, (W, c, relu) in eng._affine.items():
         assert W.shape[0] == c.shape[0] == bucket.K
@@ -175,10 +175,10 @@ def test_bucket_geometry_pads_the_serve_online_cell():
                               batch=32).m1 == 1024
 
 
-def test_futures_metrics_and_errors():
+def _futures_metrics_and_errors(depth):
     stream = _stream(5, 6)
     eng = ServingEngine(max_batch=4, max_wait_ms=5.0, clock=FrozenClock(),
-                        device="cpu")
+                        pipeline_depth=depth, device="cpu")
     eng.register_predictor("knn", from_numpy(
         {f: np.asarray(v) for f, v in predictor_state(_knn()).items()},
         k=10, device="cpu"), d_cov=D)
@@ -188,6 +188,8 @@ def test_futures_metrics_and_errors():
         early += eng.submit(RankRequest(**kw))
     assert len(early) < 6                          # partial batches wait
     late = eng.poll(now=1.0)                       # past max_wait_ms
+    if depth:                                      # retired by the worker
+        late += eng.drain()
     assert sorted(r.rid for r in early + late) == list(range(6))
     assert eng.metrics.deadline_flushes >= 1
     with pytest.raises(KeyError):
@@ -204,17 +206,38 @@ def test_futures_metrics_and_errors():
         eng.submit(RankRequest(**stream[0]))
 
 
-def test_staging_is_reused_and_results_do_not_alias_it():
+def test_futures_metrics_and_errors():
+    """Inline retirement (pipeline_depth=0): a deadline flush's results
+    come back from the poll that flushed it."""
+    _futures_metrics_and_errors(0)
+
+
+def test_futures_metrics_and_errors_at_depth_1():
+    """The same with the pipeline worker: the flushed batch retires on
+    the worker, and drain collects it."""
+    _futures_metrics_and_errors(1)
+
+
+def _staging_is_reused_and_results_do_not_alias_it(depth):
     stream = [kw for kw in _stream(9, 24) if "lam" in kw][:8]
     eng = ServingEngine(max_batch=4, max_wait_ms=1e9, clock=FrozenClock(),
-                        device="cpu")
+                        pipeline_depth=depth, device="cpu")
     res = {r.rid: r for r in eng.serve_stream(
         [RankRequest(**kw) for kw in stream])}
-    assert len(eng._staging) == len({eng.bucket_of(RankRequest(**kw))
-                                     for kw in stream})
+    assert len(eng._rings) == len({eng.bucket_of(RankRequest(**kw))
+                                   for kw in stream})
+    assert all(ring.allocated == depth + 2 for ring in eng._rings.values())
     again = ServingEngine(max_batch=1, max_wait_ms=1e9, device="cpu",
-                          clock=FrozenClock())
+                          pipeline_depth=depth, clock=FrozenClock())
     for kw in stream:
         (one,) = again.serve_stream([RankRequest(**kw)])
         np.testing.assert_array_equal(one.perm, res[kw["rid"]].perm)
         assert one.utility == res[kw["rid"]].utility
+
+
+def test_staging_is_reused_and_results_do_not_alias_it():
+    _staging_is_reused_and_results_do_not_alias_it(0)
+
+
+def test_staging_is_reused_and_results_do_not_alias_it_at_depth_1():
+    _staging_is_reused_and_results_do_not_alias_it(1)

@@ -128,5 +128,5 @@ def test_engines_agree_on_an_m2_500_stream(max_batch, n_requests):
         stream.append(kw)
     eng, got, want = _serve_both(stream, max_batch, tags=tags)
     _assert_streams_match(got, want, n_requests)
-    assert {b.m2 for b in eng._staging} == {512} and 512 > MAX_KERNEL_M2
+    assert {b.m2 for b in eng._rings} == {512} and 512 > MAX_KERNEL_M2
     assert eng.metrics.kernel_launches == 0     # the CPU runs the plain path

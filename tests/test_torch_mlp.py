@@ -203,7 +203,7 @@ def test_engines_agree_on_mlp_requests(max_batch, n_requests):
     eng, got, want = _serve_both(stream, max_batch, jpreds={"mlp": jm})
     _assert_streams_match(got, want, n_requests)
     assert isinstance(eng._predictors["mlp"], pred.MLPLambdaPredictor)
-    assert {b.m2 for b in eng._staging if b.tag == "mlp"} == {64, 512}
+    assert {b.m2 for b in eng._rings if b.tag == "mlp"} == {64, 512}
     assert eng.metrics.kernel_launches == 0     # the CPU runs the plain path
     with pytest.raises(ValueError, match="covariates"):
         eng.register_predictor("mlp2", eng._predictors["mlp"], d_cov=D + 1)
