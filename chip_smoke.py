@@ -105,6 +105,29 @@ Phases (any failure exits non-zero before a result is printed):
      row (ref.*, its rung's bucket, in full batches), every run has one
      dispatch a batch, and its launch counters and metrics equal the
      sum over its batches of the route's kernel_launch_count;
+  R. the refresh lane on the card (latency_serve.py's run_refresh and
+     run_drift at serve_online's width): the KNN surface (m1=1024, m2=50,
+     K=5, d=20, k=10) over phase 2's 1,048,576 rows with zero prices,
+     over the f32 db and its int8 pack, through
+     ServingEngine(pipeline_depth=1, max_wait_ms far away); a tighten
+     drift stream (x8 over 0.25-0.75) of 256 requests whose covariates
+     come from 32 returning users; RefreshLane.refresh() every 32. Fails
+     unless each family swaps at least twice, every served row equals a
+     cold engine started on its epoch's state bitwise and the plain
+     version there, the shortfall with the lane is below the shortfall
+     without it, each int8 pack is bitwise a full pack_knn_db of its db,
+     rollback serves the pre-swap generation bitwise, a state with a NaN
+     in lam_db is refused and counted while serving stays on last-good,
+     the newest epoch's checkpoint (build/phase_r_ckpt, removed after)
+     reloads and serves bitwise, and a stationary compliant stream
+     leaves the lane unswapped and serving bitwise as without it; logs
+     each swap's drain + update, validate and flip ms and checkpoint ms,
+     the same stream's shortfall with fresh users, the ring write's and
+     the int8 repack's ms and device ms beside the ring write's bound,
+     and p50/p99, hit share and swaps of 2048 Poisson requests at
+     0.5 x phase S's capacity with the lane on its thread (0.05 s)
+     against off, in turns; every line with the card's name and power
+     limit. Each driven run's launch counters equal its engine's;
   L. the kernel library path: the entry points of repro_torch.kernels
      (ops.fused_rank, ops.knn_topk, ops.knn_predict_kernel,
      ops.embedding_bag) on phase 2's inputs, each output equal to phase
@@ -123,8 +146,8 @@ Phases (any failure exits non-zero before a result is printed):
      and bag_timings, which bench_rank.py runs on two checkouts for a
      before/after pair.
 The launch counters are set to 0 just before each of phase O's holdout
-paths, the serving path, each run of phase S and the kernel library
-path, and read just after each.
+paths, the serving path, each run of phases S and R and the kernel
+library path, and read just after each.
 Prints the kernel table as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 """
@@ -209,6 +232,12 @@ SECTOR_BYTES = 32
 # phase S: latency_serve.py's run_frontier at serve_online's width
 SERVE_LOAD = dict(n_requests=2048, max_batch=32, max_wait_ms=2.0,
                   fracs=(0.25, 0.5, 0.7, 0.85, 1.0, 1.2), budget_ms=50.0)
+# phase R: latency_serve.py's run_refresh / run_drift at serve_online's
+# width over phase 2's db: 256 requests of 32 returning users, a refresh
+# every 32; 2048 under load with the lane's thread at 0.05 s
+REFRESH = dict(n_requests=256, users=32, every=32, n_stationary=128,
+               n_load=2048, interval_s=0.05)
+TAG_R = "knn"
 MODES = ("int8", "bf16")
 QUANT_EXTRA = 8
 LIMIT_K = (20, 33, 64)        # k past 16: lists of 32, 64 and 128 (pack)
@@ -1043,6 +1072,401 @@ def serve_under_load(seed, dev, knn, mean_pred, wrappers, route_wrapper):
     return total, rows, report
 
 
+def serve_refresh(seed, dev, X_db, capacity, wrappers, route_wrapper, smi):
+    """Phase R: the refresh lane on the card at serve_online's width
+    (benchmarks/latency_serve.py's run_refresh/check_refresh and
+    run_drift/check_drift). The KNN surface over phase 2's 1,048,576-row
+    db with zero prices (the compliant era), over the f32 db and its
+    int8 pack, through ServingEngine(pipeline_depth=1); a tighten drift
+    stream; lane.refresh() every REFRESH["every"] requests. Checks: at
+    least 2 swaps a family; every served row bitwise a cold engine's on
+    its epoch's state and equal to the plain version there; shortfall
+    with the lane below shortfall without; the int8 pack after each
+    refresh bitwise a full pack_knn_db; rollback serving the pre-swap
+    generation bitwise; a poisoned state refused and counted, serving
+    on last-good; the newest checkpoint reloading and serving bitwise;
+    a stationary compliant stream neutral to the bit. Logs the publish
+    split, the ring write's and repack's device ms, the checkpoint
+    write's ms and p50/p99 with the lane on its thread against off at
+    0.5 x phase S's capacity. Returns (launches summed over the driven
+    runs, report)."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.core.predictors import (
+        KNNLambdaPredictor,
+        pack_knn_db,
+        predictor_state,
+        repack_knn_slabs,
+        with_state,
+    )
+    from repro_torch.data.synthetic import DriftSpec
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving import (
+        RefreshLane,
+        ServingEngine,
+        alloc_staging,
+        fill_staging,
+        knn_ring_update,
+        make_drift_stream,
+        poisson_arrivals,
+        serve_open_loop,
+    )
+
+    cfg = REFRESH
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(wrappers, 0)
+    zero = torch.zeros((X_db.shape[0], K_PRED), device=dev)
+    preds = {"knn": KNNLambdaPredictor(X_db=X_db, lam_db=zero, k=KNN_K)}
+    preds["knn_int8"] = preds["knn"].quantized("int8", device=dev)
+    tighten = DriftSpec(kind="tighten", magnitude=8.0, start=0.25, end=0.75)
+
+    def stream(spec, n, users=None, **kw):
+        """make_drift_stream at serve_online's width; with `users`,
+        request i carries returning user (i mod users)'s covariates."""
+        reqs = make_drift_stream(spec, tag=TAG_R, n_requests=n, m1=1024,
+                                 m2=50, K=K_PRED, d_cov=D, seed=seed + 7,
+                                 **kw)
+        if users:
+            for r in reqs:
+                r.X = reqs[r.rid % users].X
+        return reqs
+
+    drift = stream(tighten, cfg["n_requests"], users=cfg["users"])
+    fresh = stream(tighten, cfg["n_requests"])
+
+    def engine(pred, max_wait_ms=1e9, warm=drift):
+        eng = ServingEngine(max_batch=32, max_wait_ms=max_wait_ms, eps=EPS,
+                            pipeline_depth=1, device=dev)
+        eng.register_predictor(TAG_R, pred, d_cov=D)
+        eng.warmup(warm[:1])
+        torch.cuda.synchronize()
+        return eng
+
+    def counted(label, eng, drive, launched=True):
+        """Drive `eng` with the counters at 0; its launches must equal
+        its batches' route launches (and be some, if `launched`)."""
+        before = eng.metrics.kernel_launches
+        reset_counters(wrappers)
+        out = drive()
+        torch.cuda.synchronize()
+        launches = read_counters(wrappers)
+        name = route_wrapper(eng.predictor_template(TAG_R), 50)
+        expect = dict.fromkeys(wrappers, 0)
+        expect[name] = eng.metrics.kernel_launches - before
+        if launches != expect or (launched and not launches[name]):
+            fail(f"phase R {label}: launch counters {launches} != the "
+                 f"engine's {expect}")
+        for k, v in launches.items():
+            total[k] += v
+        return out
+
+    def shortfall(reqs, results):
+        by_rid = {r.rid: r for r in reqs}
+        return sum(float(np.clip(by_rid[r.rid].b - r.exposure, 0.0,
+                                 None).sum()) for r in results)
+
+    def chunks(eng, reqs, lane=None, every=cfg["every"]):
+        """Serve in chunks (each fully drained: one epoch a chunk), with
+        lane.refresh() after each; returns results, the epoch's states
+        and the lane's reports."""
+        results, states, reports = [], {0: eng.predictor_state_of(TAG_R)}, []
+        for i in range(0, len(reqs), every):
+            results += eng.serve_stream(reqs[i:i + every], warmup=False)
+            if lane is not None:
+                rep = lane.refresh(TAG_R)[TAG_R]
+                reports.append(rep)
+                if rep["swapped"]:
+                    states[rep["epoch"]] = eng.predictor_state_of(TAG_R)
+        return results, states, reports
+
+    def cold(pred, state, reqs):
+        """rid -> result of a fresh engine that serves `state` from the
+        start (depth 1, the same bucket)."""
+        eng = engine(pred)
+        if state is not None:
+            eng.swap_predictor(TAG_R, state)
+        out = {r.rid: r for r in eng.serve_stream(reqs, warmup=False)}
+        eng.close()
+        return out
+
+    def same(label, got, want):
+        for r in got:
+            w = want[r.rid]
+            if (not np.array_equal(r.perm, w.perm) or r.utility != w.utility
+                    or not np.array_equal(r.exposure, w.exposure)
+                    or r.compliant != w.compliant):
+                fail(f"phase R {label}: request {r.rid} differs")
+
+    def plain(label, pred, state, reqs, got):
+        """Every row of `got` against the plain version on `state`, on its
+        own padded row in full batches of its bucket."""
+        eng = ServingEngine(max_batch=32, device=dev)
+        eng.register_predictor(TAG_R, pred, d_cov=D)
+        p = with_state(pred, state)
+        bk = eng.bucket_of(reqs[0])
+        by_rid = {r.rid: r for r in got}
+        for i in range(0, len(reqs), bk.batch):
+            chunk = reqs[i:i + bk.batch]
+            staged = fill_staging(alloc_staging(bk, d_cov=D, device="cpu"),
+                                  chunk, bk)
+            t = {k: torch.tensor(v, device=dev) for k, v in staged.items()}
+            want = ref.predict_rank_audited_ref(
+                t["X"], p, t["u"], t["a"], t["b"], t["gamma"], bk.m2, EPS)
+            perm, comp = want[1].cpu().numpy(), want[4].cpu().numpy()
+            for j, r in enumerate(chunk):
+                g = by_rid[r.rid]
+                if not np.array_equal(g.perm, perm[j, :r.m2]) \
+                        or g.compliant != bool(comp[j]):
+                    fail(f"phase R {label}: request {r.rid} differs from "
+                         f"the plain version")
+        eng.close()
+
+    def per_epoch(label, pred, reqs, results, states):
+        """Hot against cold, epoch by epoch, and against the plain
+        version."""
+        by_epoch = {}
+        for r in results:
+            by_epoch.setdefault(r.epoch, set()).add(r.rid)
+        for epoch, rids in sorted(by_epoch.items()):
+            sub = [q for q in reqs if q.rid in rids]
+            hot = [r for r in results if r.rid in rids]
+            same(f"{label} epoch {epoch}", hot, cold(pred, states[epoch]
+                                                      if epoch else None,
+                                                      sub))
+            plain(f"{label} epoch {epoch}", pred, states[epoch], sub, hot)
+        return sorted(by_epoch)
+
+    report = {"config": dict(cfg, n_db=int(X_db.shape[0]), d=D, K=K_PRED,
+                             k=KNN_K, m1=1024, m2=50, drift="tighten x8 "
+                             "over 0.25-0.75")}
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "phase_r_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    store = CheckpointStore(str(ckpt_dir), keep_last=2)
+    for fam, pred in preds.items():
+        # refresh off, then on, over the same returning-user drift stream
+        eng = engine(pred)
+        off = counted(f"{fam} refresh off", eng,
+                      lambda: chunks(eng, drift)[0])
+        eng.close()
+        eng = engine(pred)
+        lane = RefreshLane(eng, eta=1.0, min_samples=8,
+                           checkpoint=store if fam == "knn" else None)
+        on, states, reports = counted(f"{fam} refresh on", eng,
+                                      lambda: chunks(eng, drift, lane))
+        swaps = [r for r in reports if r["swapped"]]
+        if len(swaps) < 2:
+            fail(f"phase R {fam}: {len(swaps)} swaps (reports "
+                 f"{[r['reason'] for r in reports]})")
+        s_off, s_on = shortfall(drift, off), shortfall(drift, on)
+        if not s_on < s_off:
+            fail(f"phase R {fam}: shortfall with the lane {s_on} is not "
+                 f"below {s_off} without it")
+        epochs = per_epoch(fam, pred, drift, on, states)
+        if fam == "knn_int8":
+            # each published pack is a full repack of its db, bitwise
+            for e, st in states.items():
+                full = pack_knn_db(st["X_db"], mode="int8", device=dev)
+                if not all(torch.equal(st[n], w) for n, w in
+                           zip(("X_q", "q_scale", "y2_q"), full)):
+                    fail(f"phase R int8 epoch {e}: the pack differs from "
+                         f"a full pack_knn_db of its db")
+        m = eng.metrics
+        row = {"swaps": len(swaps), "epochs_served": epochs,
+               "shortfall_off": s_off, "shortfall_on": s_on,
+               "shortfall_ratio": s_on / s_off,
+               "drain_update_ms": [r["ms"]["drain_update"] for r in swaps],
+               "swap_ms": [r["ms"]["swap"] for r in swaps],
+               "validate_ms": list(m.swap_validate_ms),
+               "flip_ms": list(m.swap_flip_ms),
+               "states_retired": m.states_retired}
+        if fam == "knn":
+            row["checkpoint_ms"] = [r["ms"]["checkpoint"] for r in swaps]
+            # rollback serves the pre-swap generation bitwise
+            last = max(states)
+            chunk = drift[-cfg["every"]:]
+            want = cold(pred, states[last - 1], chunk)
+            rb = lane.rollback(TAG_R)
+            got = counted("rollback", eng,
+                          lambda: eng.serve_stream(chunk, warmup=False))
+            if rb != last + 1 or any(r.epoch != rb for r in got):
+                fail(f"phase R rollback: epoch {rb}, served "
+                     f"{sorted({r.epoch for r in got})}")
+            same("rollback", got, want)
+            # a poisoned state is refused, counted, and serving stays on
+            # last-good
+            def poison(tag, st):
+                lam = st["lam_db"].clone()
+                lam[lam.shape[0] // 2 + 1, 2] = float("nan")
+                return {**st, "lam_db": lam}
+            lane.publish_filter = poison
+            counted("poisoned", eng, lambda: eng.serve_stream(
+                chunk, warmup=False))
+            rep = lane.refresh(TAG_R)[TAG_R]
+            if rep["swapped"] or "poisoned" not in str(rep["reason"]) \
+                    or m.refresh_failures != 1 \
+                    or eng.predictor_epoch(TAG_R) != rb:
+                fail(f"phase R poisoned swap: {rep}, failures "
+                     f"{m.refresh_failures}, epoch "
+                     f"{eng.predictor_epoch(TAG_R)}")
+            got = counted("last-good", eng, lambda: eng.serve_stream(
+                chunk, warmup=False))
+            same("last-good after the refusal", got, want)
+            # the newest checkpoint reloads and serves bitwise
+            t0 = time.perf_counter()
+            loaded, e = store.load_predictor_epoch(
+                TAG_R, like=predictor_state(pred), device=dev)
+            row["checkpoint_load_ms"] = (time.perf_counter() - t0) * 1e3
+            if e != last or not all(torch.equal(loaded[k], states[last][k])
+                                    for k in loaded):
+                fail(f"phase R checkpoint: epoch {e} of {last} does not "
+                     f"reload bitwise")
+            restored = engine(pred)
+            restored.swap_predictor(TAG_R, loaded, epoch=e)
+            got = restored.serve_stream(chunk, warmup=False)
+            restored.close()
+            if any(r.epoch != e for r in got):
+                fail("phase R checkpoint: the restored engine's epoch")
+            same("restored checkpoint", got, cold(pred, states[last], chunk))
+        eng.close()
+        report[fam] = row
+        log(f"phase R {fam} {json.dumps(row)} ({smi})")
+        del states, on, off, lane, eng
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # fresh users: each request's 10 nearest rows of 1M are almost never
+    # the few hundred the lane wrote (logged, not checked)
+    pred = preds["knn"]
+    f_out = {}
+    for on_ in (False, True):
+        eng = engine(pred)
+        lane = RefreshLane(eng, eta=1.0, min_samples=8) if on_ else None
+        res, _, reps = counted(f"fresh users, lane {on_}", eng,
+                               lambda: chunks(eng, fresh, lane))
+        f_out[on_] = (shortfall(fresh, res), sum(r["swapped"] for r in reps))
+        eng.close()
+    report["fresh_users"] = {"shortfall_off": f_out[False][0],
+                             "shortfall_on": f_out[True][0],
+                             "swaps": f_out[True][1]}
+    log(f"phase R fresh users {json.dumps(report['fresh_users'])} ({smi})")
+
+    # a stationary compliant stream at lambda-hat = 0: neutral to the bit
+    stat = stream(DriftSpec(kind="none"), cfg["n_stationary"],
+                  topic_rate=0.45, b_frac=0.01)
+    runs = {}
+    for on_ in (False, True):
+        eng = engine(pred, warm=stat)
+        lane = RefreshLane(eng, min_samples=8) if on_ else None
+        res, _, reps = counted(f"stationary, lane {on_}", eng,
+                               lambda: chunks(eng, stat, lane))
+        eng.close()
+        if not (on_ or all(r.compliant for r in res)):
+            fail("phase R stationary: the stream is not compliant without "
+                 "the lane")
+        if any(r["swapped"] or r["reason"] not in (
+                "no-pressure", "below-min-samples") for r in reps):
+            fail(f"phase R stationary: the lane published "
+                 f"{[r['reason'] for r in reps]}")
+        runs[on_] = {r.rid: r for r in res}
+    same("stationary", list(runs[True].values()), runs[False])
+
+    # the lane's device work alone: the ring write (a 32-row telemetry
+    # window into the 1M-row db, the db cloned) and the int8 repack of
+    # the slabs it touched
+    st = predictor_state(preds["knn_int8"])
+    X_new = torch.randn((cfg["every"], D), device=dev).cpu().numpy()
+    lam_new = np.ones((cfg["every"], K_PRED), np.float32)
+    ring = lambda: knn_ring_update(st["X_db"], st["lam_db"], X_new,  # noqa
+                                   lam_new, 1_048_000, return_written=True)
+    written = ring()[3]
+    repack = lambda: repack_knn_slabs(  # noqa: E731
+        st["X_db"], st["X_q"], st["q_scale"], st["y2_q"], written,
+        mode="int8", slab=st["X_q"].shape[0] // st["q_scale"].shape[0])
+    dev_ms = device_split({"ring_write": ring, "repack": repack})
+    n, nb = X_db.shape[0], 4 * (D + K_PRED)
+    report["lane_device"] = {
+        "ring_write_ms": time_ms(ring, 5),
+        "ring_write_device_ms": sum(dev_ms["ring_write"].values())
+        if isinstance(dev_ms["ring_write"], dict) else dev_ms["ring_write"],
+        "ring_write_bound_ms": 2 * n * nb / HBM_BYTES_PER_S * 1e3,
+        "repack_ms": time_ms(repack, 5),
+        "repack_device_ms": sum(dev_ms["repack"].values())
+        if isinstance(dev_ms["repack"], dict) else dev_ms["repack"],
+        "device_kernels": dev_ms}
+    log(f"phase R lane device work {json.dumps(report['lane_device'])} "
+        f"({smi})")
+
+    # p50/p99 with the lane on its thread against off, at 0.5 x C, turns
+    qps = 0.5 * capacity
+    load = stream(tighten, cfg["n_load"], users=cfg["users"])
+    arrivals = poisson_arrivals(len(load), qps, seed=seed + 3)
+    report["load"] = []
+    class TimedLane(RefreshLane):
+        """Records each pass's start (s since the run began) and wall ms."""
+
+        def __init__(self, eng, t0, **kw):
+            super().__init__(eng, **kw)
+            self.t0, self.passes = t0, []
+
+        def refresh(self, tag=None):
+            t = time.perf_counter()
+            out = super().refresh(tag)
+            self.passes.append((t - self.t0,
+                                (time.perf_counter() - t) * 1e3))
+            return out
+
+    def segments():
+        """The caching allocator's cudaMalloc count so far."""
+        return torch.cuda.memory_stats(dev).get("segment.all.allocated", 0)
+
+    for on_ in (False, True, True, False):
+        eng = engine(pred, max_wait_ms=2.0, warm=load)
+        pauses, started = [], []
+
+        def on_gc(phase, info):
+            if phase == "start":
+                started.append(time.perf_counter())
+            else:
+                pauses.append((time.perf_counter() - started.pop()) * 1e3)
+
+        t0, segs = time.perf_counter(), segments()
+        lane = (TimedLane(eng, t0, eta=1.0, min_samples=8) if on_
+                else None)
+        if lane is not None:
+            lane.start(cfg["interval_s"])
+        gc.callbacks.append(on_gc)
+        try:
+            res, ol = counted(f"load, lane {on_}", eng,
+                              lambda: serve_open_loop(eng, load, arrivals))
+        finally:
+            gc.callbacks.remove(on_gc)
+            if lane is not None:
+                lane.stop()
+        if len(res) != len(load):
+            fail(f"phase R load: {len(res)} results of {len(load)}")
+        s = eng.metrics.summary()
+        lat = eng.metrics.latencies_ms
+        eng.close()
+        report["load"].append({
+            "lane": on_, "offered_qps": ol["offered_qps"],
+            "achieved_qps": ol["achieved_qps"], "capacity_qps": capacity,
+            "p50_ms": s["latency_ms"]["p50"], "p99_ms": s["latency_ms"]["p99"],
+            "latency_ms_max": max(lat, default=0.0),
+            "over_10ms": sum(x > 10.0 for x in lat),
+            "hit_rate": s["deadline"]["hit_rate"],
+            "swaps": s["refresh"]["swaps"],
+            "refresh_failures": s["refresh"]["refresh_failures"],
+            "shortfall": shortfall(load, res),
+            "lane_passes_s_ms": lane.passes if lane is not None else [],
+            "validate_ms": list(eng.metrics.swap_validate_ms),
+            "cuda_mallocs": segments() - segs,
+            "gc_ms": {"collections": len(pauses), "total": sum(pauses),
+                      "max": max(pauses, default=0.0)}})
+        log(f"phase R load {json.dumps(report['load'][-1])} ({smi})")
+    report["seconds"] = time.perf_counter() - t_phase
+    return total, report
+
+
 def table23(rows):
     """Tables 2-3 of the paper from the Fig. 2 rows, as
     benchmarks/table23_regression.py computes them (a copy: this script
@@ -1870,6 +2294,17 @@ def main() -> int:
     log(f"phase S: capacity {load_report['capacity_qps']} req/s; "
         f"{json.dumps(load_report)}; launches {load_launches}")
 
+    # -- phase R: the refresh lane on the card -------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    refresh_launches, refresh_report = serve_refresh(
+        args.seed, dev, X_db, load_report["capacity_qps"], wrappers,
+        route_wrapper, smi)
+    log(f"phase R: {refresh_report['seconds']:.1f} s, launches "
+        f"{refresh_launches}")
+
     # -- phase L: the kernel library's entry points --------------------------
     entry = {"fused_rank": ops.fused_rank, "knn_topk": ops.knn_topk,
              "knn_predict_kernel": ops.knn_predict_kernel,
@@ -2010,10 +2445,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (offline_launches[name] + serve_launches[name]
-                         + load_launches[name] + lib_launches[name]),
+                         + load_launches[name] + refresh_launches[name]
+                         + lib_launches[name]),
             "launches_by_path": {"offline_holdout": offline_launches[name],
                                  "serving": serve_launches[name],
                                  "serving_under_load": load_launches[name],
+                                 "refresh": refresh_launches[name],
                                  "kernel_library": lib_launches[name]},
             "max_abs_err": err[name], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
@@ -2052,10 +2489,6 @@ def main() -> int:
                     for label in ("bucket", "large")}
             if name == "knn_topk":
                 rows[-1]["knn_predict_kernel_ms"] = predict_ms
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

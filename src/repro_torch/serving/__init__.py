@@ -1,6 +1,8 @@
 """Streaming serving engine of the port: shape-bucketed micro-batching
 with async double-buffered execution on a CUDA stream, deadlines and
-admission, and open-loop traffic (see engine.py and pipeline.py)."""
+admission, open-loop traffic, and the online lambda-refresh lane that
+hot-swaps predictor generations (see engine.py, pipeline.py and
+refresh.py)."""
 
 from repro_torch.serving.admission import (
     SHED_RUNG,
@@ -36,6 +38,13 @@ from repro_torch.serving.pipeline import (
     RankFuture,
     StagingRing,
 )
+from repro_torch.serving.refresh import (
+    RefreshLane,
+    dual_refresh_targets,
+    knn_ring_update,
+    ridge_refresh,
+    running_mean_update,
+)
 from repro_torch.serving.traffic import (
     DEFAULT_MIX,
     Scenario,
@@ -57,4 +66,6 @@ __all__ = [
     "ExecutionPipeline", "PendingBatch", "RankFuture", "StagingRing",
     "DEFAULT_MIX", "Scenario", "make_drift_stream", "make_request",
     "make_stream", "poisson_arrivals", "serve_open_loop",
+    "RefreshLane", "dual_refresh_targets", "knn_ring_update",
+    "ridge_refresh", "running_mean_update",
 ]

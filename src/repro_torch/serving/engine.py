@@ -35,15 +35,25 @@ the same slots and copies, with bitwise the same results. On the CPU
 (`device="cpu"`) the same ring runs without page-locking or events, and
 the worker thread still retires the batches.
 
+Predictor generations (the refresh lane's seam, serving/refresh.py):
+each tag serves a state dict (core.predictors.predictor_state) with a
+monotone epoch. `swap_predictor` checks a new state against the live
+one (keys, structure, shapes, dtypes, and finiteness on the device with
+one sync), makes the engine's stream wait for the stream that wrote it,
+then flips (state, epoch) under the lock every flush reads it under: a
+batch is dispatched against exactly one generation and stamps its
+epoch. The generation stays pinned until the batch has passed its event,
+and a superseded one is let go only when no batch pins it.
+
 Not in the port's engine yet: the adaptive lattice (buckets are the
-static `bucket_for`), predictor swaps and their epochs (`epoch` stays 0,
-as an unswapped JAX engine reports), the refresh lane, and the autotune
-table (ROADMAP Queue 1).
+static `bucket_for`), the autotune table, and the fleet, health and
+faults (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -51,9 +61,12 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.store import flatten_with_paths, unflatten_like
 from repro_torch.core.predictors import (
     LinearLambdaPredictor,
     MLPLambdaPredictor,
+    predictor_state,
+    with_state,
 )
 from repro_torch.core.ranking import RankingOutput
 from repro_torch.device import resolve_device
@@ -192,10 +205,25 @@ class ServingEngine:
         # legacy default stream would serialise with all other work
         self._stream = (torch.cuda.Stream(device=self.device)
                         if self.device.type == "cuda" else None)
+        # per tag: the registered predictor (the template whose family
+        # and non-array fields pick the route) and its live generation,
+        # the state dict the dispatcher serves with and a monotone epoch.
+        # A superseded generation waits in _old_states until no batch
+        # pins it (_inflight_gens counts the batches dispatched against
+        # each (tag, epoch) and not yet past their event).
         self._predictors: dict = {}
+        self._pred_state: dict[str, dict] = {}
+        self._pred_epoch: dict[str, int] = {}
+        self._old_states: dict[str, dict[int, dict]] = {}
+        self._inflight_gens: dict[tuple[str, int], int] = {}
+        self._swap_lock = threading.Lock()
+        self._refresh = None              # attached RefreshLane, if any
         self._d_cov: dict[str, int] = {}
         self._ladders: dict[str, tuple[str, ...]] = {}
+        # bucket -> (W, c, relu) of an affine predictor padded to the
+        # bucket's K, and the epoch it was built for: once a generation
         self._affine: dict[Bucket, tuple] = {}
+        self._affine_epoch: dict[Bucket, int] = {}
         self._queues: dict[Bucket, list] = {}
         self._rings: dict[Bucket, StagingRing] = {}
         self._launches: dict[Bucket, int] = {}
@@ -212,7 +240,8 @@ class ServingEngine:
         """Attach a fitted KNN (f32 or quantized), linear, mean or MLP
         predictor under `tag`. Its tensors, a KNN pack included, move to
         the engine's device once, here, and stay there; it prices
-        `predictor.num_constraints` constraints."""
+        `predictor.num_constraints` constraints. Its state is published
+        as the tag's generation 0."""
         if tag == LAM_TAG:
             raise ValueError(f"{LAM_TAG!r} is reserved for raw-lam requests")
         if predictor is None:
@@ -235,6 +264,9 @@ class ServingEngine:
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
         self._predictors[tag] = predictor
         self._d_cov[tag] = int(d_cov)
+        with self._swap_lock:
+            self._pred_state[tag] = predictor_state(predictor)
+            self._pred_epoch[tag] = 0
 
     def set_degradation_ladder(self, tag: str, fallbacks) -> None:
         """Register `tag`'s degradation ladder: when admission predicts
@@ -260,6 +292,167 @@ class ServingEngine:
                     f"ladder fallback {fb!r} emits {K_fb} shadow prices "
                     f"< the {K} that {tag!r} serves")
         self._ladders[tag] = fallbacks
+
+    # -- predictor hot swap (serving/refresh.py's engine seam) ---------------
+
+    def attach_refresh(self, lane) -> None:
+        """Attach a refresh lane: every predictor-served result's
+        (X, lambda-hat, exposure, b) row goes to `lane.observe` when the
+        result is built, from the outputs already on the host."""
+        self._refresh = lane
+
+    def predictor_epoch(self, tag: str) -> int:
+        """The tag's current predictor generation (0 = as registered)."""
+        return self._pred_epoch[tag]
+
+    def predictor_tags(self) -> tuple[str, ...]:
+        """Registered predictor tags (what a restarted replica restores
+        from epoch checkpoints)."""
+        return tuple(self._predictors)
+
+    def predictor_state_of(self, tag: str) -> dict:
+        """The tag's live state dict (tensors on the engine's device):
+        what the next flush dispatches against. The refresh lane builds
+        its updates on it and never writes into it."""
+        with self._swap_lock:
+            return self._pred_state[tag]
+
+    def predictor_template(self, tag: str):
+        """The registered predictor (its family and non-array fields
+        pick the route; its arrays are generation 0's, not necessarily
+        the live ones)."""
+        return self._predictors[tag]
+
+    def swap_predictor(self, tag: str, new, *, epoch: int | None = None
+                       ) -> int:
+        """Epoch-fenced two-phase swap of `tag`'s predictor state.
+
+        `new` is a state dict (core.predictors.predictor_state; tensors
+        on any device, or numpy) or a predictor to take the state from.
+        Phase 1 (publish) checks keys, structure, shapes and dtypes
+        against the live generation (shapes are frozen: the warmed
+        buckets and their rings were built for them) and raises
+        ValueError on a mismatch, moves the leaves to the engine's
+        device, and checks every float leaf finite there, with one sync
+        for all of them: a poisoned state is refused and serving stays
+        on the live generation. Phase 2 (flip) makes the engine's stream
+        wait for the stream that wrote the new state, then swaps the
+        (state, epoch) pair under the lock every flush reads it under,
+        so a batch is dispatched against exactly one generation. The
+        superseded generation is let go once no batch pins it.
+
+        Returns the new epoch. `epoch` pins the published generation's
+        number instead of current + 1 (a restored replica resumes its
+        checkpoint's epoch); epochs are monotone, so a pinned epoch at
+        or below the live one raises."""
+        if tag not in self._predictors:
+            raise KeyError(f"no predictor registered for tag {tag!r}")
+        t0 = time.perf_counter()
+        state = dict(new) if isinstance(new, dict) else predictor_state(new)
+        cur = self.predictor_state_of(tag)
+        if not cur:
+            raise ValueError(
+                f"swap {tag!r}: predictor family has no registered "
+                f"refreshable state (core.predictors.STATE_FIELDS)")
+        if set(state) != set(cur):
+            raise ValueError(
+                f"swap {tag!r}: state keys {sorted(state)} != "
+                f"{sorted(cur)} of the live generation")
+        cur_leaves = flatten_with_paths(cur)
+        new_leaves = flatten_with_paths(state)
+        if list(new_leaves) != list(cur_leaves):
+            raise ValueError(
+                f"swap {tag!r}: state tree structure differs from the "
+                f"live generation (the warmed buckets serve its layout)")
+        moved = {}
+        for path, leaf in new_leaves.items():
+            live = cur_leaves[path]
+            leaf = torch.as_tensor(leaf)
+            if leaf.shape != live.shape or leaf.dtype != live.dtype:
+                raise ValueError(
+                    f"swap {tag!r}: leaf {path} is {tuple(leaf.shape)}/"
+                    f"{leaf.dtype}, live generation has "
+                    f"{tuple(live.shape)}/{live.dtype} — shapes are "
+                    f"frozen (the no-recompile contract)")
+            moved[path] = leaf.to(self.device)
+        # finiteness on the device: one flag a float leaf, one sync (the
+        # 1M-row KNN db never comes to the host)
+        floats = [p for p, t in moved.items() if t.is_floating_point()]
+        if floats:
+            finite = torch.stack([torch.isfinite(moved[p]).all()
+                                  for p in floats]).cpu()
+            if not bool(finite.all()):
+                bad = floats[int(torch.nonzero(~finite)[0, 0])]
+                raise ValueError(
+                    f"swap {tag!r}: non-finite values in leaf {bad} — "
+                    f"poisoned state refused, serving stays on the live "
+                    f"generation")
+        state = unflatten_like(state, moved)
+        t1 = time.perf_counter()
+        if self._stream is not None:
+            # the new state was written on the caller's (or the lane's)
+            # stream; every batch dispatched after the flip reads it
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with self._swap_lock:             # phase 2: flip at a batch boundary
+            old_epoch = self._pred_epoch[tag]
+            new_epoch = old_epoch + 1 if epoch is None else int(epoch)
+            if new_epoch <= old_epoch:
+                raise ValueError(
+                    f"swap {tag!r}: pinned epoch {new_epoch} <= live epoch "
+                    f"{old_epoch} — epochs are monotone (restore resumes, "
+                    f"never rewinds)")
+            self._old_states.setdefault(tag, {})[old_epoch] = \
+                self._pred_state[tag]
+            self._pred_state[tag] = state
+            self._pred_epoch[tag] = new_epoch
+            self._retire_unpinned(tag)
+        self.metrics.on_swap(tag, validate_ms=(t1 - t0) * 1e3,
+                             flip_ms=(time.perf_counter() - t1) * 1e3)
+        return new_epoch
+
+    def _current_gen(self, tag: str) -> tuple[dict, int]:
+        """The (state, epoch) pair a flush dispatches against, read
+        atomically and pinned: the other half of the swap fence."""
+        with self._swap_lock:
+            epoch = self._pred_epoch[tag]
+            self._inflight_gens[(tag, epoch)] = (
+                self._inflight_gens.get((tag, epoch), 0) + 1)
+            return self._pred_state[tag], epoch
+
+    def _release_gen(self, tag: str, epoch: int) -> None:
+        """A batch dispatched against (tag, epoch) has passed its event:
+        unpin the generation and let it go if it is superseded and no
+        other batch still holds it."""
+        key = (tag, epoch)
+        with self._swap_lock:
+            n = self._inflight_gens.get(key, 1) - 1
+            if n <= 0:
+                self._inflight_gens.pop(key, None)
+            else:
+                self._inflight_gens[key] = n
+            self._retire_unpinned(tag)
+
+    def _retire_unpinned(self, tag: str) -> None:
+        # caller holds _swap_lock. Why the pins, on the card: a
+        # superseded generation's tensors were allocated on another
+        # stream (the caller's or the lane's), while batches on the
+        # engine's stream read them. Were its last reference dropped
+        # while such a batch is in flight, the caching allocator could
+        # hand the memory to a new allocation on the writer's stream,
+        # and a refresh could overwrite rows the batch still reads. So a
+        # generation stays referenced until every batch that pinned it
+        # has passed its event. record_stream is not used besides: when
+        # the pins let a generation go, no work that reads it is pending
+        # on the engine's stream, so there is nothing left for the
+        # allocator to wait for.
+        old = self._old_states.get(tag)
+        if not old:
+            return
+        cur = self._pred_epoch[tag]
+        for e in [e for e in old
+                  if e < cur and (tag, e) not in self._inflight_gens]:
+            del old[e]
+            self.metrics.on_state_retired(tag)
 
     # -- bucketing ----------------------------------------------------------
 
@@ -303,48 +496,85 @@ class ServingEngine:
 
     def _ring_for(self, bucket: Bucket) -> StagingRing:
         """The bucket's ring, allocated on first use with the bucket's
-        launch count and, for an affine predictor, its W and c padded to
-        the bucket's K. The ring holds one slot more than the in-flight
+        launch count. The ring holds one slot more than the in-flight
         window (depth queued + 1 retiring), so assembly of the next batch
         never waits for a slot."""
         ring = self._rings.get(bucket)
         if ring is None:
-            predictor = self._predictors.get(bucket.tag)
             with self._on_stream():
                 ring = StagingRing(bucket, d_cov=self._d_cov.get(bucket.tag),
                                    depth=self.pipeline_depth + 2,
                                    device=self.device)
-                if ops.route_of(predictor) == "affine":
-                    self._affine[bucket] = ref.affine_params(
-                        predictor, self._d_cov[bucket.tag], bucket.K)
             self._launches[bucket] = ops.kernel_launch_count(
-                predictor, bucket.m2, device=self.device)
+                self._predictors.get(bucket.tag), bucket.m2,
+                device=self.device)
             self._rings[bucket] = ring
         return ring
+
+    def _affine_for(self, bucket: Bucket, template, state: dict,
+                    epoch: int):
+        """An affine generation's W and c padded to the bucket's K, built
+        on the engine's stream once a (bucket, epoch). The previous
+        generation's pair was allocated on this stream too, so the
+        allocator reuses its memory only for work queued after the
+        batches that read it."""
+        if self._affine_epoch.get(bucket) != epoch:
+            self._affine[bucket] = ref.affine_params(
+                with_state(template, state), self._d_cov[bucket.tag],
+                bucket.K)
+            self._affine_epoch[bucket] = epoch
+        return self._affine[bucket]
+
+    def _pin(self, bucket: Bucket) -> tuple[dict | None, int]:
+        """The generation a batch of `bucket` dispatches against,
+        pinned; (None, 0) for lambda-given batches."""
+        if bucket.tag == LAM_TAG:
+            return None, 0
+        return self._current_gen(bucket.tag)
+
+    def _unpin(self, bucket: Bucket, epoch: int) -> None:
+        if bucket.tag != LAM_TAG:
+            self._release_gen(bucket.tag, epoch)
 
     def _dispatch(self, bucket: Bucket, ring: StagingRing, staged: dict):
         """One batch on the engine's stream: inputs to the slot's device
         set, ONE dispatcher call, outputs into the slot's host set, then
-        the slot's event (returned; None on the CPU). Nothing here waits
-        for the card."""
+        the slot's event. The epoch fence: the whole batch is dispatched
+        against the one generation read (and pinned) here; the caller
+        unpins it once the batch has passed the event. Returns (event,
+        epoch); the event is None on the CPU. Nothing here waits for the
+        card."""
         slot = ring.slot(staged)
+        state, epoch = self._pin(bucket)
+        try:
+            self._launch(bucket, slot, state, epoch)
+        except BaseException:  # noqa: BLE001 - re-raised: nothing ran
+            self._unpin(bucket, epoch)
+            raise
+        return slot.event, epoch
+
+    def _launch(self, bucket: Bucket, slot, state: dict | None,
+                epoch: int) -> None:
         with self._on_stream():
             t = slot.inputs
             for k, host in slot.host.items():
                 t[k].copy_(host, non_blocking=True)
             if bucket.tag == LAM_TAG:
-                X, predictor = t["lam"], None
+                out = ops.predict_rank_audited(
+                    t["lam"], None, t["u"], t["a"], t["b"], t["gamma"],
+                    m2=bucket.m2, eps=self.eps, device=self.device)
             else:
-                X, predictor = t["X"], self._predictors[bucket.tag]
-            out = ops.predict_rank_audited(
-                X, predictor, t["u"], t["a"], t["b"], t["gamma"],
-                m2=bucket.m2, eps=self.eps, affine=self._affine.get(bucket),
-                device=self.device)
+                template = self._predictors[bucket.tag]
+                affine = (self._affine_for(bucket, template, state, epoch)
+                          if ops.route_of(template) == "affine" else None)
+                out = ops.predict_rank_audited_stateful(
+                    state, template, t["X"], t["u"], t["a"], t["b"],
+                    t["gamma"], m2=bucket.m2, eps=self.eps, affine=affine,
+                    device=self.device)
             for k, dst in slot.output_views.items():
                 dst.copy_(getattr(out, k), non_blocking=True)
             if slot.event is not None:
                 slot.event.record(self._stream)
-        return slot.event
 
     def _wait(self, event) -> None:
         """Block until a batch's event has completed (the GIL is
@@ -358,7 +588,11 @@ class ServingEngine:
         ring = self._ring_for(bucket)
         staged = fill_staging(ring.acquire(), [], bucket)
         try:
-            self._wait(self._dispatch(bucket, ring, staged))
+            event, epoch = self._dispatch(bucket, ring, staged)
+            try:
+                self._wait(event)
+            finally:
+                self._unpin(bucket, epoch)
         finally:
             ring.release(staged)
 
@@ -540,7 +774,7 @@ class ServingEngine:
         staged = fill_staging(ring.acquire(), reqs, bucket)
         t_launch = self.clock()
         try:
-            event = self._dispatch(bucket, ring, staged)
+            event, epoch = self._dispatch(bucket, ring, staged)
         except BaseException as e:  # noqa: BLE001 - re-raised below
             # every future still resolves exactly once, and the slot
             # goes back: a leaked slot would deadlock acquire() later
@@ -557,7 +791,7 @@ class ServingEngine:
             materialize=self._materialize_batch, build=self._build_result,
             assembly_ms=(t_launch - t0) * 1e3,
             dispatch_ms=(t1 - t_launch) * 1e3,
-            fill=fill_stats(reqs, bucket), event=event)
+            fill=fill_stats(reqs, bucket), epoch=epoch, event=event)
         if self._pipeline is not None:
             self._pipeline.submit(pending)      # may block: backpressure
         else:
@@ -572,9 +806,9 @@ class ServingEngine:
 
     def _materialize_batch(self, pending: PendingBatch) -> None:
         """Wait for one batch's event, take its outputs out of the slot,
-        stamp completion, feed admission and recycle the slot. Runs on
-        the pipeline worker (depth >= 1) or inline (depth 0); it touches
-        the card only through the event."""
+        stamp completion, feed admission, recycle the slot and unpin the
+        batch's generation. Runs on the pipeline worker (depth >= 1) or
+        inline (depth 0); it touches the card only through the event."""
         self._wait(pending.event)
         slot = pending.ring.slot(pending.staged)
         # copies: the slot's outputs are rewritten by its next batch
@@ -587,6 +821,8 @@ class ServingEngine:
             self.admission.observe_service(pending.bucket.name, exec_ms)
         pending.ring.release(pending.staged)
         pending.staged = None
+        # only now, past the event, may the generation be let go
+        self._unpin(pending.bucket, pending.epoch)
 
     def _build_result(self, pending: PendingBatch, i: int) -> RankResult:
         """Unpad row `i` into its RankResult, once per row, on whichever
@@ -604,6 +840,20 @@ class ServingEngine:
         if self.admission is not None:
             self.admission.observe_result(
                 latency_ms, (entry.deadline - t_enq) * 1e3)
+        if self._refresh is not None and pending.bucket.tag != LAM_TAG:
+            # the refresh lane's dual-subgradient row, at the served
+            # tag's predictor width: covariates, the lambda-hat the batch
+            # served, exposure and b zero-padded past the request's K
+            K_pred = self._predictors[pending.bucket.tag].num_constraints
+            K_req = req.b.shape[0]
+            expo_row = np.zeros(K_pred, np.float32)
+            expo_row[:K_req] = exposure[:K_pred][:K_req]
+            b_row = np.zeros(K_pred, np.float32)
+            b_row[:K_req] = req.b[:K_pred][:K_req]
+            self._refresh.observe(
+                pending.bucket.tag, X=req.X,
+                lam=np.asarray(pending.out.lam[i, :K_pred], np.float32),
+                exposure=expo_row, b=b_row)
         return RankResult(rid=req.rid, perm=perm, utility=utility,
                           exposure=exposure, compliant=compliant,
                           bucket=pending.bucket.name, latency_ms=latency_ms,

@@ -1,7 +1,7 @@
 """Serving-engine counters, percentiles and pipeline stage timelines
 (counterpart of repro.serving.metrics.EngineMetrics; the port's engine
-has no lattice lane and no predictor refresh, so those two parts of the
-summary report their zero state, as the JAX engine's do when unused).
+has no lattice lane yet, so that part of the summary reports its zero
+state, as the JAX engine's does when unused).
 
 Recording is split the way the engine is: `on_dispatch` fires on the
 submission thread when a micro-batch is assembled and launched,
@@ -66,6 +66,21 @@ class EngineMetrics:
     # every deadline outcome also lands in its request's surface class
     surface_stats: dict = field(default_factory=lambda: defaultdict(
         lambda: {"hits": 0, "misses": 0, "sheds": 0, "degrades": 0}))
+    # predictor hot swap: swaps = generations published and flipped
+    # (engine.swap_predictor successes); refresh_failures = refresh
+    # attempts whose state the engine refused, or that crashed in the
+    # lane, serving staying on last-good each time; states_retired =
+    # superseded generations let go after their last pinned batch
+    # retired. swap_validate_ms / swap_flip_ms: each swap's host time
+    # checking the new state (shapes, dtypes, finiteness on the device,
+    # one sync) and flipping it live (the engine's stream waits for the
+    # writer's, then the (state, epoch) pair changes under the lock).
+    swaps: int = 0
+    refresh_failures: int = 0
+    states_retired: int = 0
+    swaps_by_tag: dict = field(default_factory=lambda: defaultdict(int))
+    swap_validate_ms: list = field(default_factory=list)
+    swap_flip_ms: list = field(default_factory=list)
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False)
 
@@ -142,6 +157,28 @@ class EngineMetrics:
             self.degrades += 1
             self.surface_stats[surface]["degrades"] += 1
 
+    def on_swap(self, tag: str, *, validate_ms: float,
+                flip_ms: float) -> None:
+        """A new predictor generation was published and flipped live
+        (engine.swap_predictor succeeded)."""
+        with self._lock:
+            self.swaps += 1
+            self.swaps_by_tag[tag] += 1
+            self.swap_validate_ms.append(validate_ms)
+            self.swap_flip_ms.append(flip_ms)
+
+    def on_refresh_failure(self, tag: str) -> None:
+        """A refresh attempt failed (state the engine refused, or a
+        crash inside the lane): serving kept the last-good generation."""
+        with self._lock:
+            self.refresh_failures += 1
+
+    def on_state_retired(self, tag: str) -> None:
+        """A superseded predictor generation was let go (its last pinned
+        batch retired)."""
+        with self._lock:
+            self.states_retired += 1
+
     # -- reporting ----------------------------------------------------------
 
     @staticmethod
@@ -205,8 +242,7 @@ class EngineMetrics:
             "compliance": self.compliant_sum / self.results
                           if self.results else nan,
             "deadline": self.deadline_summary(),
-            "refresh": {"swaps": 0, "swaps_by_tag": {},
-                        "refresh_failures": 0, "states_retired": 0},
+            "refresh": self.refresh_summary(),
             "lattice": {"lattice_swaps": 0, "lattice_rollbacks": 0,
                         "shadow_compiles": 0,
                         "shadow_warm_ms": self._pct([])},
@@ -224,6 +260,19 @@ class EngineMetrics:
             "real_flops": self.real_flops,
             "padded_flops": self.padded_flops,
         }
+
+    def refresh_summary(self) -> dict:
+        """Hot-swap view: generations published, refreshes refused or
+        crashed (serving stayed last-good), superseded generations let
+        go. Each swap's validate and flip times stay in
+        swap_validate_ms and swap_flip_ms."""
+        with self._lock:
+            return {
+                "swaps": self.swaps,
+                "swaps_by_tag": dict(self.swaps_by_tag),
+                "refresh_failures": self.refresh_failures,
+                "states_retired": self.states_retired,
+            }
 
     def deadline_summary(self) -> dict:
         """Hit rate over served requests (a shed is admission doing its

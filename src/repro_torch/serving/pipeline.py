@@ -260,8 +260,8 @@ class PendingBatch:
     dispatch_ms: float = 0.0
     depth_at_dispatch: int = 0
     fill: dict = field(default_factory=dict)
-    # predictor generation the batch was dispatched against: 0 while
-    # the port's engine swaps no predictor
+    # predictor generation the batch was dispatched against (pinned
+    # until materialize has passed the event)
     epoch: int = 0
     event: Any = None                 # recorded after the output copies
 

@@ -37,7 +37,14 @@ from repro_torch.kernels.knn_topk import (
     knn_topk_cuda,
 )
 from repro_torch.optim import adam_init, adam_update
-from repro_torch.serving import Scenario, ServingEngine, make_stream
+from repro_torch.data.synthetic import DriftSpec
+from repro_torch.serving import (
+    RefreshLane,
+    Scenario,
+    ServingEngine,
+    make_drift_stream,
+    make_stream,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -755,3 +762,117 @@ def test_pipeline_overlaps_and_the_worker_never_launches(card, monkeypatch):
     assert s["pipeline"]["overlap_ratio"] > 0.0
     assert s["dispatches_per_batch"] == 1.0
     assert threads and set(threads) == {threading.main_thread().name}
+
+
+def _same(got, want):
+    np.testing.assert_array_equal(got.perm, want.perm)
+    np.testing.assert_array_equal(got.exposure, want.exposure)
+    assert (got.utility, got.compliant) == (want.utility, want.compliant)
+
+
+def _cold(card, knn, state, reqs):
+    """rid -> result of a depth-0 engine serving `state` from the start."""
+    eng = ServingEngine(max_batch=32, max_wait_ms=1e9, pipeline_depth=0,
+                        device=card)
+    eng.register_predictor("knn", knn, d_cov=20)
+    eng.swap_predictor("knn", state)
+    out = {r.rid: r for r in eng.serve_stream(reqs)}
+    eng.close()
+    return out
+
+
+def test_mid_stream_refresh_at_depth_1_equals_cold_engines(card):
+    """The lane refreshes the KNN db (ring write on its own stream) while
+    batches are in flight at depth 1: every result is bitwise what a cold
+    engine serving its epoch's state gives."""
+    rng = np.random.default_rng(40)
+    knn = KNNLambdaPredictor.fit(_t(rng.normal(size=(5001, 20)), card),
+                                 _t(0.05 * np.abs(rng.normal(size=(5001, 5))),
+                                    card), k=10, device=card)
+    reqs = make_drift_stream(
+        DriftSpec(kind="tighten", magnitude=8.0, start=0.25, end=0.75),
+        tag="knn", n_requests=256, m1=1024, m2=50, K=5, d_cov=20, seed=41)
+    eng = ServingEngine(max_batch=32, max_wait_ms=1e9, pipeline_depth=1,
+                        device=card)
+    eng.register_predictor("knn", knn, d_cov=20)
+    lane = RefreshLane(eng, eta=1.0, min_samples=8)
+    eng.warmup(reqs)
+    states, results = {0: eng.predictor_state_of("knn")}, []
+    for i, r in enumerate(reqs):
+        results += eng.submit(r)
+        if i % 64 == 63:                    # batches still in flight
+            rep = lane.refresh("knn")["knn"]
+            if rep["swapped"]:
+                states[rep["epoch"]] = eng.predictor_state_of("knn")
+    results += eng.drain()
+    eng.close()
+    assert len(states) >= 3 and len(results) == len(reqs)
+    assert eng.metrics.kernel_launches > 0
+    by_epoch = {}
+    for r in results:
+        by_epoch.setdefault(r.epoch, []).append(r)
+    assert len(by_epoch) >= 2
+    for epoch, rs in by_epoch.items():
+        want = _cold(card, knn, states[epoch],
+                     [q for q in reqs if q.rid in {r.rid for r in rs}])
+        for r in rs:
+            _same(r, want[r.rid])
+
+
+def test_a_superseded_generation_is_not_reused_while_pinned(card):
+    """Generation 1 (written on a side stream) serves a batch held in
+    flight; generation 2 supersedes it. While the batch pins it, the
+    engine keeps generation 1 and allocations of its size on the stream
+    that wrote it never get its memory; once the batch retires it is let
+    go, and the batch's rows are bitwise generation 1's."""
+    knn, reqs = _serving_stream(card, n=192, seed=42)
+    reqs = [r for r in reqs if r.tag == "knn"][:32]
+    assert len(reqs) == 32
+    side = torch.cuda.Stream(card)
+    gens = {}
+    with torch.cuda.stream(side):
+        for e in (1, 2):
+            g = torch.Generator(device=card).manual_seed(e)
+            gens[e] = {"X_db": torch.randn(knn.X_db.shape, generator=g,
+                                           device=card),
+                       "lam_db": torch.rand(knn.lam_db.shape, generator=g,
+                                            device=card)}
+    gate = threading.Event()
+
+    class Gated(ServingEngine):
+        def _materialize_batch(self, pending):
+            assert gate.wait(timeout=60.0)
+            super()._materialize_batch(pending)
+
+    eng = Gated(max_batch=32, max_wait_ms=1e9, pipeline_depth=1,
+                device=card)
+    eng.register_predictor("knn", knn, d_cov=20)
+    gate.set()
+    eng.warmup(reqs)
+    gate.clear()
+    assert eng.swap_predictor("knn", gens[1]) == 1
+    retired = eng.metrics.states_retired      # generation 0, unpinned
+    ptrs = {k: v.data_ptr() for k, v in gens[1].items()}
+    nbytes = {k: v.numel() * v.element_size() for k, v in gens[1].items()}
+    del gens[1]
+    for r in reqs:                           # one capacity flush, held
+        eng.submit(r)
+    assert eng._inflight_gens == {("knn", 1): 1}
+    assert eng.swap_predictor("knn", gens[2]) == 2
+    assert set(eng._old_states["knn"]) == {1}
+    assert eng.metrics.states_retired == retired
+    with torch.cuda.stream(side):
+        fresh = [torch.empty(nbytes[k] // 4, device=card) for k in ptrs
+                 for _ in range(4)]
+    assert not {t.data_ptr() for t in fresh} & set(ptrs.values())
+    held = eng._old_states["knn"][1]
+    want = _cold(card, knn, {k: v.clone() for k, v in held.items()}, reqs)
+    del held
+    gate.set()
+    out = eng.drain()
+    assert eng._old_states["knn"] == {}
+    assert eng.metrics.states_retired == retired + 1
+    assert {r.epoch for r in out} == {1}
+    for r in out:
+        _same(r, want[r.rid])
+    eng.close()

@@ -3,6 +3,7 @@ its entry points default to the card and refuse to fall back to the
 CPU, and kernel_launch_count reports each route's launches."""
 
 import ast
+import tempfile
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from repro.core.predictors import MLPLambdaPredictor as JaxMLP
+from repro_torch.checkpoint import CheckpointStore
 from repro_torch.core import ranking
 from repro_torch.core.constraints import (
     exposure_quota_constraints,
@@ -50,10 +52,24 @@ from repro_torch.kernels.knn_topk import (
     knn_topk_cuda,
 )
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.refresh import RefreshLane, knn_ring_update
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "bench_rank.py"]
+
+
+def test_port_files_cover_the_refresh_slice():
+    for rel in ("src/repro_torch/serving/refresh.py",
+                "src/repro_torch/checkpoint/store.py",
+                "src/repro_torch/checkpoint/__init__.py"):
+        assert REPO / rel in PORT_FILES
+
+
+def _in_a_store(call):
+    """Run call(store) on a store in a throwaway directory."""
+    with tempfile.TemporaryDirectory() as d:
+        return call(CheckpointStore(d))
 
 
 def _imported_roots(path: Path) -> set:
@@ -110,6 +126,14 @@ def _default_device_calls():
     bag = torch.tensor([[0, 3, -1], [19, 2, 2]], dtype=torch.int32)
     return {
         "ServingEngine": lambda: ServingEngine(),
+        "RefreshLane": lambda: RefreshLane(ServingEngine()),
+        "knn_ring_update": lambda: knn_ring_update(
+            np.ones((20, 4)), np.ones((20, 3)), np.ones((2, 4)),
+            np.ones((2, 3)), 0),
+        "CheckpointStore.restore": lambda: _in_a_store(
+            lambda s: s.restore({"x": t["X"]})),
+        "CheckpointStore.load_predictor_epoch": lambda: _in_a_store(
+            lambda s: s.load_predictor_epoch("knn")),
         "ops.predict_rank_audited": lambda: ops.predict_rank_audited(
             t["X"], knn, t["u"], t["a"], t["b"], t["gamma"], m2=8),
         "ops.predict_rank_audited(lam)": lambda: ops.predict_rank_audited(
