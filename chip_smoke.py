@@ -128,6 +128,40 @@ Phases (any failure exits non-zero before a result is printed):
      0.5 x phase S's capacity with the lane on its thread (0.05 s)
      against off, in turns; every line with the card's name and power
      limit. Each driven run's launch counters equal its engine's;
+  A. the adaptive bucket lattice on the card (latency_serve.py's
+     run_lattice/check_lattice with its LATTICE_MIX_P0/P1, 64-request
+     chunks, max_batch 8 and lane settings), plus the serve_online KNN
+     surface (m1 jittered over 512-1024, m2=50, K=5, d=20, k=10, weight
+     2) over phase 2's 1,048,576 rows: one engine at depth 1 with a
+     LatticeLane; fails unless both re-warms are detector-gated swaps
+     (epochs 1 and 2), a poisoned proposal rolls back with the stream
+     going on, every chunk's rows are bitwise a cold engine's on that
+     chunk's lattice and equal to the plain version, the gate mix's
+     padding waste on c1 and c3 is at least 1.5x below a power-of-two
+     engine's on the same chunks, no ring is allocated on the dispatch
+     path, both the lambda-given and the KNN route ran at learned
+     corners, and each run's launch counters equal its flushed and
+     phantom batches'; logs the corners, shadow_warm_ms a corner, the
+     device ms a batch (torch.profiler) of c1 and c3 at the learned
+     corners and at the power-of-two ones, and p50/p99 of 2048 Poisson
+     requests of the phase-0 mix at 0.5 x phase S's capacity with a
+     lane.rewarm() fired from a side thread halfway through against
+     without it, in turns (every row against the plain version);
+  F. the replica fleet under chaos (latency_serve.py's run_fleet/
+     check_fleet: 3 replicas, its step clock, health settings and
+     FaultPlan.chaos(seed=17)) at serve_online's width: two KNN surfaces
+     (m1 = 1024 and 512, m2=50, K=5, d=20, k=10) over phase 2's db, each
+     replica an engine on its own stream with a RefreshLane and a
+     CheckpointStore under build/phase_f_ckpt (removed after); 512
+     requests, a fault-free prefix and a checkpointed refresh, then the
+     plan with refreshes; fails unless every rid is served exactly once,
+     no future is orphaned and none lost, a crash and a restart
+     happened, the restarted replica resumed at the checkpointed epoch,
+     the poisoned swap was refused, no incarnation allocated a ring on
+     the dispatch path, every served row equals the plain version with
+     the generation that served it, and the launch counters equal the
+     engines'; logs crashes, restarts, hedges, failovers, p50/p99 and
+     each restart's factory, reload and re-warm ms;
   L. the kernel library path: the entry points of repro_torch.kernels
      (ops.fused_rank, ops.knn_topk, ops.knn_predict_kernel,
      ops.embedding_bag) on phase 2's inputs, each output equal to phase
@@ -146,8 +180,8 @@ Phases (any failure exits non-zero before a result is printed):
      and bag_timings, which bench_rank.py runs on two checkouts for a
      before/after pair.
 The launch counters are set to 0 just before each of phase O's holdout
-paths, the serving path, each run of phases S and R and the kernel
-library path, and read just after each.
+paths, the serving path, each run of phases S, R and A, phase F and the
+kernel library path, and read just after each.
 Prints the kernel table as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 """
@@ -238,6 +272,36 @@ SERVE_LOAD = dict(n_requests=2048, max_batch=32, max_wait_ms=2.0,
 REFRESH = dict(n_requests=256, users=32, every=32, n_stationary=128,
                n_load=2048, interval_s=0.05)
 TAG_R = "knn"
+# phase A: latency_serve.py's run_lattice / check_lattice (its mixes,
+# chunks, lane settings and checks) plus the serve_online KNN surface
+# (m1 jittered over 512-1024) over phase 2's db; 2048 Poisson requests
+# of the phase-0 mix at 0.5 x phase S's capacity, with and without a
+# re-warm fired halfway through
+LATTICE = dict(chunk=64, max_batch=8, max_executables=8, min_samples=32,
+               rate_qps=50.0, lag_ms=5.0, patience_s=0.25, knn_weight=2.0,
+               n_load=2048, load_wait_ms=2.0, min_waste_cut=1.5)
+# phase F: latency_serve.py's run_fleet / check_fleet (3 replicas, its
+# step clock, health settings and FaultPlan.chaos(seed=17)) at
+# serve_online's width: two KNN surfaces (m1 = 1024 and 512) over phase
+# 2's db, a RefreshLane and a CheckpointStore a replica
+# latency_serve.py's LATTICE_MIX_P0 and _P1: candidate counts just past
+# a power of two, so the static lattice pads 2-3x; phase 1 moves the
+# heavy surface past the next boundary
+LATTICE_MIX_P0 = (
+    dict(name="feed_a", m1=540, m2=10, K=3, weight=4.0, m1_jitter=0.05,
+         surface="feed"),
+    dict(name="strip_a", m1=300, m2=8, K=5, weight=2.0, m1_jitter=0.1,
+         surface="strip"),
+    dict(name="notif_a", m1=140, m2=6, K=3, weight=1.0, m1_jitter=0.05,
+         surface="notif"))
+LATTICE_MIX_P1 = (
+    dict(name="feed_b", m1=1100, m2=12, K=3, weight=4.0, m1_jitter=0.05,
+         surface="feed"),
+    dict(name="strip_a", m1=300, m2=8, K=5, weight=2.0, m1_jitter=0.1,
+         surface="strip"))
+FLEET = dict(n_requests=512, max_batch=8, seed=17, slow_ms=1.0,
+             suspect_after_s=0.02, dead_after_s=0.5, backoff_base_s=0.02,
+             backoff_cap_s=0.2, step_s=1e-3, keep_last=2)
 MODES = ("int8", "bf16")
 QUANT_EXTRA = 8
 LIMIT_K = (20, 33, 64)        # k past 16: lists of 32, 64 and 128 (pack)
@@ -1467,6 +1531,640 @@ def serve_refresh(seed, dev, X_db, capacity, wrappers, route_wrapper, smi):
     return total, report
 
 
+def plain_table(dev, groups):
+    """rid -> (perm, compliant) of the plain version on each request's
+    padded row in its bucket. `groups` maps (bucket, predictor or None)
+    to requests; the rows go through in chunks of up to 64 (a row's
+    answer does not depend on its batchmates)."""
+    from repro_torch.kernels import ref
+    from repro_torch.serving import alloc_staging, fill_staging
+
+    table = {}
+    for (bk, pred), reqs in groups.items():
+        for i in range(0, len(reqs), 64):
+            chunk = reqs[i:i + 64]
+            bkc = dataclasses.replace(bk, batch=len(chunk))
+            staged = fill_staging(alloc_staging(
+                bkc, d_cov=None if pred is None else D, device="cpu"),
+                chunk, bkc)
+            t = {k: torch.tensor(v, device=dev) for k, v in staged.items()}
+            if pred is None:
+                want = ref.rank_audited_ref(t["u"], t["a"], t["b"], t["lam"],
+                                            t["gamma"], bkc.m2, EPS)
+            else:
+                want = ref.predict_rank_audited_ref(
+                    t["X"], pred, t["u"], t["a"], t["b"], t["gamma"],
+                    bkc.m2, EPS)
+            perm, comp = want[1].cpu().numpy(), want[4].cpu().numpy()
+            for j, r in enumerate(chunk):
+                table[r.rid] = (perm[j, :r.m2], bool(comp[j]))
+    return table
+
+
+def check_plain(label, results, table):
+    for r in results:
+        perm, comp = table[r.rid]
+        if not np.array_equal(r.perm, perm) or r.compliant != comp:
+            fail(f"{label}: request {r.rid} differs from the plain version")
+
+
+def gc_pauses():
+    """Start recording the collector's pauses (ms); returns the list and
+    a function that stops the recording."""
+    pauses, started = [], []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        else:
+            pauses.append((time.perf_counter() - started.pop()) * 1e3)
+
+    gc.callbacks.append(on_gc)
+    return pauses, lambda: gc.callbacks.remove(on_gc)
+
+
+def serve_lattice(seed, dev, knn, capacity, wrappers, route_wrapper, smi):
+    """Phase A: the adaptive lattice on the card (latency_serve.py's
+    run_lattice/check_lattice: its mixes, chunks, lane settings and
+    checks), with the serve_online KNN surface beside the gate's mix.
+    One engine (pipeline depth 1) with a LatticeLane serves the chunks:
+    c0 on the power-of-two lattice, a detector-gated re-warm (no trough,
+    then a trough), c1, the phase shift c2, a second gated re-warm, c3, a
+    poisoned proposal rolled back, c4. Checks: two gated swaps; the
+    rollback with the stream going on; every chunk's rows bitwise a cold
+    engine's on that chunk's lattice and equal to the plain version; the
+    gate's mix padded at least 1.5x less than on a power-of-two engine
+    serving c1 and c3; no ring allocated on the dispatch path; each
+    run's launch counters equal to its flushed and phantom batches'
+    route launches. Logs the corners, shadow_warm_ms a corner, the
+    device ms a batch (torch.profiler) of c1 and c3 at the learned
+    corners against the power-of-two ones, and p50/p99 of Poisson load
+    at 0.5 x phase S's capacity with a lane.rewarm() fired from a side
+    thread halfway through, against the same stream without it, in
+    turns. Returns (launches summed over the driven runs, report)."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (
+        Lattice,
+        LatticeLane,
+        Scenario,
+        ServingEngine,
+        TroughDetector,
+        make_stream,
+        poisson_arrivals,
+        serve_open_loop,
+    )
+    from repro_torch.serving.buckets import bucket_for, fill_stats
+
+    cfg = LATTICE
+    Bm = cfg["max_batch"]
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(wrappers, 0)
+    knn_s = Scenario("serve_online_knn", m1=1024, m2=50, K=K_PRED,
+                     tag="knn", d_cov=D, m1_jitter=0.5,
+                     weight=cfg["knn_weight"], surface="online")
+    mix0 = tuple(Scenario(**kw) for kw in LATTICE_MIX_P0) + (knn_s,)
+    mix1 = tuple(Scenario(**kw) for kw in LATTICE_MIX_P1) + (knn_s,)
+    s0 = seed + 29
+    chunks = [make_stream(mix0, n_requests=cfg["chunk"], seed=s0),
+              make_stream(mix0, n_requests=cfg["chunk"], seed=s0 + 1),
+              make_stream(mix1, n_requests=cfg["chunk"], seed=s0 + 2),
+              make_stream(mix1, n_requests=cfg["chunk"], seed=s0 + 3),
+              make_stream(mix1, n_requests=Bm, seed=s0 + 4)]
+    for i, r in enumerate(r for c in chunks[1:] for r in c):
+        r.rid = 10_000 + i
+    full = [r for c in chunks for r in c]
+
+    class LatticeEngine(ServingEngine):
+        """Records each flushed batch (bucket, requests), each phantom
+        batch's bucket and each result's enqueue time."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.batches, self.phantoms, self.t_enq = [], [], {}
+
+        def _build_result(self, pending, i):
+            res = super()._build_result(pending, i)
+            self.t_enq[res.rid] = pending.entries[i].t_enq
+            return res
+
+        def _materialize_batch(self, pending):
+            self.batches.append((pending.bucket,
+                                 [e.req for e in pending.entries]))
+            super()._materialize_batch(pending)
+
+        def _phantom(self, bucket, ring, fn):
+            self.phantoms.append(bucket)
+            super()._phantom(bucket, ring, fn)
+
+    def engine(lattice=None, wait_ms=1e9, warm=full):
+        eng = LatticeEngine(max_batch=Bm, max_wait_ms=wait_ms, eps=EPS,
+                            pipeline_depth=1, lattice=lattice, device=dev)
+        eng.register_predictor("knn", knn, d_cov=D)
+        eng.warmup(warm)
+        return eng
+
+    def lane_of(eng):
+        return LatticeLane(eng, max_executables=cfg["max_executables"],
+                           min_samples=cfg["min_samples"],
+                           detector=TroughDetector(
+                               rate_threshold_qps=cfg["rate_qps"],
+                               lag_threshold_ms=cfg["lag_ms"],
+                               patience_s=cfg["patience_s"]))
+
+    def launches_of(buckets, eng):
+        out = dict.fromkeys(wrappers, 0)
+        for bk in buckets:
+            pred = eng._predictors.get(bk.tag)
+            out[route_wrapper(pred, bk.m2)] += ops.kernel_launch_count(
+                pred, bk.m2)
+        return out
+
+    def counted(label, engs, drive):
+        """Drive the engine(s) `engs` with the counters at 0: they must
+        equal the flushed and phantom batches' route launches, and the
+        engines' own counts the flushed ones'."""
+        engs = engs if isinstance(engs, list) else [engs]
+        for e_ in engs:
+            e_.batches.clear()
+            e_.phantoms.clear()
+        before = sum(e_.metrics.kernel_launches for e_ in engs)
+        reset_counters(wrappers)
+        out = drive()
+        torch.cuda.synchronize()
+        launches = read_counters(wrappers)
+        flushed = launches_of([b for e_ in engs for b, _ in e_.batches],
+                              engs[0])
+        phantom = launches_of([b for e_ in engs for b in e_.phantoms],
+                              engs[0])
+        expect = {k: flushed[k] + phantom[k] for k in wrappers}
+        metric = sum(e_.metrics.kernel_launches for e_ in engs) - before
+        if launches != expect or metric != sum(flushed.values()):
+            fail(f"phase A {label}: launch counters {launches} != flushed "
+                 f"{flushed} + phantom {phantom} (metrics {metric})")
+        for k, v in launches.items():
+            total[k] += v
+        return out
+
+    def same(label, got, want):
+        for r in got:
+            w = want[r.rid]
+            if (not np.array_equal(r.perm, w.perm) or r.utility != w.utility
+                    or not np.array_equal(r.exposure, w.exposure)
+                    or r.compliant != w.compliant):
+                fail(f"phase A {label}: request {r.rid} differs")
+
+    def plain(label, eng, reqs, got):
+        """Every row of `got` against the plain version in its bucket."""
+        names = {b.name: b for b in eng._rings}
+        by_rid = {r.rid: r for r in reqs}
+        groups = {}
+        for r in got:
+            bk = names[r.bucket]
+            pred = knn if bk.tag == "knn" else None
+            groups.setdefault((bk, pred), []).append(by_rid[r.rid])
+        check_plain(f"phase A {label}", got, plain_table(dev, groups))
+
+    def waste(batches, knn_rows=None):
+        """Padded over real rank+audit work of `batches`: the KNN ones
+        (True), the others (False) or all (None)."""
+        real = padded = 0
+        for bk, reqs in batches:
+            if knn_rows is not None and (bk.tag == "knn") != knn_rows:
+                continue
+            f = fill_stats(reqs, bk)
+            real += f["real_flops"]
+            padded += f["padded_flops"]
+        return padded / real
+
+    def learned(bk):
+        return bk != bucket_for(m1=bk.m1, m2=bk.m2, K=bk.K, tag=bk.tag,
+                                batch=bk.batch)
+
+    report = {"config": dict(cfg, mix_p0=LATTICE_MIX_P0,
+                             mix_p1=LATTICE_MIX_P1,
+                             knn_surface="m1 512-1024, m2 50, K 5, d 20, "
+                                         "k 10, n_db 1,048,576")}
+    # -- the gate: two detector-gated swaps, a rollback, five chunks -------
+    eng = engine()
+    lane = lane_of(eng)
+    served, gated, marks, warmed = [], [], [], []
+
+    def drive():
+        for i, c in enumerate(chunks):
+            if i == 4:
+                lane.propose = lambda: Lattice(corners=((64, 128, 4),))
+                gated.append(lane.rewarm())
+                del lane.propose
+            got = eng.serve_stream(c, warmup=False)
+            marks.append(len(eng.batches))
+            served.append((eng.lattice_epoch(), eng.lattice(), c, got))
+            if i in (0, 2):
+                now, before = eng.clock(), eng.metrics.shadow_compiles
+                gated.append((lane.maybe_rewarm(now + 0.1),
+                              lane.maybe_rewarm(now + 1.0)))
+                warmed.append(eng.metrics.shadow_compiles - before)
+
+    counted("gate", eng, drive)
+    m = eng.metrics
+    (no1, swap1), (no2, swap2), rollback = gated
+    if not (no1["reason"] == no2["reason"] == "no-trough"
+            and swap1["swapped"] and swap2["swapped"]
+            and m.lattice_swaps == 2):
+        fail(f"phase A: the swaps were not detector-gated: {gated[:2]}")
+    if (rollback["swapped"] or "rewarm-failed" not in rollback["reason"]
+            or m.lattice_rollbacks != 1 or served[4][0] != 2
+            or len(served[4][3]) != len(chunks[4])):
+        fail(f"phase A rollback: {rollback}, rollbacks "
+             f"{m.lattice_rollbacks}")
+    if [e for e, _, _, _ in served] != [0, 1, 1, 2, 2]:
+        fail(f"phase A: chunk epochs {[e for e, _, _, _ in served]}")
+    for e, _, _, got in served:
+        if any(r.lattice_epoch != e for r in got):
+            fail(f"phase A: a row's lattice_epoch stamp is not {e}")
+    if (m.compiles_post_warmup or not m.shadow_compiles
+            or m.executable_calls != m.batches):
+        fail(f"phase A: compiles_post_warmup {m.compiles_post_warmup}, "
+             f"shadow_compiles {m.shadow_compiles}, executable_calls "
+             f"{m.executable_calls} of {m.batches} batches")
+    measured = (eng.batches[marks[0]:marks[1]]
+                + eng.batches[marks[2]:marks[3]])
+    at_corners = sorted({bk.name for bk, _ in measured if learned(bk)})
+    for tag in ("knn", "_lam"):
+        if not any(n.startswith(tag + "/") for n in at_corners):
+            fail(f"phase A: no {tag} batch ran at a learned corner")
+    # every chunk bitwise a cold engine's on its lattice, and plain
+    for i, (e, lattice, reqs, got) in enumerate(served):
+        cold = engine(lattice if lattice.adaptive else None, warm=reqs)
+        want = counted(f"cold {i}", cold,
+                       lambda: cold.serve_stream(reqs, warmup=False))
+        cold.close()
+        same(f"chunk {i} (epoch {e}) against a cold engine", got,
+             {r.rid: r for r in want})
+        plain(f"chunk {i}", eng, reqs, got)
+    # padding: the same chunks on a power-of-two engine
+    base = engine()
+    counted("power of two", base, lambda: (
+        base.serve_stream(chunks[1], warmup=False),
+        base.serve_stream(chunks[3], warmup=False)))
+    base_batches, base_cpw = list(base.batches), \
+        base.metrics.compiles_post_warmup
+    base.close()
+    pad = {label: {"pow2": waste(base_batches, rows),
+                   "adaptive": waste(measured, rows)}
+           for label, rows in (("gate_mix", False), ("knn", True),
+                               ("all", None))}
+    for row in pad.values():
+        row["cut"] = row["pow2"] / row["adaptive"]
+    if not pad["gate_mix"]["cut"] >= cfg["min_waste_cut"]:
+        fail(f"phase A: the learned lattice cut the gate mix's padding "
+             f"{pad['gate_mix']['cut']}x (< {cfg['min_waste_cut']}x): "
+             f"{pad}")
+    report.update({
+        "swaps": m.lattice_swaps, "rollbacks": m.lattice_rollbacks,
+        "shadow_compiles": m.shadow_compiles,
+        "compiles_post_warmup": m.compiles_post_warmup,
+        "base_compiles_post_warmup": base_cpw,
+        "corners": [list(swap1["corners"]), list(swap2["corners"])],
+        "corners_warmed": warmed,
+        "shadow_warm_ms": [swap1["warm_ms"], swap2["warm_ms"]],
+        "shadow_warm_ms_a_corner": [r["warm_ms"] / max(n, 1) for r, n in
+                                    zip((swap1, swap2), warmed)],
+        "learned_corners_served": at_corners,
+        "padding_waste": pad})
+    log(f"phase A gate {json.dumps(report)} ({smi})")
+
+    # -- device ms a batch: c1 and c3 at the learned corners and at the
+    # power-of-two ones (torch.profiler, every kernel and copy)
+    report["device"] = {}
+    for label, lats in (("learned", (served[1][1], served[3][1])),
+                        ("pow2", (None, None))):
+        engs = [engine(lat, warm=c) for lat, c in zip(lats, (chunks[1],
+                                                             chunks[3]))]
+        kernels = {}
+
+        def drive_profiled():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for e_, c in zip(engs, (chunks[1], chunks[3])):
+                    e_.serve_stream(c, warmup=False)
+                torch.cuda.synchronize()
+            for ev in prof.key_averages():
+                if ev.device_time_total > 0:
+                    kernels[ev.key.split("(")[0].replace("void ", "")] = \
+                        ev.device_time_total / 1e3
+
+        try:
+            counted(f"profiled {label}", engs, drive_profiled)
+        except (RuntimeError, AssertionError) as exc:
+            kernels = f"not measured: {str(exc)[:120]}"
+        batches = sum(e_.metrics.batches for e_ in engs)
+        row = {"batches": batches,
+               "knn_batches": sum(bk.tag == "knn" for e_ in engs
+                                  for bk, _ in e_.batches)}
+        if isinstance(kernels, dict):
+            row.update(device_ms=sum(kernels.values()),
+                       device_ms_a_batch=sum(kernels.values()) / batches,
+                       by_kernel=kernels)
+        else:
+            row["device_ms"] = kernels
+        for e_ in engs:
+            e_.close()
+        report["device"][label] = row
+    log(f"phase A device {json.dumps(report['device'])} ({smi})")
+
+    # -- p50/p99 at 0.5 x C, a re-warm fired halfway through, in turns
+    qps = 0.5 * capacity
+    load = make_stream(mix0, n_requests=cfg["n_load"], seed=s0 + 5)
+    arrivals = poisson_arrivals(len(load), qps, seed=s0 + 6)
+    report["load"] = []
+
+    def segments():
+        return torch.cuda.memory_stats(dev).get("segment.all.allocated", 0)
+
+    for on_ in (False, True, True, False):
+        eng = engine(wait_ms=cfg["load_wait_ms"], warm=load)
+        lane = lane_of(eng)
+        fired, marks_s = {}, {}
+        t_run = time.perf_counter()
+        propose = lane.propose
+
+        def timed_propose():
+            # the optimizer's pass over the live histogram, apart from
+            # the shadow warm and the flip
+            marks_s["propose_start"] = time.perf_counter() - t_run
+            out = propose()
+            marks_s["propose_end"] = time.perf_counter() - t_run
+            return out
+
+        lane.propose = timed_propose
+
+        def fire():
+            time.sleep(float(arrivals[len(load) // 2]))
+            t = time.perf_counter()
+            fired.update(lane.rewarm())
+            fired["wall_ms"] = (time.perf_counter() - t) * 1e3
+            marks_s["rewarm_end"] = time.perf_counter() - t_run
+
+        def drive_load():
+            side = threading.Thread(target=fire) if on_ else None
+            if side is not None:
+                side.start()
+            out = serve_open_loop(eng, load, arrivals)
+            if side is not None:
+                side.join()
+            return out
+
+        segs = segments()
+        pauses, stop = gc_pauses()
+        try:
+            res, ol = counted(f"load, re-warm {on_}", eng, drive_load)
+        finally:
+            stop()
+        if sorted(r.rid for r in res) != list(range(len(load))):
+            fail(f"phase A load: {len(res)} results of {len(load)}")
+        plain(f"load, re-warm {on_}", eng, load, res)
+        s = eng.metrics.summary()
+        lat = eng.metrics.latencies_ms
+        epochs = {}
+        for r in res:
+            epochs[r.lattice_epoch] = epochs.get(r.lattice_epoch, 0) + 1
+        slowest = max(res, key=lambda r: r.latency_ms)
+        marks_s["slowest_enqueued"] = eng.t_enq[slowest.rid] - t_run
+        eng.close()
+        report["load"].append({
+            "rewarm": on_, "offered_qps": ol["offered_qps"],
+            "achieved_qps": ol["achieved_qps"], "capacity_qps": capacity,
+            "p50_ms": s["latency_ms"]["p50"], "p99_ms": s["latency_ms"]["p99"],
+            "latency_ms_max": max(lat, default=0.0),
+            "over_10ms": sum(x > 10.0 for x in lat),
+            "rows_by_lattice_epoch": {str(k): v for k, v in epochs.items()},
+            "compiles_post_warmup": s["compiles_post_warmup"],
+            "lattice": s["lattice"],
+            "rewarm_report": {k: v for k, v in fired.items()
+                              if k in ("swapped", "epoch", "warm_ms",
+                                       "wall_ms", "reason")},
+            "timeline_s": marks_s,
+            "cuda_mallocs": segments() - segs,
+            "gc_ms": {"collections": len(pauses), "total": sum(pauses),
+                      "max": max(pauses, default=0.0)}})
+        log(f"phase A load {json.dumps(report['load'][-1])} ({smi})")
+        if on_ and not fired.get("swapped"):
+            fail(f"phase A load: the re-warm did not swap: {fired}")
+    report["seconds"] = time.perf_counter() - t_phase
+    return total, report
+
+
+def serve_fleet(seed, dev, knn, wrappers, route_wrapper, smi):
+    """Phase F: the replica fleet under chaos on the card (latency_serve
+    .py's run_fleet/check_fleet: 3 replicas, its step clock, health
+    settings and FaultPlan.chaos(seed=17)) at serve_online's width: two
+    KNN surfaces (m1 = 1024 and 512, m2 = 50, K = 5, d = 20, k = 10) over
+    phase 2's 1,048,576-row db, each replica a ServingEngine (depth 1, its
+    own stream) with a RefreshLane and a CheckpointStore under build/
+    (removed after). 512 requests: a fault-free prefix and a checkpointed
+    refresh, then the plan, with refreshes. Checks: every rid served
+    exactly once, no orphaned future or lost request, a crash and a
+    restart, the restarted replica resumed at the checkpointed epoch,
+    the poisoned swap refused, no ring allocated on the dispatch path
+    across every incarnation, every served row equal to the plain
+    version on its padded row with the generation that served it, and
+    the launch counters equal to the engines' flushed and phantom
+    batches' launches. Returns (launches, report)."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.core.predictors import with_state
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (
+        FaultInjector,
+        FaultPlan,
+        FleetRouter,
+        HealthConfig,
+        RefreshLane,
+        Scenario,
+        ServingEngine,
+        Shed,
+        make_stream,
+    )
+
+    cfg = FLEET
+    t_phase = time.perf_counter()
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "phase_f_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    made = []
+
+    class FleetEngine(ServingEngine):
+        """Keeps each generation it served (by epoch), the results it
+        built and its phantom batches."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.states, self.built, self.phantoms = {}, [], []
+
+        def register_predictor(self, tag, predictor, *, d_cov):
+            super().register_predictor(tag, predictor, d_cov=d_cov)
+            self.states[0] = self.predictor_state_of(tag)
+
+        def swap_predictor(self, tag, new, *, epoch=None):
+            e = super().swap_predictor(tag, new, epoch=epoch)
+            self.states[e] = self.predictor_state_of(tag)
+            return e
+
+        def _build_result(self, pending, i):
+            res = super()._build_result(pending, i)
+            self.built.append(res)
+            return res
+
+        def _phantom(self, bucket, ring, fn):
+            self.phantoms.append(bucket)
+            super()._phantom(bucket, ring, fn)
+
+    def factory(name):
+        eng = FleetEngine(max_batch=cfg["max_batch"], max_wait_ms=1e9,
+                          eps=EPS, pipeline_depth=1, device=dev)
+        eng.register_predictor(TAG_R, knn, d_cov=D)
+        made.append(eng)
+        store = CheckpointStore(str(ckpt_dir / name),
+                                keep_last=cfg["keep_last"])
+        return eng, RefreshLane(eng, eta=0.5, min_samples=8,
+                                checkpoint=store)
+
+    def step_clock():
+        t = [0.0]
+
+        def clock():
+            t[0] += cfg["step_s"]
+            return t[0]
+        return clock
+
+    mix = tuple(Scenario(name, m1=m1, m2=50, K=K_PRED, tag=TAG_R, d_cov=D,
+                         m1_jitter=0.0, b_frac=0.25, weight=w, surface=name)
+                for name, m1, w in (("feed", 1024, 2.0), ("strip", 512, 1.0)))
+    n = cfg["n_requests"]
+    reqs = make_stream(mix, n_requests=n, seed=seed + cfg["seed"] + 1)
+    router = FleetRouter(
+        factory, 3, clock=step_clock(),
+        health=HealthConfig(suspect_after_s=cfg["suspect_after_s"],
+                            dead_after_s=cfg["dead_after_s"]),
+        heartbeat_interval_s=float("inf"),
+        backoff_base_s=cfg["backoff_base_s"],
+        backoff_cap_s=cfg["backoff_cap_s"], seed=cfg["seed"])
+    router.warmup(reqs)
+    torch.cuda.synchronize()
+    for e in made:
+        e.phantoms.clear()
+    reset_counters(wrappers)
+
+    def serve(chunk, out):
+        for r in chunk:
+            out += router.submit(r)
+            out += router.poll()
+            router.tick()
+
+    results, prefix = [], n // 4
+    serve(reqs[:prefix], results)
+    results += router.drain()
+    order = []
+    for r in reqs:
+        name = router.replicas[router._owners(router._bucket_key(r))[0]].name
+        if name not in order:
+            order.append(name)
+    order += [rep.name for rep in router.replicas if rep.name not in order]
+    pre = router.refresh()[order[0]][TAG_R]
+    if not (pre["swapped"] and pre.get("checkpointed")):
+        fail(f"phase F: the prefix refresh did not checkpoint: {pre}")
+    plan = FaultPlan.chaos(order, seed=cfg["seed"], slow_ms=cfg["slow_ms"])
+    router.fault_plan = plan
+    for rep in router.replicas:
+        rep.injector = FaultInjector(plan.faults_for(rep.name), rep.name)
+        rep.lane.publish_filter = (
+            lambda tag, state, inj=rep.injector: inj.poison_state(state))
+    router.arm_faults()
+    rest, refused = reqs[prefix:], 0
+    step = max(1, len(rest) // 3)
+    for i in range(0, len(rest), step):
+        serve(rest[i:i + step], results)
+        for reports in router.refresh().values():
+            reason = str(reports.get(TAG_R, {}).get("reason", ""))
+            refused += reason.startswith("refused")
+    results += router.drain()
+    torch.cuda.synchronize()
+    launches = read_counters(wrappers)
+    s = router.fleet_summary()
+    served = [r for r in results if not isinstance(r, Shed)]
+    crashed = next(r for r in router.replicas if r.name == order[0])
+    restored = (crashed.restore_history[0].get(TAG_R)
+                if crashed.restore_history else None)
+    cpw = sum(e.metrics.compiles_post_warmup for e in made)
+    if sorted(r.rid for r in served) != list(range(n)):
+        fail(f"phase F: served {len(served)} rids, not each of {n} once")
+    if s["orphaned_futures"] or s["lost"]:
+        fail(f"phase F: {s['orphaned_futures']} orphaned futures, "
+             f"{s['lost']} lost")
+    if s["crashes"] < 1 or s["restarts"] < 1:
+        fail(f"phase F: crashes {s['crashes']}, restarts {s['restarts']}")
+    if restored != pre["epoch"]:
+        fail(f"phase F: the restarted replica resumed at epoch {restored}, "
+             f"not the checkpointed {pre['epoch']}")
+    if refused < 1:
+        fail("phase F: no poisoned swap was refused")
+    if cpw:
+        fail(f"phase F: {cpw} rings allocated on the dispatch path")
+    # every served row against the plain version, with the generation of
+    # the incarnation that built it
+    owner = {id(res): e for e in made for res in e.built}
+    by_rid = {r.rid: r for r in reqs}
+    groups = {}
+    for r in served:
+        e = owner[id(r)]
+        bk = e.bucket_of(by_rid[r.rid])
+        key = (bk, id(e), r.epoch)
+        groups.setdefault(key, (with_state(knn, e.states[r.epoch]), []))[
+            1].append(by_rid[r.rid])
+    check_plain("phase F", served, plain_table(
+        dev, {(bk, pred): rs for (bk, _, _), (pred, rs) in groups.items()}))
+    expect = dict.fromkeys(wrappers, 0)
+    for e in made:
+        pred = e.predictor_template(TAG_R)
+        for bk in e.phantoms:
+            expect[route_wrapper(pred, bk.m2)] += ops.kernel_launch_count(
+                pred, bk.m2)
+        expect[route_wrapper(pred, 64)] += e.metrics.kernel_launches
+    if launches != expect:
+        fail(f"phase F: launch counters {launches} != the engines' "
+             f"{expect}")
+    report = {
+        "config": dict(cfg, replicas=3, mix="knn m1 1024 (2) and 512 (1), "
+                       "m2 50, K 5, d 20, k 10, n_db 1,048,576"),
+        "order": order, "plan": {k: dataclasses.asdict(v) for k, v in
+                                 plan.replicas.items()},
+        **{k: s[k] for k in ("served", "crashes", "restarts", "failovers",
+                             "hedges", "hedge_wins", "duplicates_deduped",
+                             "retries", "heartbeats_missed", "lost",
+                             "orphaned_futures")},
+        "latency_ms": s.get("latency_ms"),
+        "poisoned_swaps_refused": refused, "last_good_epoch": pre["epoch"],
+        "restored_epoch": restored, "compiles_post_warmup": cpw,
+        "incarnations": len(made),
+        "restart_ms": {rep.name: rep.restart_ms for rep in router.replicas
+                       if rep.restart_ms},
+        "prefix_refresh_ms": pre.get("ms"),
+        "replicas": {name: {k: v for k, v in row.items()
+                            if k in ("state", "transitions", "restarts",
+                                     "restored_epochs", "requests",
+                                     "batches", "swaps",
+                                     "refresh_failures")}
+                     for name, row in s["replicas"].items()}}
+    router.close()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"phase F {json.dumps(report)} ({smi})")
+    return launches, report
+
+
 def table23(rows):
     """Tables 2-3 of the paper from the Fig. 2 rows, as
     benchmarks/table23_regression.py computes them (a copy: this script
@@ -2305,6 +3003,19 @@ def main() -> int:
     log(f"phase R: {refresh_report['seconds']:.1f} s, launches "
         f"{refresh_launches}")
 
+    # -- phase A: the adaptive lattice on the card ---------------------------
+    lattice_launches, lattice_report = serve_lattice(
+        args.seed, dev, knn, load_report["capacity_qps"], wrappers,
+        route_wrapper, smi)
+    log(f"phase A: {lattice_report['seconds']:.1f} s, launches "
+        f"{lattice_launches}")
+
+    # -- phase F: the replica fleet under chaos ------------------------------
+    fleet_launches, fleet_report = serve_fleet(args.seed, dev, knn, wrappers,
+                                               route_wrapper, smi)
+    log(f"phase F: {fleet_report['seconds']:.1f} s, launches "
+        f"{fleet_launches}")
+
     # -- phase L: the kernel library's entry points --------------------------
     entry = {"fused_rank": ops.fused_rank, "knn_topk": ops.knn_topk,
              "knn_predict_kernel": ops.knn_predict_kernel,
@@ -2446,11 +3157,14 @@ def main() -> int:
             "replaces": replaces,
             "launches": (offline_launches[name] + serve_launches[name]
                          + load_launches[name] + refresh_launches[name]
+                         + lattice_launches[name] + fleet_launches[name]
                          + lib_launches[name]),
             "launches_by_path": {"offline_holdout": offline_launches[name],
                                  "serving": serve_launches[name],
                                  "serving_under_load": load_launches[name],
                                  "refresh": refresh_launches[name],
+                                 "lattice": lattice_launches[name],
+                                 "fleet": fleet_launches[name],
                                  "kernel_library": lib_launches[name]},
             "max_abs_err": err[name], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],

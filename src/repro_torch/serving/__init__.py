@@ -1,8 +1,9 @@
 """Streaming serving engine of the port: shape-bucketed micro-batching
 with async double-buffered execution on a CUDA stream, deadlines and
-admission, open-loop traffic, and the online lambda-refresh lane that
-hot-swaps predictor generations (see engine.py, pipeline.py and
-refresh.py)."""
+admission, open-loop traffic, the online lambda-refresh lane that
+hot-swaps predictor generations, the adaptive bucket lattice, and the
+fault-tolerant replica fleet (see engine.py, pipeline.py, refresh.py,
+lattice.py and fleet.py)."""
 
 from repro_torch.serving.admission import (
     SHED_RUNG,
@@ -30,6 +31,31 @@ from repro_torch.serving.engine import (
     RankResult,
     ServingEngine,
     Shed,
+)
+from repro_torch.serving.faults import (
+    FaultInjector,
+    FaultPlan,
+    ReplicaCrash,
+    ReplicaFaults,
+)
+from repro_torch.serving.fleet import FleetMetrics, FleetRouter, Replica
+from repro_torch.serving.health import (
+    DEAD,
+    HEALTHY,
+    RECOVERING,
+    SUSPECT,
+    HealthConfig,
+    ReplicaHealth,
+    backoff_s,
+)
+from repro_torch.serving.lattice import (
+    DEFAULT_HISTOGRAM_PATH,
+    Lattice,
+    LatticeLane,
+    ShapeHistogram,
+    TroughDetector,
+    optimize_lattice,
+    padding_waste,
 )
 from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.pipeline import (
@@ -59,9 +85,16 @@ __all__ = [
     "Bucket", "K_TIERS", "MIN_M1", "MIN_M2", "NEG_FILL",
     "alloc_staging", "assemble_batch", "bucket_for", "ceil_pow2",
     "fill_staging", "k_tier", "unpad_result",
+    "DEFAULT_HISTOGRAM_PATH", "Lattice", "LatticeLane",
+    "ShapeHistogram", "TroughDetector", "optimize_lattice",
+    "padding_waste",
     "SHED_RUNG", "AdmissionController", "AdmissionDecision",
     "DEFAULT_BUDGET_S", "LAM_TAG", "RankRequest", "RankResult",
     "ServingEngine", "Shed",
+    "FaultInjector", "FaultPlan", "ReplicaCrash", "ReplicaFaults",
+    "FleetMetrics", "FleetRouter", "Replica",
+    "DEAD", "HEALTHY", "RECOVERING", "SUSPECT",
+    "HealthConfig", "ReplicaHealth", "backoff_s",
     "EngineMetrics",
     "ExecutionPipeline", "PendingBatch", "RankFuture", "StagingRing",
     "DEFAULT_MIX", "Scenario", "make_drift_stream", "make_request",

@@ -45,14 +45,27 @@ batch is dispatched against exactly one generation and stamps its
 epoch. The generation stays pinned until the batch has passed its event,
 and a superseded one is let go only when no batch pins it.
 
-Not in the port's engine yet: the adaptive lattice (buckets are the
-static `bucket_for`), the autotune table, and the fleet, health and
-faults (ROADMAP Queue 1).
+The bucket lattice (serving/lattice.py's seam): the live Lattice routes
+every bucket_of; `shape_histogram` counts each request's real geometry
+at enqueue. A corner is warm once its StagingRing is allocated on the
+engine's stream, an affine predictor's W and c are padded to its K and a
+phantom batch has run there; `_exec` maps each warm bucket to its call
+(what a fault injector wraps). `shadow_warm_lattice` warms a proposed
+lattice's corners on the calling thread (a LatticeLane's) and installs
+each under the swap lock; `swap_lattice` refuses a lattice whose
+observed buckets are not warm and flips (lattice, epoch) under the lock
+every flush stamps its batch under. A ring allocated on the dispatch
+path after warmup counts in `metrics.compiles_post_warmup` (the JAX
+engine's name for a compile there): the contract is that it stays 0.
+Nothing in the engine waits on the whole device: warmup and shadow warm
+wait on their batches' events and the engine's own stream, so replicas
+and lanes that share the card do not stall one another.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 import time
 from dataclasses import dataclass
@@ -74,11 +87,11 @@ from repro_torch.kernels import build, ops, ref
 from repro_torch.serving.admission import SHED_RUNG, AdmissionController
 from repro_torch.serving.buckets import (
     Bucket,
-    bucket_for,
     fill_staging,
     fill_stats,
     unpad_result,
 )
+from repro_torch.serving.lattice import Lattice, ShapeHistogram
 from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.pipeline import (
     ExecutionPipeline,
@@ -134,6 +147,7 @@ class RankResult:
     deadline_hit: bool | None = None  # materialized before the deadline?
     rung: int = 0                     # degradation rung served (0 = own)
     epoch: int = 0                    # predictor generation that served it
+    lattice_epoch: int = 0            # bucket-lattice generation at dispatch
 
 
 @dataclass
@@ -172,8 +186,9 @@ class ServingEngine:
     `deadline_hit`); True or an AdmissionController checks every submit
     against its deadline: admit on rung 0, degrade down the tag's ladder
     (`set_degradation_ladder`), or shed. surface_budgets: default budget
-    (s) per RankRequest.surface; others get default_budget_s. clock: the
-    engine's time source, injectable so tests can freeze it.
+    (s) per RankRequest.surface; others get default_budget_s. lattice:
+    the boot bucket lattice (None = the static power-of-two one). clock:
+    the engine's time source, injectable so tests can freeze it.
     """
 
     def __init__(self, *, max_batch: int = 32, max_wait_ms: float = 2.0,
@@ -181,6 +196,7 @@ class ServingEngine:
                  admission: AdmissionController | bool | None = None,
                  default_budget_s: float = DEFAULT_BUDGET_S,
                  surface_budgets: dict[str, float] | None = None,
+                 lattice: Lattice | None = None,
                  clock: Callable[[], float] = time.perf_counter,
                  device=None):
         if pipeline_depth < 0:
@@ -199,6 +215,12 @@ class ServingEngine:
         self.default_budget_s = float(default_budget_s)
         self.surface_budgets = {str(k): float(v)
                                 for k, v in (surface_budgets or {}).items()}
+        lattice = Lattice() if lattice is None else lattice
+        lattice.validate()
+        self._lattice: Lattice = lattice
+        self._lattice_epoch: int = 0
+        self.shape_histogram = ShapeHistogram()
+        self._lattice_lane = None
         self.clock = clock
         self.metrics = EngineMetrics()
         # every batch's copies and launches go to this one stream: the
@@ -221,13 +243,17 @@ class ServingEngine:
         self._d_cov: dict[str, int] = {}
         self._ladders: dict[str, tuple[str, ...]] = {}
         # bucket -> (W, c, relu) of an affine predictor padded to the
-        # bucket's K, and the epoch it was built for: once a generation
+        # bucket's K, and the epoch it was built for: once a generation.
+        # _affine, _rings, _launches, _exec and _warmed change only under
+        # _swap_lock: a shadow warm installs corners from another thread.
         self._affine: dict[Bucket, tuple] = {}
         self._affine_epoch: dict[Bucket, int] = {}
         self._queues: dict[Bucket, list] = {}
         self._rings: dict[Bucket, StagingRing] = {}
         self._launches: dict[Bucket, int] = {}
+        self._exec: dict[Bucket, Callable] = {}
         self._warmed: set[Bucket] = set()
+        self._in_warmup = False
         self._uncollected_sheds: list[Shed] = []
         self._retired_sync: list[PendingBatch] = []
         self._pipeline = (ExecutionPipeline(depth=self.pipeline_depth)
@@ -456,7 +482,12 @@ class ServingEngine:
 
     # -- bucketing ----------------------------------------------------------
 
-    def bucket_of(self, req: RankRequest) -> Bucket:
+    def bucket_of(self, req: RankRequest,
+                  lattice: Lattice | None = None) -> Bucket:
+        """Route a request to its bucket on the live lattice (or on
+        `lattice`: a shadow warm routes against a proposal before it
+        flips)."""
+        lattice = self._lattice if lattice is None else lattice
         tag = LAM_TAG if req.lam is not None else req.tag
         K = req.a.shape[0]
         if tag != LAM_TAG:
@@ -468,13 +499,15 @@ class ServingEngine:
                     f"request {req.rid}: {K} constraints but predictor "
                     f"{tag!r} emits only {K_pred} shadow prices")
             K = K_pred
-        return bucket_for(m1=req.u.shape[0], m2=req.m2, K=K, tag=tag,
-                          batch=self.max_batch)
+        return lattice.bucket_for(m1=req.u.shape[0], m2=req.m2, K=K,
+                                  tag=tag, batch=self.max_batch)
 
-    def _rung_buckets(self, req: RankRequest,
-                      home: Bucket) -> list[tuple[int, Bucket]]:
+    def _rung_buckets(self, req: RankRequest, home: Bucket,
+                      lattice: Lattice | None = None
+                      ) -> list[tuple[int, Bucket]]:
         """The request's degradation ladder as (rung, bucket) pairs, rung
         0 (its own bucket) first. Raw-lam requests have no ladder."""
+        lattice = self._lattice if lattice is None else lattice
         rungs = [(0, home)]
         if req.X is None or home.tag == LAM_TAG:
             return rungs
@@ -483,10 +516,141 @@ class ServingEngine:
             K_fb = self._predictors[fb].num_constraints
             if K_fb < K_req:         # cannot price this request's system
                 continue
-            rungs.append((i, bucket_for(m1=req.u.shape[0], m2=req.m2,
-                                        K=K_fb, tag=fb,
-                                        batch=self.max_batch)))
+            rungs.append((i, lattice.bucket_for(
+                m1=req.u.shape[0], m2=req.m2, K=K_fb, tag=fb,
+                batch=self.max_batch)))
         return rungs
+
+    # -- adaptive lattice: telemetry, shadow warm, epoch-fenced swap --------
+
+    def attach_lattice_lane(self, lane) -> None:
+        """Attach a LatticeLane: the engine feeds its trough detector
+        arrival times at enqueue and lag samples through
+        observe_submission_lag."""
+        self._lattice_lane = lane
+
+    def lattice(self) -> Lattice:
+        """The live bucket lattice (what bucket_of routes on)."""
+        return self._lattice
+
+    def lattice_epoch(self) -> int:
+        """The live lattice generation (0 = the boot lattice)."""
+        return self._lattice_epoch
+
+    def _lattice_buckets(self, lattice: Lattice,
+                         sample=None) -> set[Bucket]:
+        """Every bucket the observed traffic (the shape histogram, plus
+        an optional sample of RankRequests or Buckets) reaches on
+        `lattice`, ladder rungs included: what a shadow warm must warm
+        so the flipped lattice allocates nothing on the dispatch path
+        for traffic shaped like what was seen."""
+        buckets: set[Bucket] = set()
+        for tag, _, m1, m2, K, _, _ in self.shape_histogram.shapes():
+            if tag != LAM_TAG and tag not in self._predictors:
+                continue                      # tag gone since observed
+            K_route = K
+            if tag != LAM_TAG:
+                K_pred = self._predictors[tag].num_constraints
+                if K > K_pred:
+                    continue                  # bucket_of would refuse it
+                K_route = K_pred
+            buckets.add(lattice.bucket_for(m1=m1, m2=m2, K=K_route,
+                                           tag=tag, batch=self.max_batch))
+            # ladder rungs, as _rung_buckets picks them from the
+            # request's real constraint count
+            if tag != LAM_TAG:
+                for fb in self._ladders.get(tag, ()):
+                    if self._predictors[fb].num_constraints < K:
+                        continue
+                    buckets.add(lattice.bucket_for(
+                        m1=m1, m2=m2, K=self._predictors[fb].num_constraints,
+                        tag=fb, batch=self.max_batch))
+        for r in sample or ():
+            if isinstance(r, Bucket):
+                buckets.add(r)
+                continue
+            home = self.bucket_of(r, lattice)
+            for _, bk in self._rung_buckets(r, home, lattice):
+                buckets.add(bk)
+        return buckets
+
+    def shadow_warm_lattice(self, new_lattice: Lattice,
+                            sample=None) -> dict:
+        """Warm `new_lattice`'s corners off the dispatch path, on the
+        calling thread (a LatticeLane's in production): for every bucket
+        the observed traffic reaches there that is not warm yet, allocate
+        its StagingRing on the engine's stream, run one phantom batch
+        through it (which pads an affine predictor's W and c to the
+        corner's K) and, with admission, a second, timed one, waiting on
+        each batch's event only. Each corner is then installed under the
+        swap lock. Routing still uses the live lattice until swap_lattice
+        flips, so this only grows the warm set (metrics.shadow_compiles).
+
+        Raises on any failure; nothing has flipped then, and the engine
+        keeps serving the last-good lattice."""
+        new_lattice.validate()
+        t0 = self.clock()
+        compiled = []
+        buckets = self._lattice_buckets(new_lattice, sample)
+        for bucket in sorted(buckets):
+            if bucket in self._warmed:
+                continue
+            corner = self._build_executor(bucket)
+            ring, _, fn = corner
+            self._phantom(bucket, ring, fn)
+            if self.admission is not None:
+                t0b = self.clock()
+                self._phantom(bucket, ring, fn)
+                self.admission.observe_service(
+                    bucket.name, (self.clock() - t0b) * 1e3)
+            with self._swap_lock:
+                if bucket not in self._exec:     # else the dispatch path's
+                    self._install(bucket, *corner)
+                self._warmed.add(bucket)
+            self.metrics.on_shadow_compile()
+            compiled.append(bucket.name)
+        return {"buckets": sorted(b.name for b in buckets),
+                "compiled": compiled,
+                "warm_ms": (self.clock() - t0) * 1e3}
+
+    def swap_lattice(self, new_lattice: Lattice, *,
+                     epoch: int | None = None,
+                     warm_ms: float = 0.0) -> int:
+        """Epoch-fenced flip of the live lattice: check that every bucket
+        the observed traffic reaches on `new_lattice` is warm (an unwarmed
+        corner would allocate its ring on the dispatch path), then swap
+        (lattice, epoch) under the lock every flush stamps its batch
+        under. Old corners stay warm, so work routed before the flip
+        drains without allocating. Epochs are monotone; `epoch` pins the
+        generation number (a restarted replica resumes its fleet's)."""
+        new_lattice.validate()
+        missing = [b.name for b in sorted(self._lattice_buckets(new_lattice))
+                   if b not in self._warmed]
+        if missing:
+            raise ValueError(
+                f"swap_lattice: observed traffic reaches unwarmed buckets "
+                f"{missing} — run shadow_warm_lattice first (a cold corner "
+                f"would allocate its ring on the dispatch path)")
+        with self._swap_lock:
+            old_epoch = self._lattice_epoch
+            new_epoch = old_epoch + 1 if epoch is None else int(epoch)
+            if new_epoch <= old_epoch:
+                raise ValueError(
+                    f"swap_lattice: pinned epoch {new_epoch} <= live epoch "
+                    f"{old_epoch} — epochs are monotone")
+            self._lattice = new_lattice
+            self._lattice_epoch = new_epoch
+        self.metrics.on_lattice_swap(new_epoch, warm_ms=warm_ms)
+        return new_epoch
+
+    def rewarm_lattice(self, new_lattice: Lattice, sample=None) -> dict:
+        """shadow_warm_lattice, then swap_lattice: what a LatticeLane
+        calls in a trough. A failure raises before the flip, so the
+        caller's rollback is a no-op."""
+        report = self.shadow_warm_lattice(new_lattice, sample)
+        report["epoch"] = self.swap_lattice(new_lattice,
+                                            warm_ms=report["warm_ms"])
+        return report
 
     # -- the card path ------------------------------------------------------
 
@@ -494,22 +658,42 @@ class ServingEngine:
         return (torch.cuda.stream(self._stream) if self._stream is not None
                 else contextlib.nullcontext())
 
-    def _ring_for(self, bucket: Bucket) -> StagingRing:
-        """The bucket's ring, allocated on first use with the bucket's
-        launch count. The ring holds one slot more than the in-flight
+    def _build_executor(self, bucket: Bucket) -> tuple:
+        """A corner's parts, built but not installed: its StagingRing,
+        allocated on the engine's stream (its memory then belongs to the
+        stream that reads it) with one slot more than the in-flight
         window (depth queued + 1 retiring), so assembly of the next batch
-        never waits for a slot."""
-        ring = self._rings.get(bucket)
-        if ring is None:
-            with self._on_stream():
-                ring = StagingRing(bucket, d_cov=self._d_cov.get(bucket.tag),
-                                   depth=self.pipeline_depth + 2,
-                                   device=self.device)
-            self._launches[bucket] = ops.kernel_launch_count(
-                self._predictors.get(bucket.tag), bucket.m2,
-                device=self.device)
-            self._rings[bucket] = ring
-        return ring
+        never waits for a slot; its launch count; and its call."""
+        with self._on_stream():
+            ring = StagingRing(bucket, d_cov=self._d_cov.get(bucket.tag),
+                               depth=self.pipeline_depth + 2,
+                               device=self.device)
+        launches = ops.kernel_launch_count(
+            self._predictors.get(bucket.tag), bucket.m2, device=self.device)
+        return ring, launches, functools.partial(self._launch, bucket)
+
+    def _install(self, bucket: Bucket, ring: StagingRing, launches: int,
+                 fn: Callable) -> None:
+        # caller holds _swap_lock
+        self._rings[bucket] = ring
+        self._launches[bucket] = launches
+        self._exec[bucket] = fn
+
+    def _executor_for(self, bucket: Bucket) -> Callable:
+        """The bucket's call, its corner built and installed on first use.
+        A corner built here after warmup was built on the dispatch path:
+        metrics.compiles_post_warmup counts it."""
+        fn = self._exec.get(bucket)
+        if fn is not None:
+            return fn
+        corner = self._build_executor(bucket)
+        with self._swap_lock:
+            fn = self._exec.get(bucket)
+            if fn is not None:           # installed meanwhile: keep that
+                return fn
+            self._install(bucket, *corner)
+        self.metrics.on_compile(in_warmup=self._in_warmup)
+        return corner[2]
 
     def _affine_for(self, bucket: Bucket, template, state: dict,
                     epoch: int):
@@ -518,12 +702,15 @@ class ServingEngine:
         generation's pair was allocated on this stream too, so the
         allocator reuses its memory only for work queued after the
         batches that read it."""
-        if self._affine_epoch.get(bucket) != epoch:
-            self._affine[bucket] = ref.affine_params(
-                with_state(template, state), self._d_cov[bucket.tag],
-                bucket.K)
+        with self._swap_lock:
+            if self._affine_epoch.get(bucket) == epoch:
+                return self._affine[bucket]
+        affine = ref.affine_params(with_state(template, state),
+                                   self._d_cov[bucket.tag], bucket.K)
+        with self._swap_lock:
+            self._affine[bucket] = affine
             self._affine_epoch[bucket] = epoch
-        return self._affine[bucket]
+        return affine
 
     def _pin(self, bucket: Bucket) -> tuple[dict | None, int]:
         """The generation a batch of `bucket` dispatches against,
@@ -536,18 +723,22 @@ class ServingEngine:
         if bucket.tag != LAM_TAG:
             self._release_gen(bucket.tag, epoch)
 
-    def _dispatch(self, bucket: Bucket, ring: StagingRing, staged: dict):
-        """One batch on the engine's stream: inputs to the slot's device
-        set, ONE dispatcher call, outputs into the slot's host set, then
-        the slot's event. The epoch fence: the whole batch is dispatched
+    def _dispatch(self, bucket: Bucket, ring: StagingRing, staged: dict,
+                  fn: Callable | None = None):
+        """One batch on the engine's stream through the bucket's call
+        (`fn`, else the installed `_exec[bucket]`: `_launch`, or a fault
+        injector's wrapper around it): inputs to the slot's device set,
+        ONE dispatcher call, outputs into the slot's host set, then the
+        slot's event. The epoch fence: the whole batch is dispatched
         against the one generation read (and pinned) here; the caller
         unpins it once the batch has passed the event. Returns (event,
         epoch); the event is None on the CPU. Nothing here waits for the
         card."""
         slot = ring.slot(staged)
+        fn = self._exec[bucket] if fn is None else fn
         state, epoch = self._pin(bucket)
         try:
-            self._launch(bucket, slot, state, epoch)
+            fn(slot, state, epoch)
         except BaseException:  # noqa: BLE001 - re-raised: nothing ran
             self._unpin(bucket, epoch)
             raise
@@ -583,12 +774,13 @@ class ServingEngine:
             with torch.cuda.device(self.device):
                 event.synchronize()
 
-    def _phantom(self, bucket: Bucket) -> None:
-        """One all-padding batch of `bucket` there and back."""
-        ring = self._ring_for(bucket)
+    def _phantom(self, bucket: Bucket, ring: StagingRing,
+                 fn: Callable) -> None:
+        """One all-padding batch of `bucket` there and back, waiting on
+        its event only."""
         staged = fill_staging(ring.acquire(), [], bucket)
         try:
-            event, epoch = self._dispatch(bucket, ring, staged)
+            event, epoch = self._dispatch(bucket, ring, staged, fn)
             try:
                 self._wait(event)
             finally:
@@ -597,11 +789,13 @@ class ServingEngine:
             ring.release(staged)
 
     def warmup(self, sample) -> dict:
-        """Build the kernels and run one phantom batch per bucket that
-        `sample` (RankRequests or Buckets) reaches, every rung of each
-        request's degradation ladder included. With admission attached,
-        a second, timed phantom batch per bucket seeds the controller's
-        service-time EWMAs."""
+        """Build the kernels and warm every bucket that `sample`
+        (RankRequests or Buckets) reaches on the live lattice, every rung
+        of each request's degradation ladder included: its ring, then one
+        phantom batch. With admission attached, a second, timed phantom
+        batch per bucket seeds the controller's service-time EWMAs. Waits
+        on the batches' events and the engine's own stream, never on the
+        whole device."""
         buckets = set()
         for r in sample:
             if isinstance(r, Bucket):
@@ -612,18 +806,26 @@ class ServingEngine:
         if self._stream is not None:
             build.build_all()
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        for bucket in sorted(buckets):
-            self._phantom(bucket)
-            if self.admission is not None:
-                t0 = self.clock()
-                self._phantom(bucket)
-                self.admission.observe_service(
-                    bucket.name, (self.clock() - t0) * 1e3)
-            self._warmed.add(bucket)
+        self._in_warmup = True
+        try:
+            for bucket in sorted(buckets):
+                fn = self._executor_for(bucket)
+                ring = self._rings[bucket]
+                self._phantom(bucket, ring, fn)
+                if self.admission is not None:
+                    t0 = self.clock()
+                    self._phantom(bucket, ring, fn)
+                    self.admission.observe_service(
+                        bucket.name, (self.clock() - t0) * 1e3)
+                with self._swap_lock:
+                    self._warmed.add(bucket)
+        finally:
+            self._in_warmup = False
         if self._stream is not None:
-            torch.cuda.synchronize(self.device)
+            self._stream.synchronize()
         self.metrics.warmed = True
-        return {"buckets": [b.name for b in sorted(buckets)]}
+        return {"buckets": [b.name for b in sorted(buckets)],
+                "compiles": self.metrics.compiles}
 
     # -- submission side ----------------------------------------------------
 
@@ -643,9 +845,12 @@ class ServingEngine:
 
     def observe_submission_lag(self, lag_ms: float) -> None:
         """Feed the open-loop load generator's queueing lag to the admission
-        controller as its saturation signal (no-op without one)."""
+        controller and the lattice lane's trough detector as their
+        saturation signal (no-op without either)."""
         if self.admission is not None:
             self.admission.observe_lag(lag_ms)
+        if self._lattice_lane is not None:
+            self._lattice_lane.observe_lag(lag_ms)
 
     def _deadline_of(self, req: RankRequest, now: float) -> float:
         if req.deadline is not None:
@@ -663,6 +868,14 @@ class ServingEngine:
         now = self.clock() if now is None else now
         bucket = self.bucket_of(req)
         self.metrics.on_submit(bucket, known=bucket in self._warmed)
+        # the request's real geometry (before padding and K widening):
+        # what the lattice optimizer learns corners from
+        self.shape_histogram.observe(
+            tag=bucket.tag, m1=req.u.shape[0], m2=req.m2, K=req.a.shape[0],
+            d_cov=None if req.X is None else req.X.shape[-1],
+            surface=req.surface)
+        if self._lattice_lane is not None:
+            self._lattice_lane.observe_arrival(now)
         fut = RankFuture(req.rid, bucket.name)
         deadline = self._deadline_of(req, now)
         rung = 0
@@ -736,13 +949,21 @@ class ServingEngine:
     def close(self) -> None:
         """Flush what is queued and retire what is in flight (so every
         future resolves), stop the pipeline worker and refuse further
-        submissions. Idempotent."""
+        submissions. Idempotent. When the final drain raises (a crashed
+        replica's flush), the worker is stopped all the same, every
+        request still queued fails with that error, and the error
+        re-raises."""
         if self._closed:
             return
-        self.drain()
-        if self._pipeline is not None:
-            self._pipeline.close()
-        self._closed = True
+        try:
+            self.drain()
+        except BaseException as e:
+            self.handoff_queued(e)
+            raise
+        finally:
+            if self._pipeline is not None:
+                self._pipeline.close()
+            self._closed = True
 
     def __enter__(self):
         return self
@@ -769,9 +990,14 @@ class ServingEngine:
     def _flush_bucket(self, bucket: Bucket, *, trigger: str) -> None:
         entries, self._queues[bucket] = self._queues[bucket], []
         reqs = [e.req for e in entries]
-        ring = self._ring_for(bucket)
+        self._executor_for(bucket)
+        ring = self._rings[bucket]
         t0 = self.clock()
         staged = fill_staging(ring.acquire(), reqs, bucket)
+        # the lattice fence: the epoch is read under the swap lock, so a
+        # concurrent swap_lattice lands before or after this batch
+        with self._swap_lock:
+            lattice_epoch = self._lattice_epoch
         t_launch = self.clock()
         try:
             event, epoch = self._dispatch(bucket, ring, staged)
@@ -791,7 +1017,8 @@ class ServingEngine:
             materialize=self._materialize_batch, build=self._build_result,
             assembly_ms=(t_launch - t0) * 1e3,
             dispatch_ms=(t1 - t_launch) * 1e3,
-            fill=fill_stats(reqs, bucket), epoch=epoch, event=event)
+            fill=fill_stats(reqs, bucket), epoch=epoch, event=event,
+            lattice_epoch=lattice_epoch)
         if self._pipeline is not None:
             self._pipeline.submit(pending)      # may block: backpressure
         else:
@@ -858,7 +1085,8 @@ class ServingEngine:
                           exposure=exposure, compliant=compliant,
                           bucket=pending.bucket.name, latency_ms=latency_ms,
                           wait_ms=wait_ms, deadline_hit=deadline_hit,
-                          rung=entry.rung, epoch=pending.epoch)
+                          rung=entry.rung, epoch=pending.epoch,
+                          lattice_epoch=pending.lattice_epoch)
 
     def serve_stream(self, requests, *, warmup: bool = True) -> list:
         """Submit each request in arrival order, honouring max_wait_ms

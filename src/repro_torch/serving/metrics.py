@@ -1,7 +1,14 @@
 """Serving-engine counters, percentiles and pipeline stage timelines
-(counterpart of repro.serving.metrics.EngineMetrics; the port's engine
-has no lattice lane yet, so that part of the summary reports its zero
-state, as the JAX engine's does when unused).
+(counterpart of repro.serving.metrics.EngineMetrics, key for key).
+
+The compile counters keep the JAX names with the card's meaning: nothing
+compiles per shape on the card, and what a bucket corner needs is its
+StagingRing (page-locked host slots and device sets). `compiles` counts
+rings built through the engine's `_executor_for` (warmup and the
+dispatch path), `compiles_post_warmup` those built on the dispatch path
+after warmup (the contract: it stays 0 for traffic inside the warmed
+lattice), and `shadow_compiles` corners warmed off the dispatch path by
+a shadow warm.
 
 Recording is split the way the engine is: `on_dispatch` fires on the
 submission thread when a micro-batch is assembled and launched,
@@ -30,6 +37,8 @@ class EngineMetrics:
     # of the bucket's route: 1 lambda-given, 2 KNN, 0 on the plain path)
     kernel_launches: int = 0
     bucket_hits: dict = field(default_factory=lambda: defaultdict(int))
+    compiles: int = 0                 # corners' rings built, ever
+    compiles_post_warmup: int = 0     # ... on the dispatch path after warmup
     warmed: bool = False
     oversize_requests: int = 0        # fell outside the warmed buckets
     capacity_flushes: int = 0
@@ -81,6 +90,15 @@ class EngineMetrics:
     swaps_by_tag: dict = field(default_factory=lambda: defaultdict(int))
     swap_validate_ms: list = field(default_factory=list)
     swap_flip_ms: list = field(default_factory=list)
+    # the adaptive lattice: lattice_swaps = lattices flipped live
+    # (engine.swap_lattice successes); lattice_rollbacks = re-warm
+    # attempts that failed, serving staying on the last-good lattice;
+    # shadow_compiles = corners warmed by shadow_warm_lattice;
+    # shadow_warm_ms = wall time of each shadow-warm window
+    lattice_swaps: int = 0
+    lattice_rollbacks: int = 0
+    shadow_compiles: int = 0
+    shadow_warm_ms: list = field(default_factory=list)
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False)
 
@@ -91,6 +109,15 @@ class EngineMetrics:
         self.bucket_hits[bucket.name] += 1
         if self.warmed and not known:
             self.oversize_requests += 1
+
+    def on_compile(self, in_warmup: bool = False) -> None:
+        """A bucket corner's ring was built. Builds inside warmup never
+        count against the post-warmup contract; only those forced by
+        traffic (an unwarmed bucket hit by a live request) do."""
+        with self._lock:
+            self.compiles += 1
+            if self.warmed and not in_warmup:
+                self.compiles_post_warmup += 1
 
     def on_executable_call(self, kernel_launches: int) -> None:
         self.executable_calls += 1
@@ -179,6 +206,25 @@ class EngineMetrics:
         with self._lock:
             self.states_retired += 1
 
+    def on_shadow_compile(self) -> None:
+        """A corner was warmed off the dispatch path, in a shadow-warm
+        window (never counted in compiles_post_warmup)."""
+        with self._lock:
+            self.shadow_compiles += 1
+
+    def on_lattice_swap(self, epoch: int, *, warm_ms: float = 0.0) -> None:
+        """A lattice was shadow-warmed and flipped live."""
+        with self._lock:
+            self.lattice_swaps += 1
+            if warm_ms:
+                self.shadow_warm_ms.append(float(warm_ms))
+
+    def on_lattice_rollback(self) -> None:
+        """A re-warm attempt failed: serving kept the last-good lattice
+        and its warm corners."""
+        with self._lock:
+            self.lattice_rollbacks += 1
+
     # -- reporting ----------------------------------------------------------
 
     @staticmethod
@@ -218,9 +264,8 @@ class EngineMetrics:
             "kernel_launches_per_batch":
                 self.kernel_launches / self.batches if self.batches else nan,
             "buckets_used": len(self.bucket_hits),
-            # the kernels build once, in warmup; nothing compiles per shape
-            "compiles": 0,
-            "compiles_post_warmup": 0,
+            "compiles": self.compiles,
+            "compiles_post_warmup": self.compiles_post_warmup,
             "oversize_requests": self.oversize_requests,
             "flushes": {"capacity": self.capacity_flushes,
                         "deadline": self.deadline_flushes,
@@ -243,9 +288,7 @@ class EngineMetrics:
                           if self.results else nan,
             "deadline": self.deadline_summary(),
             "refresh": self.refresh_summary(),
-            "lattice": {"lattice_swaps": 0, "lattice_rollbacks": 0,
-                        "shadow_compiles": 0,
-                        "shadow_warm_ms": self._pct([])},
+            "lattice": self.lattice_summary(),
         }
 
     def padding_summary(self) -> dict:
@@ -260,6 +303,18 @@ class EngineMetrics:
             "real_flops": self.real_flops,
             "padded_flops": self.padded_flops,
         }
+
+    def lattice_summary(self) -> dict:
+        """Adaptive-lattice view: lattices flipped, failed re-warms
+        (serving stayed last-good), corners warmed off the dispatch path,
+        and the shadow-warm windows' wall times."""
+        with self._lock:
+            return {
+                "lattice_swaps": self.lattice_swaps,
+                "lattice_rollbacks": self.lattice_rollbacks,
+                "shadow_compiles": self.shadow_compiles,
+                "shadow_warm_ms": self._pct(self.shadow_warm_ms),
+            }
 
     def refresh_summary(self) -> dict:
         """Hot-swap view: generations published, refreshes refused or

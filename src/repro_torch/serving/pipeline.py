@@ -264,6 +264,7 @@ class PendingBatch:
     # until materialize has passed the event)
     epoch: int = 0
     event: Any = None                 # recorded after the output copies
+    lattice_epoch: int = 0            # bucket-lattice generation at dispatch
 
     def finish(self) -> None:
         """Materialize outputs and mark every future done. Called by

@@ -876,3 +876,184 @@ def test_a_superseded_generation_is_not_reused_while_pinned(card):
     for r in out:
         _same(r, want[r.rid])
     eng.close()
+
+
+# ---------------------------------------------------------------------------
+# The adaptive lattice and the fleet on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m1", [576, 1216])
+@pytest.mark.parametrize("m2", [16, 56])
+@pytest.mark.parametrize("K", [4, 12])
+def test_rank_kernels_at_learned_corners_equal_plain(card, m1, m2, K):
+    """The corners a learned lattice routes (m1 a multiple of 64, m2 of
+    8, K of 4 outside the static tiers): the three rank kernels of the
+    serving path, bitwise their plain versions, with an affine and a KNN
+    predictor of 5 (or K) shadow prices padded to K."""
+    rng = np.random.default_rng(m1 + m2 + K)
+    u, a, b, lam, g = _rank(rng, 8, m1, K, m2, card)
+    got = rank_audited_cuda(u, a, b, lam, g, m2=m2)
+    for gt, w in zip(got, ref.rank_audited_ref(u, a, b, lam, g, m2)):
+        assert torch.equal(gt, w)
+    K_pred = min(5, K)
+    X = _t(rng.normal(size=(8, 20)), card)
+    W = torch.zeros((K, 20), device=card)
+    c = torch.zeros((K,), device=card)
+    W[:K_pred] = _t(rng.normal(size=(K_pred, 20)) * 0.3, card)
+    c[:K_pred] = _t(rng.normal(size=(K_pred,)) * 0.5, card)
+    args = (u, a, b, X, W, c, g)
+    got = linear_rank_audited_cuda(*args, m2=m2, relu=True)
+    for gt, w in zip(got, ref.linear_rank_audited_ref(*args, m2, relu=True)):
+        assert torch.equal(gt, w)
+    X_db = _t(rng.normal(size=(5001, 20)), card)
+    lam_db = _t(np.abs(rng.normal(size=(5001, K_pred))), card)
+    args = (X, X_db, lam_db, u, a, b, g)
+    got = knn_rank_audited_cuda(*args, k=10, m2=m2)
+    for gt, w in zip(got, ref.knn_rank_audited_ref(*args, k=10, m2=m2)):
+        assert torch.equal(gt, w)
+
+
+def _no_device_wide_sync(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("a device-wide torch.cuda.synchronize")
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+
+
+def _lattice_stream(n, seed):
+    mix = (Scenario("feed", m1=540, m2=10, K=3, weight=2.0, m1_jitter=0.05),
+           Scenario("strip", m1=300, m2=8, K=5, weight=1.0, m1_jitter=0.1),
+           Scenario("knn", m1=768, m2=50, K=5, tag="knn", d_cov=20,
+                    m1_jitter=1.0 / 3.0, weight=1.0))
+    return make_stream(mix, n_requests=n, seed=seed)
+
+
+def test_shadow_warm_on_a_second_thread_while_the_first_serves(
+        card, monkeypatch):
+    """A lane's thread warms a learned lattice while the submitting
+    thread serves on the same engine (depth 1), with no device-wide wait
+    anywhere; after the flip, every row of both epochs is bitwise what a
+    cold engine built on that epoch's lattice serves."""
+    from repro_torch.serving import optimize_lattice
+
+    knn, _ = _serving_stream(card)
+    first, second = _lattice_stream(256, 50), _lattice_stream(128, 51)
+    for i, r in enumerate(second):
+        r.rid = 1000 + i
+    eng = ServingEngine(max_batch=8, max_wait_ms=1e9, pipeline_depth=1,
+                        device=card)
+    eng.register_predictor("knn", knn, d_cov=20)
+    eng.warmup(first + second)
+    _no_device_wide_sync(monkeypatch)
+    eng.serve_stream(first[:64], warmup=False)
+    new = optimize_lattice(eng.shape_histogram, max_executables=8, batch=8)
+    report = {}
+    lane = threading.Thread(target=lambda: report.update(
+        eng.shadow_warm_lattice(new)))
+    lane.start()
+    got0 = eng.serve_stream(first[64:], warmup=False)
+    lane.join()
+    assert report["compiled"] and eng.lattice_epoch() == 0
+    eng.swap_lattice(new)
+    got1 = eng.serve_stream(second, warmup=False)
+    assert eng.metrics.compiles_post_warmup == 0
+    assert {r.lattice_epoch for r in got0} == {0}
+    assert {r.lattice_epoch for r in got1} == {1}
+    eng.close()
+    monkeypatch.undo()
+    for lattice, reqs, got in ((None, first[64:], got0),
+                               (new, second, got1)):
+        cold = ServingEngine(max_batch=8, max_wait_ms=1e9, pipeline_depth=0,
+                             lattice=lattice, device=card)
+        cold.register_predictor("knn", knn, d_cov=20)
+        want = {r.rid: r for r in cold.serve_stream(reqs)}
+        cold.close()
+        for r in got:
+            _same(r, want[r.rid])
+
+
+def test_three_engines_share_the_card_each_on_its_own_stream(
+        card, monkeypatch):
+    """Three engines (a fleet's replicas) on one card, served from three
+    threads at once: three streams, no device-wide wait in their warmups,
+    and each engine's rows bitwise a lone engine's."""
+    knn, reqs = _serving_stream(card, n=128, seed=52)
+    eng0, want = _serve(card, 0, knn, reqs)
+    eng0.close()
+    _no_device_wide_sync(monkeypatch)
+    engines = []
+    for _ in range(3):
+        eng = ServingEngine(max_batch=32, max_wait_ms=2.0, pipeline_depth=1,
+                            device=card)
+        eng.register_predictor("knn", knn, d_cov=20)
+        eng.warmup(reqs)
+        engines.append(eng)
+    assert len({id(e._stream) for e in engines}) == 3
+    assert all(e._stream != torch.cuda.default_stream(card) for e in engines)
+    out = [None] * 3
+
+    def serve(i):
+        out[i] = engines[i].serve_stream(reqs, warmup=False)
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for eng, got in zip(engines, out):
+        eng.close()
+        assert sorted(r.rid for r in got) == sorted(want)
+        for r in got:
+            _same(r, want[r.rid])
+
+
+def test_a_restarted_replica_serves_its_reloaded_epoch_bitwise(
+        card, monkeypatch, tmp_path):
+    """A fleet replica refreshes and checkpoints epoch 1, dies and is
+    restarted (factory, reload onto the card, re-warm; no device-wide
+    wait): it resumes at epoch 1 and serves it bitwise as a cold engine
+    given the pre-crash generation does."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.serving import FleetRouter
+
+    rng = np.random.default_rng(53)
+    knn = KNNLambdaPredictor.fit(
+        _t(rng.normal(size=(5001, 20)), card),
+        _t(0.05 * np.abs(rng.normal(size=(5001, 5))), card), k=10,
+        device=card)
+    reqs = make_drift_stream(
+        DriftSpec(kind="tighten", magnitude=8.0, start=0.0, end=0.5),
+        tag="knn", n_requests=96, m1=1024, m2=50, K=5, d_cov=20, seed=54)
+
+    def factory(name):
+        eng = ServingEngine(max_batch=8, max_wait_ms=1e9, pipeline_depth=1,
+                            device=card)
+        eng.register_predictor("knn", knn, d_cov=20)
+        store = CheckpointStore(str(tmp_path / name), keep_last=2)
+        return eng, RefreshLane(eng, eta=1.0, min_samples=8,
+                                checkpoint=store)
+
+    router = FleetRouter(factory, 3, auto_restart=False,
+                         heartbeat_interval_s=float("inf"))
+    router.serve_stream(reqs[:64])
+    primary = router.replicas[router._owners(
+        router._bucket_key(reqs[0]))[0]]
+    rep = router.refresh()[primary.name]["knn"]
+    assert rep["swapped"] and rep["checkpointed"] and rep["epoch"] == 1
+    live = {k: v.clone() for k, v in
+            primary.engine.predictor_state_of("knn").items()}
+    primary.health.on_failure(0.0, fatal=True)
+    _no_device_wide_sync(monkeypatch)
+    assert router.restart(primary.name) == {"knn": 1}
+    monkeypatch.undo()
+    eng = primary.engine
+    assert eng.predictor_epoch("knn") == 1
+    assert all(torch.equal(eng.predictor_state_of("knn")[k], v)
+               for k, v in live.items())
+    got = eng.serve_stream(reqs[64:], warmup=False)
+    assert {r.epoch for r in got} == {1}
+    want = _cold(card, knn, live, reqs[64:])
+    for r in got:
+        _same(r, want[r.rid])
+    assert set(primary.restart_ms[0]) == {"factory", "reload", "rewarm"}
+    router.close()

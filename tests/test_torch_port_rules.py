@@ -66,6 +66,22 @@ def test_port_files_cover_the_refresh_slice():
         assert REPO / rel in PORT_FILES
 
 
+def test_port_files_cover_the_lattice_and_fleet_slice():
+    for name in ("lattice", "health", "faults", "fleet"):
+        assert REPO / "src" / "repro_torch" / "serving" / f"{name}.py" in \
+            PORT_FILES
+
+
+def test_serving_exports_match_jax_but_the_autotune_table():
+    import repro.serving as jserving
+    import repro_torch.serving as tserving
+
+    missing = set(jserving.__all__) - set(tserving.__all__)
+    assert missing == {"resolve_autotune"}   # waits for the autotune table
+    assert not set(tserving.__all__) - set(jserving.__all__)
+    assert all(hasattr(tserving, name) for name in tserving.__all__)
+
+
 def _in_a_store(call):
     """Run call(store) on a store in a throwaway directory."""
     with tempfile.TemporaryDirectory() as d:
