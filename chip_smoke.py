@@ -162,6 +162,26 @@ Phases (any failure exits non-zero before a result is printed):
      the generation that served it, and the launch counters equal the
      engines'; logs crashes, restarts, hedges, failovers, p50/p99 and
      each restart's factory, reload and re-warm ms;
+  D. the deployment driver (repro_torch.launch.serve's body: deploy,
+     request_stream, serve) for each of deepfm, sasrec, bert4rec and
+     mind at its published config (src/repro/configs/*.py, nothing
+     cut), at DEPLOY: 60 training steps at batch 64 and lr 3e-3, 8192
+     offline users and 300 dual iterations, 1024 candidates jittered
+     by 0.5, m2 = 50, K = 5, 2048 requests through ServingEngine
+     (max_batch 32, max_wait_ms 2, depth 1); then --admission on the
+     sasrec deployment (a knn -> mean ladder: the mean rung runs
+     linear_rank_audited) and --replicas 3 on mind's (a FleetRouter).
+     Fails unless every rid is served once, every served row's perm
+     and compliant equal the plain version on its own padded row,
+     compiles_post_warmup is 0, the report's keys are the JAX
+     launcher's (read from src/repro/launch/serve.py's source, not
+     imported), the launch counters equal the flushed and phantom
+     batches' route launches plus, for DeepFM, one embedding_bag a
+     scoring call, and DeepFM's context sum is bitwise the
+     embedding_bag plain version; logs each run's stage seconds, a
+     training step's wall and device ms, scoring ms a chunk of 64,
+     embedding_bag's device ms, latency, fill rate, compliance, peak
+     memory and launches, beside the card's name and power limit;
   L. the kernel library path: the entry points of repro_torch.kernels
      (ops.fused_rank, ops.knn_topk, ops.knn_predict_kernel,
      ops.embedding_bag) on phase 2's inputs, each output equal to phase
@@ -180,8 +200,8 @@ Phases (any failure exits non-zero before a result is printed):
      and bag_timings, which bench_rank.py runs on two checkouts for a
      before/after pair.
 The launch counters are set to 0 just before each of phase O's holdout
-paths, the serving path, each run of phases S, R and A, phase F and the
-kernel library path, and read just after each.
+paths, the serving path, each run of phases S, R and A, phase F, each
+run of phase D and the kernel library path, and read just after each.
 Prints the kernel table as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 """
@@ -189,6 +209,7 @@ limit, and last {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import ast
 import dataclasses
 import gc
 import itertools
@@ -302,6 +323,14 @@ LATTICE_MIX_P1 = (
 FLEET = dict(n_requests=512, max_batch=8, seed=17, slow_ms=1.0,
              suspect_after_s=0.02, dead_after_s=0.5, backoff_base_s=0.02,
              backoff_cap_s=0.2, step_s=1e-3, keep_last=2)
+# phase D: launch/serve.py's body at each recsys arch's published config:
+# its launcher's training defaults (60 steps at batch 64, lr 3e-3), the
+# offline_dual cell's 8192 users (configs/paper.py) with 300 dual
+# iterations, serve_online's m1 = 1024 candidates (jittered by 0.5),
+# m2 = 50, K = 5, and 2048 requests at the engine's defaults
+DEPLOY = dict(train_steps=60, offline_users=8192, candidates=1024, m2=50,
+              constraints=5, m1_jitter=0.5, requests=2048, max_batch=32,
+              max_wait_ms=2.0, pipeline_depth=1)
 MODES = ("int8", "bf16")
 QUANT_EXTRA = 8
 LIMIT_K = (20, 33, 64)        # k past 16: lists of 32, 64 and 128 (pack)
@@ -2165,6 +2194,225 @@ def serve_fleet(seed, dev, knn, wrappers, route_wrapper, smi):
     return launches, report
 
 
+def jax_report_keys():
+    """{"engine": keys, "fleet": keys} of the report that the JAX
+    launcher (src/repro/launch/serve.py) prints, read from its source,
+    which is parsed, not imported: the dict literal assigned to `report`,
+    then each path's report.update({...})."""
+    path = Path(__file__).resolve().parent / "src/repro/launch/serve.py"
+    tree = ast.parse(path.read_text())
+    base, paths = None, {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "report"
+                for t in node.targets):
+            base = [k.value for k in node.value.keys]
+        if isinstance(node, ast.If) and "replicas" in ast.unparse(node.test):
+            for name, body in (("fleet", node.body),
+                               ("engine", node.orelse)):
+                for stmt in body:
+                    for sub in ast.walk(stmt):
+                        if isinstance(sub, ast.Call) and \
+                                ast.unparse(sub.func) == "report.update":
+                            paths[name] = [k.value for k in
+                                           sub.args[0].keys]
+    return {name: base + keys for name, keys in paths.items()}
+
+
+def serve_deployments(seed, dev, wrappers, route_wrapper, smi):
+    """Phase D: the port's launch.serve body (deploy, request_stream,
+    serve) for each recsys arch at its published config, then the
+    --admission path on sasrec and the --replicas 3 path on mind on the
+    same deployment. Returns (launches summed over the runs, report)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve as launch
+    from repro_torch.serving.engine import RankResult, ServingEngine
+
+    class CheckedEngine(ServingEngine):
+        """Keeps each flushed batch's padded inputs (copied before the
+        slot goes back to its ring), rids and outputs, and each phantom
+        batch's bucket."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.captured, self.phantoms = [], []
+
+        def _materialize_batch(self, pending):
+            staged = {k: v.copy() for k, v in pending.staged.items()}
+            super()._materialize_batch(pending)
+            self.captured.append(
+                (pending.bucket, staged,
+                 [e.req.rid for e in pending.entries], pending.out))
+
+        def _phantom(self, bucket, ring, fn):
+            self.phantoms.append(bucket)
+            super()._phantom(bucket, ring, fn)
+
+    keys = jax_report_keys()
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(wrappers, 0)
+    report = {}
+    base_argv = [
+        "--requests", str(DEPLOY["requests"]),
+        "--candidates", str(DEPLOY["candidates"]),
+        "--m2", str(DEPLOY["m2"]),
+        "--constraints", str(DEPLOY["constraints"]),
+        "--train-steps", str(DEPLOY["train_steps"]),
+        "--offline-users", str(DEPLOY["offline_users"]),
+        "--max-batch", str(DEPLOY["max_batch"]),
+        "--max-wait-ms", str(DEPLOY["max_wait_ms"]),
+        "--pipeline-depth", str(DEPLOY["pipeline_depth"]),
+        "--m1-jitter", str(DEPLOY["m1_jitter"])]
+
+    def check_served(label, dep, reqs, rep, args):
+        """Every rid once; every served row's perm and compliant equal
+        the plain version on its own padded row; the launch counters
+        equal the flushed and phantom batches' route launches."""
+        results = dep.served["results"]
+        if sorted(r.rid for r in results) != list(range(len(reqs))):
+            fail(f"phase D {label}: rids not served exactly once")
+        if list(rep) != keys["fleet" if args.replicas > 1 else "engine"]:
+            fail(f"phase D {label}: report keys {list(rep)} are not the "
+                 f"JAX launcher's")
+        if rep["compiles_post_warmup"] != 0:
+            fail(f"phase D {label}: {rep['compiles_post_warmup']} rings "
+                 f"built on the dispatch path")
+        by_rid = {r.rid: r for r in results if isinstance(r, RankResult)}
+        preds = {args.arch: dep.knn, f"{args.arch}_mean": dep.mean}
+        expect = dict.fromkeys(wrappers, 0)
+        checked = 0
+        for eng in dep.served["engines"]:
+            for bucket in eng.phantoms:
+                pred = preds[bucket.tag]
+                expect[route_wrapper(pred, bucket.m2)] += \
+                    ops.kernel_launch_count(pred, bucket.m2)
+            for bucket, staged, rids, out in eng.captured:
+                pred = preds[bucket.tag]
+                expect[route_wrapper(pred, bucket.m2)] += \
+                    ops.kernel_launch_count(pred, bucket.m2)
+                t = {k: torch.tensor(v, device=dev)
+                     for k, v in staged.items()}
+                want = ref.predict_rank_audited_ref(
+                    t["X"], pred, t["u"], t["a"], t["b"], t["gamma"],
+                    bucket.m2, EPS)
+                w_perm, w_comp = want[1].cpu().numpy(), \
+                    want[4].cpu().numpy()
+                for i, rid in enumerate(rids):
+                    res, req = by_rid[rid], reqs[rid]
+                    if not np.array_equal(res.perm, w_perm[i, :req.m2]) or \
+                            bool(res.compliant) != bool(w_comp[i]):
+                        fail(f"phase D {label}: request {rid} differs from "
+                             f"the plain version")
+                    checked += 1
+        if checked != len(by_rid):
+            fail(f"phase D {label}: checked {checked} of {len(by_rid)} "
+                 f"served rows")
+        return expect
+
+    runs = [("deepfm", ()), ("sasrec", ()), ("sasrec", ("--admission",)),
+            ("bert4rec", ()), ("mind", ()), ("mind", ("--replicas", "3"))]
+    dep = reqs = None
+    for arch, extra in runs:
+        args = launch.build_parser().parse_args(
+            ["--arch", arch, *base_argv, *extra])
+        cfg = get_arch(arch).make_config(full=True)
+        label = arch + "".join(f" {x}" for x in extra)
+        torch.cuda.synchronize()
+        reset_counters(wrappers)
+        t0 = time.perf_counter()
+        n_scores = 0
+        if not extra:
+            dep = reqs = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            dep = launch.deploy(cfg, args, dev)
+            reqs = launch.request_stream(dep, args)
+            # one backbone call per offline chunk and per arrival chunk
+            n_scores = (math.ceil(args.offline_users / launch.SCORE_CHUNK)
+                        + math.ceil(args.requests / launch.ARRIVAL_CHUNK))
+        rep = launch.serve(dep, reqs, args, engine_cls=CheckedEngine)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_counters(wrappers)
+        expect = check_served(label, dep, reqs, rep, args)
+        if cfg.kind == "deepfm":
+            expect["embedding_bag"] = n_scores
+        if launches != expect:
+            fail(f"phase D {label}: launch counters {launches} != the "
+                 f"batches' route launches and the scoring calls {expect}")
+        if cfg.kind == "deepfm" and not launches["embedding_bag"]:
+            fail("phase D: DeepFM's scoring launched no embedding_bag")
+        if "--admission" in extra and not launches["linear_rank_audited"]:
+            fail("phase D: the mean rung launched no linear_rank_audited")
+        if not launches["knn_rank_audited"]:
+            fail(f"phase D {label}: knn_rank_audited never launched")
+        for k, v in launches.items():
+            total[k] += v
+        row = {"wall_s": wall_s, "launches": {k: v for k, v in
+                                              launches.items() if v},
+               "requests": rep["requests"], "served": rep["served"],
+               "shed": rep["shed"], "latency_ms": rep["latency_ms"],
+               "compiles_post_warmup": rep["compiles_post_warmup"],
+               "offline_compliance": rep["offline_compliance"]}
+        if args.replicas > 1:
+            row.update(fleet=rep["fleet"],
+                       replica_states=rep["replica_states"])
+        else:
+            row.update(fill_rate=rep["fill_rate"],
+                       online_compliance=rep["online_compliance"],
+                       deadline=rep["deadline"],
+                       exec_ms_per_batch=rep["pipeline"][
+                           "exec_ms_per_batch"],
+                       overlap_ratio=rep["pipeline"]["overlap_ratio"])
+        if not extra:
+            model = dep.model
+            chunk = launch.request_batch(cfg, launch.ARRIVAL_CHUNK, 99, dev)
+            row.update(
+                n_params=cfg.n_params, d_cov=dep.d_cov,
+                stages_s={k: v for k, v in dep.timings.items()},
+                train_wall_ms_per_step=dep.timings["train_s"]
+                / args.train_steps * 1e3,
+                score_ms_per_chunk=time_ms(lambda: dep.score(chunk), 5),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            # the training step's device time (torch.profiler) over 5
+            # more steps on fresh optimiser state, after serving
+            opt = model.init_opt()
+            batches = [launch.train_batch(cfg, 10_000 + s, dev)
+                       for s in range(5)]
+
+            def steps():
+                nonlocal opt
+                for bt in batches:
+                    opt, _ = model.train_step(opt, bt, lr=launch.TRAIN_LR)
+
+            split = device_split({"step": steps}, reps=1)["step"]
+            row["train_device_ms_per_step"] = (
+                sum(split.values()) / len(batches)
+                if isinstance(split, dict) else split)
+            del opt, batches
+            if cfg.kind == "deepfm":
+                ctx_ids = chunk[:, 1:].contiguous()
+                if not torch.equal(model.context_sum(ctx_ids),
+                                   ref.embedding_bag_ref(
+                                       model.table.detach(), ctx_ids)):
+                    fail("phase D: DeepFM's context sum differs from the "
+                         "embedding_bag plain version")
+                bag = device_split(
+                    {"bag": lambda: model.context_sum(ctx_ids)})["bag"]
+                row["embedding_bag_device_ms"] = (
+                    sum(bag.values()) if isinstance(bag, dict) else bag)
+                row["context_sum_bitwise_plain"] = True
+        report[label] = row
+        log(f"phase D {label}: {json.dumps(row)} ({smi})")
+    del dep, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    return total, report
+
+
 def table23(rows):
     """Tables 2-3 of the paper from the Fig. 2 rows, as
     benchmarks/table23_regression.py computes them (a copy: this script
@@ -3016,6 +3264,12 @@ def main() -> int:
     log(f"phase F: {fleet_report['seconds']:.1f} s, launches "
         f"{fleet_launches}")
 
+    # -- phase D: the deployment driver at the published widths -------------
+    deploy_launches, deploy_report = serve_deployments(
+        args.seed, dev, wrappers, route_wrapper, smi)
+    log(f"phase D: {deploy_report['seconds']:.1f} s, launches "
+        f"{deploy_launches}")
+
     # -- phase L: the kernel library's entry points --------------------------
     entry = {"fused_rank": ops.fused_rank, "knn_topk": ops.knn_topk,
              "knn_predict_kernel": ops.knn_predict_kernel,
@@ -3158,13 +3412,14 @@ def main() -> int:
             "launches": (offline_launches[name] + serve_launches[name]
                          + load_launches[name] + refresh_launches[name]
                          + lattice_launches[name] + fleet_launches[name]
-                         + lib_launches[name]),
+                         + deploy_launches[name] + lib_launches[name]),
             "launches_by_path": {"offline_holdout": offline_launches[name],
                                  "serving": serve_launches[name],
                                  "serving_under_load": load_launches[name],
                                  "refresh": refresh_launches[name],
                                  "lattice": lattice_launches[name],
                                  "fleet": fleet_launches[name],
+                                 "deployment": deploy_launches[name],
                                  "kernel_library": lib_launches[name]},
             "max_abs_err": err[name], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],

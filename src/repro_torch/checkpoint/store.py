@@ -107,40 +107,44 @@ def _decode(arr: np.ndarray, dtype_name: str):
         dtype)
 
 
+def _walk(node, prefix: tuple, out: dict) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], prefix + (str(k),), out)
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _walk(v, prefix + (str(i),), out)
+    elif node is not None:
+        out[_SEP.join(prefix)] = node
+
+
 def flatten_with_paths(tree: PyTree) -> dict:
     """{path: leaf} in jax.tree_util's flatten order: dict keys sorted,
     list and tuple items by position, None an empty subtree; a path
     joins its keys with '/'. The engine's swap checks compare two
-    states' structure through it too."""
+    states' structure through it too. (The walks are module functions:
+    a recursive closure would make a reference cycle that keeps the
+    leaves, gigabytes of a table's gradient, alive until the collector
+    runs.)"""
     out = {}
-
-    def walk(node, prefix):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], prefix + (str(k),))
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                walk(v, prefix + (str(i),))
-        elif node is not None:
-            out[_SEP.join(prefix)] = node
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
+
+
+def _build(node, prefix: tuple, leaves: dict):
+    if isinstance(node, dict):
+        return {k: _build(node[k], prefix + (str(k),), leaves) for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, prefix + (str(i),), leaves)
+                          for i, v in enumerate(node))
+    if node is None:
+        return None
+    return leaves[_SEP.join(prefix)]
 
 
 def unflatten_like(like: PyTree, leaves: dict) -> PyTree:
     """`like`'s structure with each leaf replaced by leaves[path]."""
-    def build(node, prefix):
-        if isinstance(node, dict):
-            return {k: build(node[k], prefix + (str(k),)) for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v, prefix + (str(i),))
-                              for i, v in enumerate(node))
-        if node is None:
-            return None
-        return leaves[_SEP.join(prefix)]
-
-    return build(like, ())
+    return _build(like, (), leaves)
 
 
 def _map_tree(fn, tree: PyTree) -> PyTree:

@@ -1,0 +1,72 @@
+"""Architecture registry of the port (counterpart of the non-lowering
+part of repro.configs.registry): every registered arch is a selectable
+config (``--arch <id>``) with its own shape-cell set.
+
+Each ArchSpec provides make_config(full): the published config
+(full=True) or a reduced same-family smoke config (full=False), and its
+cells. The JAX package's `build` (an XLA program with abstract,
+sharded arguments for the dry run) has no counterpart here: `build` is
+optional and None for every arch the port registers.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Mapping
+
+
+@dataclass(frozen=True)
+class Cell:
+    """One assigned input shape for an architecture."""
+
+    name: str                   # e.g. 'train_batch'
+    kind: str                   # train | prefill | decode | serve | retrieval
+    params: Mapping[str, Any] = field(default_factory=dict)
+
+    def __getitem__(self, k):
+        return self.params[k]
+
+
+@dataclass(frozen=True)
+class ArchSpec:
+    name: str
+    family: str                                  # lm | gnn | recsys | paper
+    cells: tuple[Cell, ...]
+    make_config: Callable[[bool], Any]
+    build: Callable | None = None                # the JAX dry run's; None
+    notes: str = ""
+    # name -> () -> the variant's full-scale config
+    variants: Mapping[str, Callable[[], Any]] = field(default_factory=dict)
+
+    def cell(self, name: str) -> Cell:
+        for c in self.cells:
+            if c.name == name:
+                return c
+        raise KeyError(f"{self.name}: no cell {name!r}; have "
+                       f"{[c.name for c in self.cells]}")
+
+
+ARCH_REGISTRY: dict[str, ArchSpec] = {}
+
+
+def register(spec: ArchSpec) -> ArchSpec:
+    ARCH_REGISTRY[spec.name] = spec
+    return spec
+
+
+def get_arch(name: str) -> ArchSpec:
+    # import side-effect registration on first use
+    import repro_torch.configs  # noqa: F401
+    if name not in ARCH_REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(ARCH_REGISTRY)}")
+    return ARCH_REGISTRY[name]
+
+
+def all_archs() -> list[str]:
+    import repro_torch.configs  # noqa: F401
+    return sorted(ARCH_REGISTRY)
+
+
+def pad_up(n: int, mult: int = 512) -> int:
+    """Data-pipeline padding: n rounded up to a multiple of `mult`."""
+    return -(-n // mult) * mult

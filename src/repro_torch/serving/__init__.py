@@ -1,9 +1,10 @@
 """Streaming serving engine of the port: shape-bucketed micro-batching
 with async double-buffered execution on a CUDA stream, deadlines and
 admission, open-loop traffic, the online lambda-refresh lane that
-hot-swaps predictor generations, the adaptive bucket lattice, and the
-fault-tolerant replica fleet (see engine.py, pipeline.py, refresh.py,
-lattice.py and fleet.py)."""
+hot-swaps predictor generations, the adaptive bucket lattice, the
+fault-tolerant replica fleet, and the per-geometry autotune table's file
+and lookup, kept so one table loads in either package (see engine.py,
+pipeline.py, refresh.py, lattice.py, fleet.py and buckets.py)."""
 
 from repro_torch.serving.admission import (
     SHED_RUNG,
@@ -11,6 +12,8 @@ from repro_torch.serving.admission import (
     AdmissionDecision,
 )
 from repro_torch.serving.buckets import (
+    AUTOTUNE_KEYS,
+    DEFAULT_AUTOTUNE_PATH,
     K_TIERS,
     MIN_M1,
     MIN_M2,
@@ -21,7 +24,11 @@ from repro_torch.serving.buckets import (
     bucket_for,
     ceil_pow2,
     fill_staging,
+    geometry_key,
     k_tier,
+    load_autotune_table,
+    resolve_autotune,
+    save_autotune_table,
     unpad_result,
 )
 from repro_torch.serving.engine import (
@@ -84,7 +91,7 @@ from repro_torch.serving.traffic import (
 __all__ = [
     "Bucket", "K_TIERS", "MIN_M1", "MIN_M2", "NEG_FILL",
     "alloc_staging", "assemble_batch", "bucket_for", "ceil_pow2",
-    "fill_staging", "k_tier", "unpad_result",
+    "fill_staging", "k_tier", "resolve_autotune", "unpad_result",
     "DEFAULT_HISTOGRAM_PATH", "Lattice", "LatticeLane",
     "ShapeHistogram", "TroughDetector", "optimize_lattice",
     "padding_waste",

@@ -1,5 +1,5 @@
-"""Shape-bucket geometry and host-side batch assembly (counterpart of
-repro.serving.buckets, without the autotune table).
+"""Shape-bucket geometry, the per-geometry autotune table and host-side
+batch assembly (counterpart of repro.serving.buckets).
 
 Requests carry their own (m1, m2, K); the engine pads each to a bucket
 so a bounded set of shapes reaches the kernels. Padding does not change
@@ -15,6 +15,8 @@ the answer:
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -59,6 +61,105 @@ class Bucket:
     @property
     def name(self) -> str:
         return f"{self.tag}/m1={self.m1}/m2={self.m2}/K={self.K}/B={self.batch}"
+
+
+# ---------------------------------------------------------------------------
+# Per-geometry autotune table
+# ---------------------------------------------------------------------------
+# The JAX package's key format, lookup chain and JSON layout, so that one
+# table file loads in either package. An entry maps knob names to values;
+# the JAX engine applies its Pallas tiles (AUTOTUNE_KEYS) when it builds
+# a bucket. The CUDA kernels take none of those tiles, and their launch
+# parameters (the rank kernels' cluster split, the KNN sweep's db chunk)
+# are picked by their wrappers from the launch's own shape, so nothing
+# in the port applies an entry: the table is here for the file and the
+# lookup.
+
+DEFAULT_AUTOTUNE_PATH = "experiments/bench/autotune_table.json"
+
+# the JAX engine's tile knobs
+AUTOTUNE_KEYS = ("tile_b", "tile_m", "tile_n", "quant")
+
+
+def geometry_key(bucket: Bucket, *, d_cov: int | None = None) -> str:
+    """The autotune-table key for a bucket: its padded kernel geometry,
+    without the tag, a pure function of the actual (m1, m2, K, B[, d])
+    numbers and never of the bucket's place in a lattice, so tuned knobs
+    survive a lattice swap."""
+    key = f"m1={bucket.m1}/m2={bucket.m2}/K={bucket.K}/B={bucket.batch}"
+    if d_cov is not None:
+        key += f"/d={int(d_cov)}"
+    return key
+
+
+def resolve_autotune(table: dict, bucket: Bucket, *,
+                     d_cov: int | None = None) -> dict:
+    """`bucket`'s entry of an autotune table, by JAX's lookup chain:
+
+      1. the exact geometry key with the covariate width (".../d=16");
+      2. the key without it;
+      3. the nearest tuned geometry that covers this bucket (same batch,
+         m1, m2 and K all >=; the least m1*m2 + K*m1), tile_b clamped
+         to B and tile_m to m1.
+
+    Returns {} when nothing applies (the engine serves on defaults)."""
+    if not table:
+        return {}
+    if d_cov is not None:
+        hit = table.get(geometry_key(bucket, d_cov=d_cov))
+        if hit:
+            return dict(hit)
+    hit = table.get(geometry_key(bucket))
+    if hit:
+        return dict(hit)
+    best, best_cost = None, None
+    for key, entry in table.items():
+        dims = {}
+        for part in key.split("/"):
+            name, _, val = part.partition("=")
+            if val:
+                try:
+                    dims[name] = int(val)
+                except ValueError:
+                    pass
+        if not {"m1", "m2", "K", "B"} <= dims.keys():
+            continue
+        if dims["B"] != bucket.batch:
+            continue
+        if (dims["m1"] < bucket.m1 or dims["m2"] < bucket.m2
+                or dims["K"] < bucket.K):
+            continue
+        cost = dims["m1"] * dims["m2"] + dims["K"] * dims["m1"]
+        if best_cost is None or cost < best_cost:
+            best, best_cost = entry, cost
+    if best is None:
+        return {}
+    out = dict(best)
+    if "tile_b" in out:
+        out["tile_b"] = min(int(out["tile_b"]), bucket.batch)
+    if "tile_m" in out:
+        out["tile_m"] = min(int(out["tile_m"]), bucket.m1)
+    return out
+
+
+def save_autotune_table(table: dict, path: str = DEFAULT_AUTOTUNE_PATH
+                        ) -> str:
+    """Write {geometry_key: {knob: value, ...}} as JSON in the JAX
+    package's layout ({"version": 1, "table": ...}); round-trips through
+    load_autotune_table."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"version": 1, "table": table}, f, indent=1, sort_keys=True)
+    return path
+
+
+def load_autotune_table(path: str = DEFAULT_AUTOTUNE_PATH) -> dict:
+    """A saved autotune table; {} when the file is absent."""
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        payload = json.load(f)
+    return payload.get("table", {})
 
 
 def bucket_for(*, m1: int, m2: int, K: int, tag: str, batch: int) -> Bucket:

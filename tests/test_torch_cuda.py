@@ -1057,3 +1057,31 @@ def test_a_restarted_replica_serves_its_reloaded_epoch_bitwise(
         _same(r, want[r.rid])
     assert set(primary.restart_ms[0]) == {"factory", "reload", "rewarm"}
     router.close()
+
+
+def test_deepfm_context_sum_through_the_kernel_equals_plain(card):
+    """DeepFM's retrieval context (38 context fields of width 10; the
+    table cut to 39 fields x 20,000 rows): the embedding_bag kernel's
+    sum, bitwise its plain version, one launch a call."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.batches import make_deepfm_batch
+    from repro_torch.models.recsys import RECSYS_REGISTRY
+    import dataclasses
+
+    cfg = dataclasses.replace(get_arch("deepfm").make_config(full=True),
+                              field_vocab=20_000)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(0)
+    model = RECSYS_REGISTRY["deepfm"](cfg, gen=gen, device=card)
+    ids = make_deepfm_batch(gen, batch=64, n_sparse=cfg.n_sparse,
+                            field_vocab=cfg.field_vocab, device=card)["ids"]
+    before = embedding_bag_cuda.launches
+    ctx = model.context_sum(ids[:, 1:])
+    torch.cuda.synchronize()
+    assert embedding_bag_cuda.launches == before + 1
+    want = ref.embedding_bag_ref(model.table.detach(),
+                                 ids[:, 1:].contiguous(), None)
+    assert torch.equal(ctx, want)
+    scores = model.retrieval_scores(ids[:, 1:], torch.arange(512,
+                                                             device=card))
+    assert scores.shape == (64, 512) and bool(torch.isfinite(scores).all())

@@ -3,6 +3,7 @@ its entry points default to the card and refuse to fall back to the
 CPU, and kernel_launch_count reports each route's launches."""
 
 import ast
+import importlib.util
 import tempfile
 from pathlib import Path
 
@@ -56,7 +57,9 @@ from repro_torch.serving.refresh import RefreshLane, knn_ring_update
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "bench_rank.py"]
+    REPO / "chip_smoke.py", REPO / "bench_rank.py"] + [
+    REPO / "examples" / f"{name}_torch.py"
+    for name in ("quickstart", "constrained_feed", "serve_recsys")]
 
 
 def test_port_files_cover_the_refresh_slice():
@@ -72,12 +75,28 @@ def test_port_files_cover_the_lattice_and_fleet_slice():
             PORT_FILES
 
 
+def test_port_files_cover_the_serving_driver_slice():
+    port = REPO / "src" / "repro_torch"
+    for rel in ("models/recsys.py", "models/layers.py", "data/batches.py",
+                "optim/clip.py", "configs/registry.py",
+                "configs/recsys_family.py", "configs/deepfm.py",
+                "configs/sasrec.py", "configs/bert4rec.py", "configs/mind.py",
+                "configs/__init__.py", "launch/serve.py",
+                "launch/__init__.py"):
+        assert port / rel in PORT_FILES
+    for name in ("quickstart", "constrained_feed", "serve_recsys"):
+        assert REPO / "examples" / f"{name}_torch.py" in PORT_FILES
+
+
 def test_serving_exports_match_jax_but_the_autotune_table():
+    """The port's serving exports are JAX's, the autotune table's
+    resolve_autotune included (it was the one name missing before the
+    table was ported)."""
     import repro.serving as jserving
     import repro_torch.serving as tserving
 
     missing = set(jserving.__all__) - set(tserving.__all__)
-    assert missing == {"resolve_autotune"}   # waits for the autotune table
+    assert missing == set()
     assert not set(tserving.__all__) - set(jserving.__all__)
     assert all(hasattr(tserving, name) for name in tserving.__all__)
 
@@ -124,7 +143,20 @@ def _families(t):
                                             device="cpu")}
 
 
+def _example_main(name):
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
+
+
 def _default_device_calls():
+    from repro_torch.configs import get_arch
+    from repro_torch.data.batches import make_deepfm_batch, make_seqrec_batch
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.recsys import RECSYS_REGISTRY
+
     t = _small()
     fam = _families(t)
     knn = fam["knn"]
@@ -252,6 +284,23 @@ def _default_device_calls():
         "build_experiment": lambda: build_experiment(
             torch.Generator(), dataset="yow", n_users=8, n_items=20, m1=10,
             m2=4, recommender_epochs=1),
+        "RECSYS_REGISTRY(deepfm)": lambda: RECSYS_REGISTRY["deepfm"](
+            get_arch("deepfm").make_config(full=False)),
+        "RECSYS_REGISTRY(mind)": lambda: RECSYS_REGISTRY["mind"](
+            get_arch("mind").make_config(full=False)),
+        "make_deepfm_batch": lambda: make_deepfm_batch(
+            torch.Generator(), batch=2, n_sparse=3, field_vocab=5),
+        "make_seqrec_batch": lambda: make_seqrec_batch(
+            torch.Generator(), batch=2, seq_len=4, n_items=9, n_neg=2),
+        "launch.serve.main": lambda: launch.main(
+            ["--arch", "sasrec", "--train-steps", "1", "--requests", "4",
+             "--offline-users", "16"]),
+        "quickstart_torch.main": lambda: _example_main("quickstart_torch")(
+            []),
+        "constrained_feed_torch.main": lambda: _example_main(
+            "constrained_feed_torch")([]),
+        "serve_recsys_torch.main": lambda: _example_main(
+            "serve_recsys_torch")(["--requests", "4"]),
     }
 
 
