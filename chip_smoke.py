@@ -182,6 +182,30 @@ Phases (any failure exits non-zero before a result is printed):
      training step's wall and device ms, scoring ms a chunk of 64,
      embedding_bag's device ms, latency, fill rate, compliance, peak
      memory and launches, beside the card's name and power limit;
+  M. the paper's dist-topk serving on a virtual make_smoke_mesh()
+     ((2, 4) ('data', 'model'), every shard on the card): build_paper
+     for each cell of configs/paper.py's PAPER_CELLS at full width
+     (offline_dual 8192 x 1024, K = 5, m2 = 50, 300 iterations;
+     serve_online B = 8192, m1 = 1024, d = 20, n_db = 1,048,576, k = 10;
+     serve_retrieval B = 256, m1 = 1,048,576, n_db = 65,536) with
+     PaperConfig() and PaperConfig(distributed=True) on the same seeded
+     arrays: the two variants' perm and compliant equal, utility and
+     exposure within TOL, lambda-hat within LAM_TOL (each logged with
+     whether it held bitwise), the offline programs equal; the merged
+     sharded_knn_topk over the 1,048,576 rows against one knn_topk
+     launch (idx equal, d2 bitwise or within rtol 1e-6);
+     knn_predict_quant_distributed over the int8 pack (slab 512) against
+     knn_lambda_quant within LAM_TOL; then 512 requests (the
+     serve_online KNN surface, m1 jittered 512-1024, m2 = 50, over the
+     db, f32 and int8; lambda-given and linear requests; 32 KNN requests
+     at m2 = 500) through ServingEngine(executor="dist", mesh=...,
+     max_batch=32, pipeline_depth=1) and the default engine: every
+     row's perm and compliant equal and its floats within TOL,
+     compiles_post_warmup 0, the distributed paths' launch counters
+     equal to the programs' and the flushed batches' dist route counts
+     (core.serving_dist.dist_kernel_launches); logs each program's ms
+     (CUDA events, median of 3), dist beside dense, and both engines'
+     wall, latency and launches;
   L. the kernel library path: the entry points of repro_torch.kernels
      (ops.fused_rank, ops.knn_topk, ops.knn_predict_kernel,
      ops.embedding_bag) on phase 2's inputs, each output equal to phase
@@ -201,7 +225,9 @@ Phases (any failure exits non-zero before a result is printed):
      before/after pair.
 The launch counters are set to 0 just before each of phase O's holdout
 paths, the serving path, each run of phases S, R and A, phase F, each
-run of phase D and the kernel library path, and read just after each.
+run of phase D, each distributed call of phase M (its checked program
+runs, the sharded knn_topk and the dist engine's stream) and the kernel
+library path, and read just after each.
 Prints the kernel table as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 """
@@ -2413,6 +2439,304 @@ def serve_deployments(seed, dev, wrappers, route_wrapper, smi):
     return total, report
 
 
+# phase M: the paper's cells (src/repro/configs/paper.py) at full width
+# on a virtual (2, 4) mesh over the card; the engine's dist executor on
+# the serve_online KNN surface (f32 and int8), phase 3's lambda-given
+# and linear requests and 32 KNN requests at m2 = 500
+MESH_MIX = {("knn", 50): 192, ("knn_int8", 50): 96, ("_lam", 50): 96,
+            ("linear", 50): 96, ("knn", 500): 32}
+MESH_QUANT_B = 8192           # queries of the quantized distributed check
+
+
+def serve_mesh(seed, dev, X_db, lam_db, predictors, wrappers, smi):
+    """Phase M: build_paper's programs for every cell of PAPER_CELLS with
+    PaperConfig() and PaperConfig(distributed=True) on a virtual
+    make_smoke_mesh() over the card, on the same seeded arrays, each
+    serve cell's dist program also against the plain versions (one shard
+    body's knn_topk and fused_rank launches at this cell's shard shapes,
+    and the whole cell's lambda-hat and ranking); the merged
+    sharded_knn_topk over the 1,048,576 rows against one knn_topk launch
+    and against its plain version; knn_predict_quant_distributed over
+    the int8 pack against knn_lambda_quant; then
+    ServingEngine(executor="dist") against the default engine on one
+    stream of MESH_MIX. Returns (launches of the distributed paths,
+    launches of the dense programs and the default engine, report)."""
+    from repro_torch.configs.paper import PAPER_CELLS, PaperConfig, build_paper
+    from repro_torch.core.constraints import dcg_discount
+    from repro_torch.core.predictors import _idw_lambda
+    from repro_torch.core.serving_dist import (
+        dist_kernel_launches,
+        knn_predict_quant_distributed,
+    )
+    from repro_torch.distributed.topk import sharded_knn_topk
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.common import sq_norm_seq
+    from repro_torch.kernels.fused_rank import fused_rank_cuda
+    from repro_torch.kernels.knn_topk import (
+        knn_lambda_quant_cuda,
+        knn_topk_cuda,
+    )
+    from repro_torch.launch.mesh import make_smoke_mesh, shard_rows
+    from repro_torch.serving.engine import RankRequest, ServingEngine
+
+    t_phase = time.perf_counter()
+    mesh = make_smoke_mesh(device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 41)
+    total = dict.fromkeys(wrappers, 0)
+    dense_total = dict.fromkeys(wrappers, 0)
+    expect = dict.fromkeys(wrappers, 0)
+    cfg = PaperConfig()
+    report = {"mesh": f"virtual {mesh.axis_sizes} {mesh.axis_names} over "
+                      f"{dev} (the shards share one card)", "cells": {}}
+
+    def counted(call, launches=None):
+        """call() with the counters from 0; their reading is added to the
+        distributed paths' total and `launches` to what those routes
+        predict, or with launches None to the dense side's total."""
+        torch.cuda.synchronize()
+        reset_counters(wrappers)
+        out = call()
+        torch.cuda.synchronize()
+        into = dense_total if launches is None else total
+        for name, n in read_counters(wrappers).items():
+            into[name] += n
+        for name, n in (launches or {}).items():
+            expect[name] += n
+        return out
+
+    def hold_plain(cell, X, u, a, b, X_cell, lam_cell, out, row):
+        """A serve cell's dist program against the plain versions: batch
+        block 0, shard 0's inputs through knn_topk_cuda and fused_rank_cuda
+        (the shard bodies' kernels at this cell's shard shapes), bitwise;
+        the whole cell's lambda-hat (the plain selection, weighted) and
+        ranking (rank_audited_ref), perm and compliant exact, floats
+        within their tolerance. Returns the plain selection."""
+        B, m1, K, m2 = cell["batch"], cell["m1"], cell["K"], cell["m2"]
+        rows = B // mesh.shape["data"]
+        shards = mesh.shape["model"]
+        n_l, m1_l = X_cell.shape[0] // shards, m1 // shards
+        xq, xdb = X[:rows], X_cell[:n_l]
+        if not bitwise(knn_topk_cuda(xq, xdb, k=cfg.knn_k, device=dev),
+                       ref.knn_topk_ref(xq, xdb, cfg.knn_k)):
+            fail(f"phase M {cell.name}: knn_topk at the shard shape "
+                 f"{tuple(xq.shape)} x {tuple(xdb.shape)} differs from the "
+                 f"plain version")
+        kk = min(m2, m1_l)
+        u_l = u[:rows, :m1_l].contiguous()
+        a_l = a[:, :m1_l].expand(rows, K, m1_l).contiguous()
+        if not bitwise(fused_rank_cuda(u_l, a_l, out.lam[:rows], m2=kk,
+                                       eps=cfg.eps, device=dev),
+                       ref.fused_rank_ref(u_l, a_l, out.lam[:rows], kk,
+                                          cfg.eps)):
+            fail(f"phase M {cell.name}: fused_rank at the shard shape "
+                 f"{tuple(a_l.shape)} kk {kk} differs from the plain version")
+        del u_l, a_l
+        d2, idx = ref.knn_topk_ref(X, X_cell, cfg.knn_k)
+        sel = idx.long()
+        lam = _idw_lambda(d2, sq_norm_seq(X)[:, None],
+                          sq_norm_seq(X_cell[sel]), lam_cell[sel])
+        if not torch.allclose(out.lam, lam, **LAM_TOL):
+            fail(f"phase M {cell.name}: lambda-hat outside {LAM_TOL} of the "
+                 f"plain version")
+        want = ref.rank_audited_ref(
+            u, a.expand(B, K, m1), b.expand(B, K), out.lam,
+            dcg_discount(m2).to(u.device).expand(B, m2), m2, cfg.eps)
+        if not (torch.equal(out.perm, want[1])
+                and torch.equal(out.compliant, want[4])):
+            fail(f"phase M {cell.name}: perm or compliant differs from "
+                 f"rank_audited_ref's")
+        if not (torch.allclose(out.utility, want[2], **TOL)
+                and torch.allclose(out.exposure, want[3], **TOL)):
+            fail(f"phase M {cell.name}: utility or exposure outside {TOL} "
+                 f"of rank_audited_ref's")
+        row["plain_bitwise"] = all(torch.equal(g, w) for g, w in (
+            (out.lam, lam), (out.utility, want[2]), (out.exposure, want[3])))
+        return d2, idx
+
+    bodies = mesh.shape["model"] * mesh.shape["data"]
+    db = shard_rows(mesh, X_db)          # placed once: views on the card
+    for cell in PAPER_CELLS:
+        B, m1, K, m2 = cell["batch"], cell["m1"], cell["K"], cell["m2"]
+        u = torch.rand((B, m1), generator=gen, device=dev) * 4.0 + 1.0
+        a = (torch.rand((K, m1), generator=gen, device=dev) < 0.15).float()
+        b = torch.full((K,), 0.05, device=dev)
+        a_b = a.expand(B, K, m1).contiguous()
+        progs = {dist: build_paper(PaperConfig(distributed=dist), cell, mesh)
+                 for dist in (False, True)}
+        if cell.kind == "offline":
+            args = {False: (u, a_b, b), True: (u, a_b, b)}
+        else:
+            n_db = cell["n_db"]
+            X = torch.randn((B, D), generator=gen, device=dev)
+            args = {False: (X, u, a_b, b, X_db[:n_db], lam_db[:n_db]),
+                    True: (X, u, a, b, db if n_db == X_db.shape[0]
+                           else X_db[:n_db], lam_db[:n_db])}
+        for dist, prog in progs.items():
+            for arg, spec in zip(args[dist], prog.args):
+                if tuple(arg.shape) != spec.shape or arg.dtype != spec.dtype:
+                    fail(f"phase M {cell.name}: an argument {tuple(arg.shape)}"
+                         f" {arg.dtype} is not {spec}")
+        dense = counted(lambda: progs[False].fn(*args[False]))
+        launches = ({} if cell.kind == "offline" else
+                    {"knn_topk": 2 * bodies, "fused_rank": bodies})
+        dist = counted(lambda: progs[True].fn(*args[True]), launches)
+        row = {}
+        if cell.kind == "offline":
+            for f in ("lam", "dual_value", "primal_value", "exposure",
+                      "compliant"):
+                if not torch.equal(getattr(dist, f), getattr(dense, f)):
+                    fail(f"phase M offline_dual: {f} differs between the "
+                         f"two configs' programs")
+            if not bool(torch.isfinite(dense.lam).all()):
+                fail("phase M offline_dual: non-finite prices")
+            row["compliance"] = float(dense.compliant.float().mean())
+        else:
+            if not torch.equal(dist.perm, dense.perm):
+                fail(f"phase M {cell.name}: perm differs in "
+                     f"{int((dist.perm != dense.perm).sum())} slots")
+            if not torch.equal(dist.compliant, dense.compliant):
+                fail(f"phase M {cell.name}: compliant differs")
+            for f, tol in (("utility", TOL), ("exposure", TOL),
+                           ("lam", LAM_TOL)):
+                g, w = getattr(dist, f), getattr(dense, f)
+                if not torch.allclose(g, w, **tol):
+                    fail(f"phase M {cell.name}: {f} outside {tol}")
+                row[f"{f}_max_abs_err"] = float((g - w).abs().max())
+                row[f"{f}_bitwise"] = torch.equal(g, w)
+            row["compliance"] = float(dense.compliant.float().mean())
+            plain_sel = hold_plain(cell, X, u, a, b, X_db[:n_db],
+                                   lam_db[:n_db], dist, row)
+        for dist_, prog in progs.items():
+            row["dist_ms" if dist_ else "dense_ms"] = time_ms(
+                lambda: prog.fn(*args[dist_]), 1, groups=TIMED_RUNS)
+        report["cells"][cell.name] = row
+        log(f"phase M {cell.name}: {json.dumps(row)} ({smi})")
+        if cell.name == "serve_online":
+            Xq, Xq_sel = X, plain_sel
+        del u, a, b, a_b, args, dense, dist
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the sharded knn_topk against its plain version (the streamed sweep
+    # over the whole db, bitwise) and one launch over the whole db
+    got = counted(lambda: sharded_knn_topk(mesh, Xq, db, KNN_K),
+                  {"knn_topk": 2 * bodies})
+    if not bitwise(got, Xq_sel):
+        fail("phase M: sharded_knn_topk over 8192 queries x 1,048,576 rows "
+             "differs from the plain version")
+    want = ops.knn_topk(Xq, X_db, k=KNN_K, device=dev)
+    torch.cuda.synchronize()
+    if not torch.equal(got[1], want[1]):
+        fail("phase M: sharded_knn_topk's idx differs from one knn_topk "
+             "launch")
+    if not torch.equal(got[0], want[0]):
+        if not torch.allclose(got[0], want[0], rtol=1e-6, atol=0.0):
+            fail("phase M: sharded_knn_topk's d2 outside rtol 1e-6")
+    report["knn_topk_bitwise"] = torch.equal(got[0], want[0])
+    # the quantized distributed KNN over the int8 pack (slab 512)
+    pack = predictors["knn_int8"]
+    Xs = Xq[:MESH_QUANT_B]
+    t0 = time.perf_counter()
+    got = knn_predict_quant_distributed(mesh, pack.X_q, pack.q_scale,
+                                        pack.y2_q, lam_db, Xs, k=KNN_K)
+    torch.cuda.synchronize()
+    report["quant_dist_s"] = time.perf_counter() - t0
+    want, _ = knn_lambda_quant_cuda(Xs, pack.X_q, pack.q_scale, pack.y2_q,
+                                    lam_db, k=KNN_K, mode="int8",
+                                    device=dev)
+    torch.cuda.synchronize()
+    if not torch.allclose(got, want, **LAM_TOL):
+        fail(f"phase M: knn_predict_quant_distributed outside {LAM_TOL} of "
+             f"knn_lambda_quant")
+    report["quant_lam_max_abs_err"] = float((got - want).abs().max())
+    report["quant_lam_bitwise"] = torch.equal(got, want)
+    del Xq, Xq_sel, Xs, got, want
+
+    # the engine's dist executor against the default engine
+    rng = np.random.default_rng(seed + 41)
+    kinds = [kind for kind, n in MESH_MIX.items() for _ in range(n)]
+    reqs = []
+    for rid, i in enumerate(rng.permutation(len(kinds))):
+        tag, m2r = kinds[i]
+        gam = (1.0 / np.log2(np.arange(2, m2r + 2))).astype(np.float32)
+        mm1 = int(rng.integers(512, 1025))
+        kw = dict(rid=rid, m2=m2r, gamma=gam,
+                  u=rng.uniform(1.0, 5.0, mm1).astype(np.float32),
+                  a=(rng.random((K_PRED, mm1)) < 0.15).astype(np.float32),
+                  b=np.full(K_PRED, 0.06 * gam.sum(), np.float32))
+        if tag == "_lam":
+            kw.update(lam=rng.exponential(0.5, K_PRED).astype(np.float32))
+        else:
+            kw.update(X=(rng.normal(size=D) / math.sqrt(D)).astype(
+                np.float32), tag=tag)
+        reqs.append(RankRequest(**kw))
+
+    class Batches(ServingEngine):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.flushed = []
+
+        def _materialize_batch(self, pending):
+            super()._materialize_batch(pending)
+            self.flushed.append(pending.bucket)
+
+    served = {}
+    for label, kw in (("default", {}), ("dist", {"executor": "dist",
+                                                 "mesh": mesh})):
+        eng = Batches(max_batch=32, max_wait_ms=2.0, eps=EPS,
+                      pipeline_depth=1, device=dev, **kw)
+        for tag in ("knn", "knn_int8", "linear"):
+            eng.register_predictor(tag, predictors[tag], d_cov=D)
+        eng.warmup(reqs)
+        eng.flushed.clear()
+        t0 = time.perf_counter()
+        res = counted(lambda: eng.serve_stream(reqs),
+                      {} if label == "dist" else None)
+        wall = time.perf_counter() - t0
+        summary = eng.metrics.summary()
+        if label == "dist":
+            for bk in eng.flushed:
+                for name, n in dist_kernel_launches(
+                        predictors.get(bk.tag), bk.m2, mesh=mesh).items():
+                    expect[name] += n
+            if summary["compiles_post_warmup"] != 0:
+                fail(f"phase M dist engine: compiles_post_warmup "
+                     f"{summary['compiles_post_warmup']}")
+        served[label] = {r.rid: r for r in res}
+        report[f"engine_{label}"] = {
+            "wall_s": wall, "batches": summary["batches"],
+            "latency_ms": summary["latency_ms"],
+            "compliance": summary["compliance"],
+            "kernel_launches": summary["kernel_launches"]}
+        log(f"phase M engine {label}: "
+            f"{json.dumps(report[f'engine_{label}'])} ({smi})")
+        eng.close()
+    dist_rows, dense_rows = served["dist"], served["default"]
+    if not sorted(dist_rows) == sorted(dense_rows) == list(range(len(reqs))):
+        fail("phase M engine: rids not served exactly once by both")
+    rows_bitwise = True
+    for rid, w in dense_rows.items():
+        g = dist_rows[rid]
+        if not np.array_equal(g.perm, w.perm) or g.compliant != w.compliant:
+            fail(f"phase M engine: request {rid} differs from the default "
+                 f"engine's")
+        if not (np.allclose(g.utility, w.utility, **TOL)
+                and np.allclose(g.exposure, w.exposure, **TOL)):
+            fail(f"phase M engine: request {rid}'s floats outside {TOL}")
+        rows_bitwise &= (g.utility == w.utility
+                         and np.array_equal(g.exposure, w.exposure))
+    report["engine_rows_bitwise"] = bool(rows_bitwise)
+    if total != expect:
+        fail(f"phase M launch counters {total} != the routes' {expect}")
+    for name in ("knn_topk", "fused_rank", "knn_lambda", "knn_lambda_quant"):
+        if total[name] == 0:
+            fail(f"phase M: {name} never launched on the distributed paths")
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"phase M: {json.dumps({k: v for k, v in report.items() if k != 'cells'})} ({smi})")
+    return total, dense_total, report
+
+
 def table23(rows):
     """Tables 2-3 of the paper from the Fig. 2 rows, as
     benchmarks/table23_regression.py computes them (a copy: this script
@@ -3270,6 +3594,12 @@ def main() -> int:
     log(f"phase D: {deploy_report['seconds']:.1f} s, launches "
         f"{deploy_launches}")
 
+    # -- phase M: the paper's cells and the dist executor on a mesh ---------
+    mesh_launches, mesh_dense_launches, mesh_report = serve_mesh(
+        args.seed, dev, X_db, lam_db, predictors, wrappers, smi)
+    log(f"phase M: {mesh_report['seconds']:.1f} s, launches "
+        f"{mesh_launches}, dense side {mesh_dense_launches}")
+
     # -- phase L: the kernel library's entry points --------------------------
     entry = {"fused_rank": ops.fused_rank, "knn_topk": ops.knn_topk,
              "knn_predict_kernel": ops.knn_predict_kernel,
@@ -3412,7 +3742,8 @@ def main() -> int:
             "launches": (offline_launches[name] + serve_launches[name]
                          + load_launches[name] + refresh_launches[name]
                          + lattice_launches[name] + fleet_launches[name]
-                         + deploy_launches[name] + lib_launches[name]),
+                         + deploy_launches[name] + mesh_launches[name]
+                         + mesh_dense_launches[name] + lib_launches[name]),
             "launches_by_path": {"offline_holdout": offline_launches[name],
                                  "serving": serve_launches[name],
                                  "serving_under_load": load_launches[name],
@@ -3420,6 +3751,9 @@ def main() -> int:
                                  "lattice": lattice_launches[name],
                                  "fleet": fleet_launches[name],
                                  "deployment": deploy_launches[name],
+                                 "distributed": mesh_launches[name],
+                                 "distributed_dense_side":
+                                     mesh_dense_launches[name],
                                  "kernel_library": lib_launches[name]},
             "max_abs_err": err[name], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],

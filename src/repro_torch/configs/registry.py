@@ -4,15 +4,20 @@ config (``--arch <id>``) with its own shape-cell set.
 
 Each ArchSpec provides make_config(full): the published config
 (full=True) or a reduced same-family smoke config (full=False), and its
-cells. The JAX package's `build` (an XLA program with abstract,
-sharded arguments for the dry run) has no counterpart here: `build` is
-optional and None for every arch the port registers.
+cells. `build(cfg, cell, mesh) -> Program` gives a cell's program as a
+callable on tensors with its arguments' shapes and dtypes (the JAX
+package's Lowerable without shardings or lowering): paper-ranking has
+one. The recsys archs' JAX `build` gives their cells' programs over
+sharded abstract parameters for the dry run, which waits for the zoo:
+theirs is None.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -33,7 +38,7 @@ class ArchSpec:
     family: str                                  # lm | gnn | recsys | paper
     cells: tuple[Cell, ...]
     make_config: Callable[[bool], Any]
-    build: Callable | None = None                # the JAX dry run's; None
+    build: Callable | None = None    # (cfg, cell, mesh) -> Program, or None
     notes: str = ""
     # name -> () -> the variant's full-scale config
     variants: Mapping[str, Callable[[], Any]] = field(default_factory=dict)
@@ -44,6 +49,23 @@ class ArchSpec:
                 return c
         raise KeyError(f"{self.name}: no cell {name!r}; have "
                        f"{[c.name for c in self.cells]}")
+
+
+@dataclass(frozen=True)
+class ArgSpec:
+    """The shape and dtype of one argument of a Program."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+@dataclass(frozen=True)
+class Program:
+    """A cell's program: `fn` takes tensors of the shapes and dtypes of
+    `args`, positionally, on one device."""
+
+    fn: Callable
+    args: tuple[ArgSpec, ...]
 
 
 ARCH_REGISTRY: dict[str, ArchSpec] = {}

@@ -1,8 +1,14 @@
-"""Ranking core of the port: discounts and constraints, sort
-assignment, the batched dual solver, the lambda predictors and the
-ranking pipeline (the names of repro.core that the port has)."""
+"""Ranking core of the port: discounts and constraints, the assignment
+solvers, the Monge checks, the batched dual solver, the lambda
+predictors and the ranking pipeline (every name repro.core exports)."""
 
-from repro_torch.core.assignment import rank_by_sort
+from repro_torch.core.assignment import (
+    auction,
+    brute_force,
+    brute_force_constrained,
+    greedy_half_approx,
+    rank_by_sort,
+)
 from repro_torch.core.constraints import (
     ConstraintSet,
     dcg_discount,
@@ -16,6 +22,11 @@ from repro_torch.core.dual_solver import (
     serve_rank,
     solve_dual,
     solve_dual_batch,
+)
+from repro_torch.core.monge import (
+    is_inverse_monge,
+    is_permuted_inverse_monge,
+    monge_defect,
 )
 from repro_torch.core.predictors import (
     KNNLambdaPredictor,
@@ -38,7 +49,9 @@ from repro_torch.core.ranking import (
 )
 
 __all__ = [
-    "rank_by_sort",
+    "auction", "brute_force", "brute_force_constrained",
+    "greedy_half_approx", "rank_by_sort",
+    "is_inverse_monge", "is_permuted_inverse_monge", "monge_defect",
     "ConstraintSet", "dcg_discount", "exposure_quota_constraints",
     "geometric_discount", "make_constraints", "movielens_style_constraints",
     "DualSolution", "serve_rank", "solve_dual", "solve_dual_batch",

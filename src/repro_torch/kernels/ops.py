@@ -24,6 +24,8 @@ X W^T + c as torch ops for mean and linear; the MLP's predict;
 then
 core.ranking.rank_given_lambda's einsum score, stable sort and audit as
 torch ops (no launch). `fused_rank` takes the same sort.
+`lambda_hat` gives a micro-batch's lambda-hat as the chained routes
+compute it (the serving engine's `dist` executor ranks after it).
 The kernel library's other entry points, as `repro.kernels` exports
 them: `knn_topk` (two launches), `knn_predict_kernel` (`knn_topk`, then
 the inverse-distance weighting as torch ops) and `embedding_bag` (one).
@@ -315,6 +317,32 @@ def route_of(predictor) -> str:
     return "mlp"
 
 
+def lambda_hat(X, predictor, K: int, *, affine=None, device=None):
+    """A micro-batch's lambda-hat (n, K) as the chained routes compute
+    it, zero-padded to K constraint rows: given (predictor None: X
+    holds it); mean and linear by the linear kernel's prologue
+    arithmetic (`ref.affine_lambda_ref` on `affine`, the (W, c, relu)
+    padded to K, built here when None), so it equals that kernel's
+    bitwise; the MLP's (or any other family's) predict; KNN by
+    `knn_lambda`, or `knn_lambda_quant` over the predictor's pack."""
+    route = route_of(predictor)
+    if route == "lam":
+        return X
+    if route == "affine":
+        if affine is None:
+            affine = ref.affine_params(predictor, X.shape[1], K)
+        return ref.affine_lambda_ref(X, *affine)
+    if route == "mlp":
+        return ref.predicted_lambda(predictor, X, K)
+    ref.check_pred_width(predictor.num_constraints, K)
+    quant = predictor.quant if predictor.X_q is not None else "off"
+    lam = knn_lambda(X, predictor.X_db, predictor.lam_db, k=predictor.k,
+                     quant=quant, X_q=predictor.X_q,
+                     q_scale=predictor.q_scale, y2_q=predictor.y2_q,
+                     device=device)
+    return torch.nn.functional.pad(lam, (0, K - lam.shape[1]))
+
+
 def predict_rank_audited(X, predictor, u, a, b, gamma, *, m2: int,
                          eps: float = 1e-4, tol: float | None = None,
                          knn_chain: bool = False, affine=None,
@@ -345,22 +373,14 @@ def predict_rank_audited(X, predictor, u, a, b, gamma, *, m2: int,
         W, c, relu = affine
         return linear_rank_audited(X, W, c, u, a, b, gamma, relu=relu,
                                    m2=m2, eps=eps, tol=tol, device=device)
-    if route == "mlp":
-        lam = ref.predicted_lambda(predictor, X, a.shape[-2])
-        return rank_audited(u, a, b, lam, gamma, m2=m2, eps=eps, tol=tol,
-                            device=device)
-    quant = predictor.quant if predictor.X_q is not None else "off"
-    pack = dict(quant=quant, X_q=predictor.X_q, q_scale=predictor.q_scale,
-                y2_q=predictor.y2_q)
-    if not knn_chain:
+    if route == "knn" and not knn_chain:
+        quant = predictor.quant if predictor.X_q is not None else "off"
         return knn_rank_audited(X, predictor.X_db, predictor.lam_db, u, a,
                                 b, gamma, k=predictor.k, m2=m2, eps=eps,
-                                tol=tol, device=device, **pack)
-    K = a.shape[-2]
-    ref.check_pred_width(predictor.num_constraints, K)
-    lam = knn_lambda(X, predictor.X_db, predictor.lam_db, k=predictor.k,
-                     device=device, **pack)
-    lam = torch.nn.functional.pad(lam, (0, K - lam.shape[1]))
+                                tol=tol, device=device, quant=quant,
+                                X_q=predictor.X_q, q_scale=predictor.q_scale,
+                                y2_q=predictor.y2_q)
+    lam = lambda_hat(X, predictor, a.shape[-2], device=device)
     return rank_audited(u, a, b, lam, gamma, m2=m2, eps=eps, tol=tol,
                         device=device)
 

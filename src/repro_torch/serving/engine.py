@@ -29,6 +29,12 @@ engine
      stamps completion, feeds admission, recycles the slot and marks the
      futures done. Unpadding runs lazily on the consuming thread.
 
+With executor="dist" and a launch.mesh.Mesh the dispatcher call of
+step 3 becomes lambda-hat, then core.serving_dist.rank_distributed over
+the mesh (the candidate axis split over 'model', each shard's top m2
+merged on the engine's device), as JAX's `dist` executor does; the
+copies, the event, the pins and the ring are the same.
+
 `pipeline_depth` bounds the in-flight window: 1 (the default) is double
 buffering; 0 retires every batch inline on the calling thread, through
 the same slots and copies, with bitwise the same results. On the CPU
@@ -82,6 +88,10 @@ from repro_torch.core.predictors import (
     with_state,
 )
 from repro_torch.core.ranking import RankingOutput
+from repro_torch.core.serving_dist import (
+    dist_kernel_launches,
+    rank_distributed,
+)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, ops, ref
 from repro_torch.serving.admission import SHED_RUNG, AdmissionController
@@ -189,20 +199,45 @@ class ServingEngine:
     (s) per RankRequest.surface; others get default_budget_s. lattice:
     the boot bucket lattice (None = the static power-of-two one). clock:
     the engine's time source, injectable so tests can freeze it.
+
+    executor: 'fused' (the default) makes one dispatcher call into
+    kernels.ops a batch; 'dist' ranks each batch with
+    core.serving_dist.rank_distributed over `mesh` (a launch.mesh.Mesh
+    that holds the engine's device: the candidate axis split over its
+    'model' axis, the batch over 'pod' and 'data'), after lambda-hat
+    (`ops.lambda_hat`: given; KNN by the knn_lambda kernel; affine by
+    the linear kernel's prologue arithmetic on the bucket's padded W and
+    c; the MLP's predict) zero-padded to the bucket's K. JAX's 'xla'
+    executor is not ported.
     """
 
     def __init__(self, *, max_batch: int = 32, max_wait_ms: float = 2.0,
-                 eps: float = 1e-4, pipeline_depth: int = 1,
+                 eps: float = 1e-4, executor: str = "fused", mesh=None,
+                 pipeline_depth: int = 1,
                  admission: AdmissionController | bool | None = None,
                  default_budget_s: float = DEFAULT_BUDGET_S,
                  surface_budgets: dict[str, float] | None = None,
                  lattice: Lattice | None = None,
                  clock: Callable[[], float] = time.perf_counter,
                  device=None):
+        if executor not in ("xla", "fused", "dist"):
+            raise ValueError(f"unknown executor {executor!r}")
+        if executor == "dist" and mesh is None:
+            raise ValueError("executor='dist' needs a mesh")
+        if executor == "xla":
+            raise NotImplementedError(
+                "executor='xla' (JAX's two-stage XLA body) is not ported: "
+                "'fused' serves the same results through the kernels "
+                "(ROADMAP Queue 1 item 1)")
         if pipeline_depth < 0:
             raise ValueError(f"pipeline_depth must be >= 0, got "
                              f"{pipeline_depth}")
         self.device = resolve_device(device)
+        if mesh is not None and self.device not in mesh.physical_devices:
+            raise ValueError(f"the mesh's devices {mesh.physical_devices} "
+                             f"do not hold the engine's {self.device}")
+        self.executor = executor
+        self.mesh = mesh
         self.max_batch = int(max_batch)
         self.max_wait_ms = float(max_wait_ms)
         self.eps = float(eps)
@@ -668,8 +703,13 @@ class ServingEngine:
             ring = StagingRing(bucket, d_cov=self._d_cov.get(bucket.tag),
                                depth=self.pipeline_depth + 2,
                                device=self.device)
-        launches = ops.kernel_launch_count(
-            self._predictors.get(bucket.tag), bucket.m2, device=self.device)
+        pred = self._predictors.get(bucket.tag)
+        if self.executor == "dist":
+            launches = sum(dist_kernel_launches(
+                pred, bucket.m2, mesh=self.mesh, device=self.device).values())
+        else:
+            launches = ops.kernel_launch_count(pred, bucket.m2,
+                                               device=self.device)
         return ring, launches, functools.partial(self._launch, bucket)
 
     def _install(self, bucket: Bucket, ring: StagingRing, launches: int,
@@ -750,7 +790,9 @@ class ServingEngine:
             t = slot.inputs
             for k, host in slot.host.items():
                 t[k].copy_(host, non_blocking=True)
-            if bucket.tag == LAM_TAG:
+            if self.executor == "dist":
+                out = self._launch_dist(bucket, t, state, epoch)
+            elif bucket.tag == LAM_TAG:
                 out = ops.predict_rank_audited(
                     t["lam"], None, t["u"], t["a"], t["b"], t["gamma"],
                     m2=bucket.m2, eps=self.eps, device=self.device)
@@ -766,6 +808,22 @@ class ServingEngine:
                 dst.copy_(getattr(out, k), non_blocking=True)
             if slot.event is not None:
                 slot.event.record(self._stream)
+
+    def _launch_dist(self, bucket: Bucket, t: dict, state: dict | None,
+                     epoch: int) -> RankingOutput:
+        """The `dist` executor's batch: ops.lambda_hat (the bucket's
+        padded W and c for an affine tag), then rank_distributed over
+        the mesh."""
+        if bucket.tag == LAM_TAG:
+            lam = t["lam"]
+        else:
+            template = self._predictors[bucket.tag]
+            affine = (self._affine_for(bucket, template, state, epoch)
+                      if ops.route_of(template) == "affine" else None)
+            lam = ops.lambda_hat(t["X"], with_state(template, state),
+                                 bucket.K, affine=affine, device=self.device)
+        return rank_distributed(self.mesh, t["u"], t["a"], t["b"], lam,
+                                t["gamma"], m2=bucket.m2, eps=self.eps)
 
     def _wait(self, event) -> None:
         """Block until a batch's event has completed (the GIL is

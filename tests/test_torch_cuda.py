@@ -1085,3 +1085,134 @@ def test_deepfm_context_sum_through_the_kernel_equals_plain(card):
     scores = model.retrieval_scores(ids[:, 1:], torch.arange(512,
                                                              device=card))
     assert scores.shape == (64, 512) and bool(torch.isfinite(scores).all())
+
+
+def test_sharded_knn_topk_on_a_virtual_mesh_equals_one_launch(card):
+    """A virtual (1, 4) mesh over the card: four knn_topk launches, one a
+    shard, merged to (d2, idx) bitwise one knn_topk launch over the
+    whole db and its plain version (each pair's d2 is rounded the same
+    way in any sweep geometry)."""
+    from repro_torch.distributed.topk import sharded_knn_topk
+    from repro_torch.launch.mesh import shard_rows, virtual_mesh
+
+    rng = np.random.default_rng(41)
+    xq = _t(rng.normal(size=(64, 20)), card)
+    xdb = _t(rng.normal(size=(40_000, 20)), card)
+    mesh = virtual_mesh((1, 4), ("data", "model"), card)
+    db = shard_rows(mesh, xdb)
+    before = knn_topk_cuda.launches
+    d2, idx = sharded_knn_topk(mesh, xq, db, 10)
+    torch.cuda.synchronize()
+    assert knn_topk_cuda.launches == before + 8
+    for want in (knn_topk_cuda(xq, xdb, k=10), ref.knn_topk_ref(xq, xdb, 10)):
+        assert torch.equal(idx, want[1]) and torch.equal(d2, want[0])
+
+
+@pytest.mark.parametrize("m1,m2", [(1024, 50), (1024, 128), (512, 500)],
+                         ids=["m2=50", "kk=128", "m2=500,kk=128"])
+def test_rank_distributed_equals_rank_audited(card, m1, m2):
+    """rank_distributed on a virtual (2, 4) mesh against the dense
+    rank_audited on the same rows: perm and compliant exact, the audit's
+    floats bitwise (the same score and audit arithmetic). m2 <= 128
+    launches fused_rank once a shard; m2 = 500 over 128 items a shard
+    ranks by the sort route, as the dense dispatcher does."""
+    from repro_torch.core.serving_dist import (
+        dist_kernel_launches,
+        rank_distributed,
+    )
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    u, a, b, lam, g = _rank(np.random.default_rng(m2), 32, m1, 8, m2, card)
+    mesh = make_smoke_mesh(device=card)
+    before = fused_rank_cuda.launches
+    out = rank_distributed(mesh, u, a, b, lam, g, m2=m2)
+    torch.cuda.synchronize()
+    assert fused_rank_cuda.launches - before == dist_kernel_launches(
+        None, m2, mesh=mesh).get("fused_rank", 0)
+    want = ops.rank_audited(u, a, b, lam, g, m2=m2)
+    for f in ("perm", "compliant", "utility", "exposure"):
+        assert torch.equal(getattr(out, f), getattr(want, f)), f
+
+
+def test_dist_engine_rows_equal_the_default_engines(card):
+    """The lambda-given and KNN surfaces (m2 = 50) through
+    ServingEngine(executor='dist') on a virtual (2, 4) mesh and the
+    default engine: every row's perm and compliant equal, its floats
+    bitwise; the launch counters move by the dist route's counts."""
+    from repro_torch.core.serving_dist import dist_kernel_launches
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    knn, reqs = _serving_stream(card, n=128)
+    mesh = make_smoke_mesh(device=card)
+    dist = ServingEngine(max_batch=32, max_wait_ms=2.0, executor="dist",
+                         mesh=mesh, device=card)
+    dist.register_predictor("knn", knn, d_cov=20)
+    dist.warmup(reqs)
+    before = (fused_rank_cuda.launches, knn_lambda_cuda.launches)
+    got = {r.rid: r for r in dist.serve_stream(reqs)}
+    s = dist.metrics.summary()
+    assert s["compiles_post_warmup"] == 0
+    launched = (fused_rank_cuda.launches - before[0],
+                knn_lambda_cuda.launches - before[1])
+    assert sum(launched) == dist.metrics.kernel_launches
+    assert launched[0] == s["batches"] * dist_kernel_launches(
+        None, 50, mesh=mesh)["fused_rank"]
+    _, want = _serve(card, 1, knn, reqs)
+    dist.close()
+    assert sorted(got) == sorted(want)
+    for rid, w in want.items():
+        g = got[rid]
+        np.testing.assert_array_equal(g.perm, w.perm)
+        assert g.compliant == w.compliant and g.utility == w.utility
+        np.testing.assert_array_equal(g.exposure, w.exposure)
+
+
+def test_a_mesh_across_cards_equals_a_virtual_one(card):
+    """With two or more cards, a (1, n) mesh over every card (each
+    shard body on its own card, on a stream of that card ordered after
+    the caller's, the shards' rows copied there once) gives what the
+    virtual (1, n) mesh over one card gives, bitwise: the sharded
+    knn_topk, rank_distributed, and on four cards a (2, 2) dist
+    engine's rows."""
+    from repro_torch.core.serving_dist import rank_distributed
+    from repro_torch.distributed.topk import sharded_knn_topk
+    from repro_torch.launch.mesh import make_mesh, shard_rows, virtual_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    axes = ("data", "model")
+    mesh, virt = make_mesh((1, n), axes), virtual_mesh((1, n), axes, card)
+    rng = np.random.default_rng(43)
+    xq = _t(rng.normal(size=(64, 20)), card)
+    xdb = _t(rng.normal(size=(40_000, 20)), card)
+    db = shard_rows(mesh, xdb)
+    assert {d for c in db.copies for d in c} == set(mesh.physical_devices)
+    got = sharded_knn_topk(mesh, xq, db, 10)
+    want = sharded_knn_topk(virt, xq, xdb, 10)
+    assert got[0].device == card
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    u, a, b, lam, g = _rank(rng, 32, 1024, 8, 50, card)
+    got = rank_distributed(mesh, u, a, b, lam, g, m2=50)
+    want = rank_distributed(virt, u, a, b, lam, g, m2=50)
+    for f in ("perm", "compliant", "utility", "exposure"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    if n < 4:
+        return
+    knn, reqs = _serving_stream(card, n=128)
+    rows = {}
+    for label, m in (("cards", make_mesh((2, 2), axes)),
+                     ("virtual", virtual_mesh((2, 2), axes, card))):
+        eng = ServingEngine(max_batch=32, max_wait_ms=2.0, executor="dist",
+                            mesh=m, device=card)
+        eng.register_predictor("knn", knn, d_cov=20)
+        eng.warmup(reqs)
+        rows[label] = {r.rid: r for r in eng.serve_stream(reqs)}
+        assert eng.metrics.summary()["compiles_post_warmup"] == 0
+        eng.close()
+    assert sorted(rows["cards"]) == sorted(rows["virtual"])
+    for rid, w in rows["virtual"].items():
+        g = rows["cards"][rid]
+        np.testing.assert_array_equal(g.perm, w.perm)
+        assert g.compliant == w.compliant and g.utility == w.utility
+        np.testing.assert_array_equal(g.exposure, w.exposure)

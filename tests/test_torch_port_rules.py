@@ -52,6 +52,9 @@ from repro_torch.kernels.knn_topk import (
     knn_rank_audited_cuda,
     knn_topk_cuda,
 )
+from repro_torch.core.bvn import bvn_decompose, sinkhorn_project
+from repro_torch.core.serving_dist import rank_distributed
+from repro_torch.launch.mesh import make_smoke_mesh, virtual_mesh
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.refresh import RefreshLane, knn_ring_update
 
@@ -86,6 +89,29 @@ def test_port_files_cover_the_serving_driver_slice():
         assert port / rel in PORT_FILES
     for name in ("quickstart", "constrained_feed", "serve_recsys"):
         assert REPO / "examples" / f"{name}_torch.py" in PORT_FILES
+
+
+def test_port_files_cover_the_distribution_slice():
+    port = REPO / "src" / "repro_torch"
+    for rel in ("launch/mesh.py", "distributed/__init__.py",
+                "distributed/sharding.py", "distributed/topk.py",
+                "core/serving_dist.py", "configs/paper.py",
+                "core/assignment.py", "core/monge.py", "core/bvn.py"):
+        assert port / rel in PORT_FILES
+
+
+def test_core_has_every_name_of_jax_core():
+    """Every public name repro.core imports is in repro_torch.core's
+    exports, and nothing more."""
+    import inspect
+
+    import repro.core as jcore
+    import repro_torch.core as tcore
+
+    names = {n for n, v in vars(jcore).items()
+             if not n.startswith("_") and not inspect.ismodule(v)}
+    assert names == set(tcore.__all__)
+    assert all(hasattr(tcore, name) for name in names)
 
 
 def test_serving_exports_match_jax_but_the_autotune_table():
@@ -172,7 +198,19 @@ def _default_device_calls():
     mlp = MLPLambdaPredictor.fit(t["X_db"], t["lam_db"], num_steps=1,
                                  device="cpu")
     bag = torch.tensor([[0, 3, -1], [19, 2, 2]], dtype=torch.int32)
+    cpu_mesh = make_smoke_mesh(device="cpu")
     return {
+        "make_smoke_mesh": lambda: make_smoke_mesh(),
+        "make_smoke_mesh(multi_pod)": lambda: make_smoke_mesh(
+            multi_pod=True),
+        "virtual_mesh": lambda: virtual_mesh((1, 4), ("data", "model")),
+        "rank_distributed": lambda: rank_distributed(
+            make_smoke_mesh(), t["u"], t["a"], t["b"], t["lam"], t["gamma"],
+            m2=8),
+        "ServingEngine(dist)": lambda: ServingEngine(executor="dist",
+                                                     mesh=cpu_mesh),
+        "bvn_decompose": lambda: bvn_decompose(np.eye(3)),
+        "sinkhorn_project": lambda: sinkhorn_project(np.ones((3, 3))),
         "ServingEngine": lambda: ServingEngine(),
         "RefreshLane": lambda: RefreshLane(ServingEngine()),
         "knn_ring_update": lambda: knn_ring_update(

@@ -88,7 +88,7 @@ def _close(got, want, **tol):
 
 
 def test_configs_match_jax():
-    assert all_archs() == sorted(ARCHS)
+    assert all_archs() == sorted(ARCHS + ("paper-ranking",))
     for arch in ARCHS:
         spec, jspec = get_arch(arch), jax_get_arch(arch)
         assert spec.family == jspec.family == "recsys"
