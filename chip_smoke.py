@@ -53,8 +53,9 @@ Phases (any failure exits non-zero before a result is printed):
      sort route, no launch;
   O. the paper's experiment on the card: for each dataset (MovieLens,
      YOW) and scenario m2 in (50, 500, 1000), build_experiment from
-     --seed (10,923 users, 20,000 items, m1 = 1000, 3 recommender
-     epochs: the Appendix-B recommender trained with the port's Adam,
+     --seed (10,923 users, 20,000 items, m1 = 1000, 2 recommender
+     epochs, cut from build_experiment's 3 for the script's time: the
+     Appendix-B recommender trained with the port's Adam,
      top-m1 slates, Table 1 constraints; 8192 train users, the
      offline_dual cell's batch, and 2731 holdout users), then
      fit_pipeline (300 dual iterations, with the MLP), then the Fig. 2
@@ -82,6 +83,15 @@ Phases (any failure exits non-zero before a result is printed):
      batch (for m2=500 the route's plain lambda-hat and
      rank_given_lambda), and check that each wrapper's launch counter
      equals the sum over batches of the route's kernel_launch_count;
+     then the xla row: the same stream through
+     ServingEngine(executor="xla", device="cuda") (JAX's default
+     executor: each predictor's predict, then rank_given_lambda as torch
+     ops), which must move no wrapper's counter and count 0 launches;
+     against the fused engine, on every request whose adjacent scores
+     among its first m2 + 1 part by more than XLA_MARGIN relative, perm
+     and compliant equal and utility and exposure within TOL; logs how
+     many requests fall under the margin and each engine's wall ms a
+     batch;
   S. serving under offered load (benchmarks/latency_serve.py's
      run_frontier at serve_online's width): 2048 requests of
      serving.DEFAULT_MIX plus the serve_online KNN surface (m1=1024,
@@ -98,7 +108,12 @@ Phases (any failure exits non-zero before a result is printed):
      share against 50 ms, fill rate, overlap ratio, assembly, dispatch
      and launch-to-home ms a batch, saturated, the largest latency and
      queueing lag, and the garbage collector's pauses); admission on at
-     0.25 x C must shed and degrade nothing and change no output bit;
+     0.25 x C must shed and degrade nothing and change no output bit
+     in one pass, run over a frozen heap (gc.freeze: a full collection
+     of the script's heap stalls the process for 150-420 ms); the
+     controller's lag samples and any refused
+     decision, with its lag EWMA, service estimates and predictions
+     against headroom x budget, are logged;
      a deadline run at 1.2 x C with admission and a knn -> mean ladder
      (phase O's mean predictor) logs its sheds, degrades and hits by
      rung. Every served row equals the plain version on its own padded
@@ -211,6 +226,26 @@ Phases (any failure exits non-zero before a result is printed):
      ops.embedding_bag) on phase 2's inputs, each output equal to phase
      2's plain version, with 1 launch per fused_rank and embedding_bag
      call and 2 per knn_topk and knn_predict_kernel call;
+  Z. the LM half of the zoo (ZOO), after phase 4's timings: llama3.2-1b
+     at its published width and depth (16 layers, d_model 2048, vocab
+     128,256, bf16; src/repro/configs/llama3_2_1b.py): prefill at B=2,
+     S=4096 (the chunked attention path), 8 decode steps at B=16 against
+     a 32,768-token cache, 3 lm_train_steps at B=2, S=4096 on one
+     make_lm_batch with f32 moments; prefill's last logits (chunked
+     attention) held against an lm_forward with dense attention, and
+     each decode step's against lm_forward's at those positions, within
+     LM_BF16_TOL, chunked against dense attention on layer 0's q, k, v
+     in f32 at S=2048 within ATTN_TOL, the loss finite and falling;
+     then llama4-scout at its published width with its depth cut to 2
+     of 48 layers: prefill at B=1, S=2048 and 4 decode steps (finite),
+     the assignments dropped over capacity (lm_prefill's and
+     lm_decode_step's stats) and the aux loss logged; then decode
+     against lm_forward on the configured path, at B=1 over 4 + 4
+     tokens, few enough that the least capacity (8) drops nothing in
+     either (checked). Logs each part's wall and device ms
+     (torch.profiler) and peak memory beside the card's name and power
+     limit. No kernel of the port runs here: attention and the MoE are
+     torch ops, as the JAX package has no Pallas kernel for them;
   4. time the nine kernels (CUDA events, medians) at the bucket shape and
      at a large batch (the quantized ones in both modes; fused_rank at
      64 x m1=100,000; rank_audited and knn_rank_audited also at
@@ -224,7 +259,8 @@ Phases (any failure exits non-zero before a result is printed):
      and bag_timings, which bench_rank.py runs on two checkouts for a
      before/after pair.
 The launch counters are set to 0 just before each of phase O's holdout
-paths, the serving path, each run of phases S, R and A, phase F, each
+paths, the serving path, phase 3's xla row, each run of phases S, R
+and A, phase F, each
 run of phase D, each distributed call of phase M (its checked program
 runs, the sharded knn_topk and the dist engine's stream) and the kernel
 library path, and read just after each.
@@ -261,15 +297,21 @@ LARGE_KNN_B = 1024            # cut from 8192: see PERF.md
 # the paper's experiment (phase O): build_experiment's sizes, the
 # offline_dual cell's 8192 train users (round(0.75 * 10,923)) beside
 # 2731 holdout users, fig2_strategies.py --full's 20,000 items, the
-# paper's m1 = 1000 and its three scenarios
+# paper's m1 = 1000 and its three scenarios; the recommender's epochs cut
+# from 3 to 2 for time (at 3, its host-bound training took 368 s of the
+# script's 634.6 s beside an H100 80GB HBM3 at 700 W)
 EXPERIMENT = dict(n_users=10_923, n_items=20_000, m1=1000, train_frac=0.75,
-                  epochs=3, iters=300)
+                  epochs=2, iters=300)
 DATASETS = ("movielens", "yow")
 SCENARIOS = (50, 500, 1000)
 STRATEGIES = ("none", "optimal", "mean", "linear", "knn", "mlp")
 TIMED_RUNS = 3
 TOL = dict(rtol=1e-5, atol=1e-5)
 LAM_TOL = dict(rtol=1e-5, atol=1e-6)
+# the xla row: a request whose adjacent scores among its first m2 + 1
+# part by at most this (relative) may order its near-ties apart from the
+# fused engine's (the two lambda-hats agree within LAM_TOL)
+XLA_MARGIN = 1e-5
 KERNELS = ("rank_audited", "knn_rank_audited", "linear_rank_audited",
            "knn_lambda", "knn_lambda_quant", "knn_rank_audited_quant",
            "fused_rank", "knn_topk", "embedding_bag")
@@ -934,6 +976,97 @@ def read_counters(wrappers):
     return {name: w.launches for name, w in wrappers.items()}
 
 
+def load_stream(seed):
+    """Phase S's stream: serving.DEFAULT_MIX plus the serve_online KNN
+    surface, SERVE_LOAD["n_requests"] requests."""
+    from repro_torch.serving import DEFAULT_MIX, Scenario, make_stream
+
+    mix = DEFAULT_MIX + (Scenario("serve_online_knn", m1=1024, m2=50,
+                                  K=K_PRED, tag="knn", d_cov=D, weight=4.0),)
+    return make_stream(mix, n_requests=SERVE_LOAD["n_requests"], seed=seed)
+
+
+def load_engine(stream, dev, knn, mean_pred, depth=1, admission=None,
+                cls=None):
+    """A warmed engine of phase S: SERVE_LOAD's batch and wait, the knn
+    and mean predictors, and with `admission` a knn -> mean ladder."""
+    from repro_torch.serving import ServingEngine
+
+    eng = (cls or ServingEngine)(
+        max_batch=SERVE_LOAD["max_batch"],
+        max_wait_ms=SERVE_LOAD["max_wait_ms"], eps=EPS,
+        pipeline_depth=depth, admission=admission, device=dev)
+    eng.register_predictor("knn", knn, d_cov=D)
+    eng.register_predictor("mean", mean_pred, d_cov=D)
+    if admission is not None:
+        eng.set_degradation_ladder("knn", ["mean"])
+    eng.warmup(stream)
+    return eng
+
+
+def watched_admission():
+    """An AdmissionController that records every queueing-lag sample it
+    is fed (with its time) and every decision that sheds or degrades:
+    the lag EWMA, each rung's service estimate, queue and in-flight
+    count and prediction at that moment, against headroom x budget.
+    Warmup feeds it no lag and no decision."""
+    from repro_torch.serving import AdmissionController
+
+    class Watched(AdmissionController):
+        def __init__(self):
+            super().__init__()
+            self.lags, self.refused, self._rungs = [], [], []
+
+        def observe_lag(self, lag_ms):
+            self.lags.append((time.perf_counter(), float(lag_ms)))
+            super().observe_lag(lag_ms)
+
+        def predict_ms(self, bucket_name, *, queue_len, batch_cap,
+                       inflight, max_wait_ms):
+            got = super().predict_ms(bucket_name, queue_len=queue_len,
+                                     batch_cap=batch_cap, inflight=inflight,
+                                     max_wait_ms=max_wait_ms)
+            self._rungs.append((bucket_name, queue_len, inflight, got))
+            return got
+
+        def decide(self, *, budget_ms, rung_predictions):
+            lag, rungs, self._rungs = self.lag_ms, self._rungs, []
+            d = super().decide(budget_ms=budget_ms,
+                               rung_predictions=rung_predictions)
+            if d.action != "admit":
+                self.refused.append({
+                    "action": d.action, "lag_ewma_ms": lag,
+                    "limit_ms": self.headroom * budget_ms,
+                    "default_rung": self.default_rung,
+                    "rungs": [{"bucket": bk, "service_ms": self.service_ms(bk),
+                               "queue": q, "inflight": n, "predicted_ms": p}
+                              for bk, q, n, p in rungs]})
+            return d
+
+        def summary(self):
+            lags = [x for _, x in self.lags]
+            return {"lag_samples": len(lags),
+                    "lag_ms_max": max(lags, default=0.0),
+                    "lag_samples_over_10ms": sum(x > 10.0 for x in lags),
+                    "refused": len(self.refused),
+                    "first_refused": self.refused[:3]}
+
+    return Watched()
+
+
+class heap_frozen:
+    """With-block: a full collection, then every object that is left
+    frozen out of later collections (gc.freeze), so a collection inside
+    the block traverses only what the block makes; unfrozen on exit."""
+
+    def __enter__(self):
+        gc.collect()
+        gc.freeze()
+
+    def __exit__(self, *exc):
+        gc.unfreeze()
+
+
 def serve_under_load(seed, dev, knn, mean_pred, wrappers, route_wrapper):
     """Phase S: the engine at pipeline depth 1 under open-loop Poisson
     traffic (benchmarks/latency_serve.py's run_frontier). A closed-loop
@@ -945,22 +1078,17 @@ def serve_under_load(seed, dev, knn, mean_pred, wrappers, route_wrapper):
     report)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.serving import (
-        DEFAULT_MIX,
         AdmissionController,
-        Scenario,
         ServingEngine,
         Shed,
         alloc_staging,
         fill_staging,
-        make_stream,
         poisson_arrivals,
         serve_open_loop,
     )
 
     cfg = SERVE_LOAD
-    mix = DEFAULT_MIX + (Scenario("serve_online_knn", m1=1024, m2=50,
-                                  K=K_PRED, tag="knn", d_cov=D, weight=4.0),)
-    stream = make_stream(mix, n_requests=cfg["n_requests"], seed=seed)
+    stream = load_stream(seed)
     n = len(stream)
     total = dict.fromkeys(wrappers, 0)
 
@@ -977,16 +1105,8 @@ def serve_under_load(seed, dev, knn, mean_pred, wrappers, route_wrapper):
             super()._materialize_batch(pending)
 
     def engine(depth=1, admission=None):
-        eng = LoadEngine(max_batch=cfg["max_batch"],
-                         max_wait_ms=cfg["max_wait_ms"], eps=EPS,
-                         pipeline_depth=depth, admission=admission,
-                         device=dev)
-        eng.register_predictor("knn", knn, d_cov=D)
-        eng.register_predictor("mean", mean_pred, d_cov=D)
-        if admission is not None:
-            eng.set_degradation_ladder("knn", ["mean"])
-        eng.warmup(stream)
-        return eng
+        return load_engine(stream, dev, knn, mean_pred, depth, admission,
+                           cls=LoadEngine)
 
     def plain(eng, rung):
         """rid -> (perm, compliant) of the plain version on the request's
@@ -1158,14 +1278,25 @@ def serve_under_load(seed, dev, knn, mean_pred, wrappers, route_wrapper):
         log(f"phase S frontier {json.dumps(rows[-1])}")
         if frac == cfg["fracs"][0]:
             quarter = (arrivals, results)
-    # admission at the lowest load changes nothing
-    eng = engine(admission=AdmissionController())
+    # admission at the lowest load changes nothing, in one pass, over a
+    # frozen heap: a full collection of this script's heap
+    # (gc_tracked_objects_at_start) stalls the process for 150-420 ms,
+    # and the controller rightly sheds behind a stall
+    ctrl = watched_admission()
+    eng = engine(admission=ctrl)
     tables[1] = plain(eng, 1)                    # the knn -> mean rung
-    results, _, s = run("admission at the lowest load", eng,
-                        open_loop(quarter[0]), tables)
+    modules = set(sys.modules)
+    with heap_frozen():
+        results, _, s = run("admission at the lowest load", eng,
+                            open_loop(quarter[0]), tables)
+    report["admission_low_load"] = {
+        "sheds": s["deadline"]["sheds"],
+        "degrades": s["deadline"]["degrades"], **ctrl.summary(),
+        "gc_ms": s["gc_ms"],
+        "modules_imported": sorted(set(sys.modules) - modules)}
     if s["deadline"]["sheds"] or s["deadline"]["degrades"]:
-        fail(f"phase S: admission shed or degraded at "
-             f"{cfg['fracs'][0]} x C: {s['deadline']}")
+        fail(f"phase S: admission shed or degraded at {cfg['fracs'][0]} "
+             f"x C: {report['admission_low_load']}")
     same("admission on against off", results, quarter[1], floats=True)
     # a deadline run past capacity: admission and a knn -> mean ladder
     frac = cfg["fracs"][-1]
@@ -2737,6 +2868,296 @@ def serve_mesh(seed, dev, X_db, lam_db, predictors, wrappers, smi):
     return total, dense_total, report
 
 
+def serve_xla(dev, reqs, predictors, fused_rows, fused_summary, fused_s,
+              wrappers):
+    """Phase 3's xla row: phase 3's stream through
+    ServingEngine(executor="xla") on the card. Fails unless no wrapper's
+    counter moves and the engine counts 0 launches, and, on every
+    request whose adjacent scores among its first m2 + 1 (by the xla
+    route's lambda-hat) part by more than XLA_MARGIN relative, perm and
+    compliant equal the fused engine's and utility and exposure lie
+    within TOL of them. Logs how many requests fall under the margin and
+    each engine's wall time a batch."""
+    from repro_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(max_batch=32, max_wait_ms=2.0, eps=EPS,
+                        executor="xla", device="cuda")
+    for tag, p in predictors.items():
+        eng.register_predictor(tag, p, d_cov=D)
+    eng.warmup(reqs)
+    torch.cuda.synchronize()
+    reset_counters(wrappers)
+    t0 = time.perf_counter()
+    results = eng.serve_stream(reqs)
+    xla_s = time.perf_counter() - t0
+    launches = read_counters(wrappers)
+    summary = eng.metrics.summary()
+    eng.close()
+    if any(launches.values()) or eng.metrics.kernel_launches != 0:
+        fail(f"phase 3 xla: launches {launches} (metrics "
+             f"{eng.metrics.kernel_launches}), expected none")
+    got = {r.rid: r for r in results}
+    if sorted(got) != list(range(len(reqs))):
+        fail(f"phase 3 xla: served {len(got)} of {len(reqs)} requests")
+    # the xla route's lambda-hat of every request, one predict a tag
+    lam_of = {r.rid: torch.tensor(r.lam, device=dev) for r in reqs
+              if r.lam is not None}
+    for tag, pred in predictors.items():
+        mine = [r for r in reqs if r.lam is None and r.tag == tag]
+        if mine:
+            lam = pred.predict(torch.tensor(np.stack([r.X for r in mine]),
+                                            device=dev))
+            lam_of.update({r.rid: lam[i] for i, r in enumerate(mine)})
+    under, perm_differs = 0, 0
+    for req in reqs:
+        g, f = got[req.rid], fused_rows[req.rid]
+        u = torch.tensor(req.u, device=dev)
+        a = torch.tensor(req.a, device=dev)
+        s = torch.sort(u + (1.0 + EPS) * (lam_of[req.rid] @ a),
+                       descending=True).values
+        s = s[:req.m2 + 1]
+        gap = (s[:-1] - s[1:]) / s[:-1].abs().clamp_min(1e-30)
+        if float(gap.min()) <= XLA_MARGIN:
+            under += 1
+            if not np.array_equal(g.perm, f.perm):
+                perm_differs += 1
+                continue
+        if not np.array_equal(g.perm, f.perm) or g.compliant != f.compliant:
+            fail(f"phase 3 xla: request {req.rid} differs from the fused "
+                 f"engine's (smallest score gap {float(gap.min())})")
+        if not np.allclose(g.utility, f.utility, **TOL) or \
+                not np.allclose(g.exposure, f.exposure, **TOL):
+            fail(f"phase 3 xla: request {req.rid}'s utility or exposure "
+                 f"differs from the fused engine's")
+    return {"requests": len(results), "batches": summary["batches"],
+            "launches": launches, "under_margin": under,
+            "perm_differs_under_margin": perm_differs,
+            "xla_ms_a_batch": xla_s * 1e3 / summary["batches"],
+            "fused_ms_a_batch": fused_s * 1e3 / fused_summary["batches"],
+            "xla_latency_ms": summary["latency_ms"],
+            "fused_latency_ms": fused_summary["latency_ms"]}
+
+
+# phase Z: the LM half of the zoo at the card's published widths.
+# llama3.2-1b at FULL width and depth (src/repro/configs/llama3_2_1b.py):
+# prefill at B=2, S=4096 (the chunked path: S > dense_attn_threshold
+# 1024), 8 decode steps at B=16 against a 32,768-token cache (the
+# decode_32k cell's sequence length at batch 16 of its 128), 3 train
+# steps at B=2, S=4096 (the train_4k cell's sequence, batch 2 of its
+# 256) with f32 moments; llama4-scout at FULL width, depth cut from 48
+# layers to 2 (one card holds 13 GB of its 217 GB of bf16 weights);
+# scout's decode against forward at 1 x (4 + 4) tokens: top-1 of at most
+# 8 tokens fits the least capacity, 8, so nothing drops
+ZOO = dict(prefill=(2, 4096), decode=(16, 1016, 8, 32768), train=(2, 4096, 3),
+           attn_check=(2, 2048), scout_layers=2, scout=(1, 2048, 4),
+           scout_short=(1, 4, 4))
+# bf16 logits (std ~0.9 at random init) of two evaluation orders, decode
+# against forward: max abs and relative L2 error. A CPU run of the same
+# 16-layer layout (bf16, S=64) measured 0.0625 and 1.39e-2
+LM_BF16_TOL = dict(max_abs=0.25, rel_l2=4e-2)
+ATTN_TOL = dict(rtol=2e-4, atol=1e-5)
+
+
+def lm_part(fn):
+    """fn() once: (its output, {wall_ms (synchronised host clock),
+    device_ms (torch.profiler: the sum of its kernels' device times),
+    peak_gib (the card's allocated peak)})."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    device = sum(ev.device_time_total for ev in prof.key_averages()) / 1e3
+    return out, {"wall_ms": wall, "device_ms": device or "not measured",
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def bf16_close(label, got, want):
+    """Fails unless `got` is within LM_BF16_TOL of `want`; returns the
+    two errors."""
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"phase Z {label}: non-finite logits")
+    diff = got - want
+    err = {"max_abs": float(diff.abs().max()),
+           "rel_l2": float(diff.norm() / want.norm())}
+    if err["max_abs"] > LM_BF16_TOL["max_abs"] or \
+            err["rel_l2"] > LM_BF16_TOL["rel_l2"]:
+        fail(f"phase Z {label}: {err} outside {LM_BF16_TOL}")
+    return err
+
+
+def serve_lm_zoo(seed, dev, smi):
+    """Phase Z: the LM half of the zoo on the card (ZOO). Fails unless
+    prefill's last logits equal a dense-attention lm_forward's and every
+    decode step's equal lm_forward's at those positions (scout's on a
+    run that drops no assignment) within LM_BF16_TOL, chunked attention
+    equals dense on one layer's q, k, v in f32 within ATTN_TOL, the
+    loss is finite and falls over the train steps, and every output is
+    finite. Returns its report."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.batches import make_lm_batch
+    from repro_torch.models import layers, transformer as tt
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    report = {"held_gib_at_start": torch.cuda.memory_allocated() / 2**30}
+
+    def tokens(B, S, vocab, s):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed * 1000 + s)
+        return torch.randint(0, vocab, (B, S), generator=g, device=dev)
+
+    # -- llama3.2-1b, FULL -------------------------------------------------
+    cfg = get_arch("llama3.2-1b").make_config(full=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params, t = lm_part(lambda: tt.lm_init(gen, cfg, device=dev))
+    rep = {"init": t, "n_params": cfg.n_params}
+    B, S = ZOO["prefill"]
+    tok = tokens(B, S, cfg.vocab, 1)
+    (cache, last), rep["prefill"] = lm_part(
+        lambda: tt.lm_prefill(params, tok, cfg))
+    del cache
+    # prefill's chunked attention against a forward with dense attention
+    dense = dataclasses.replace(cfg, dense_attn_threshold=S)
+    with torch.no_grad():
+        (fwd, _), rep["dense_forward"] = lm_part(
+            lambda: tt.lm_forward(params, tok, dense))
+    rep["chunked_prefill_vs_dense_forward"] = bf16_close(
+        "llama chunked prefill", last, fwd[:, -1])
+    del fwd, last
+    # chunked against dense attention on layer 0's q, k, v in f32
+    B, S = ZOO["attn_check"]
+    with torch.no_grad():
+        p0 = {k: v.float() for k, v in tt._layer(params, 0)["attn"].items()}
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        x = layers.rms_norm(params["embed"][tokens(B, S, cfg.vocab, 2)]
+                            .float(), params["layers"]["ln1"][0])
+        q, k, v = layers._qkv(p0, x, f32, torch.arange(S, device=dev)[None])
+        chunked = layers.chunked_causal_attention(
+            q, k, v, chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
+        dense = layers.dense_causal_attention(q, k, v)
+    if not torch.allclose(chunked, dense, **ATTN_TOL):
+        fail(f"phase Z: chunked attention differs from dense by "
+             f"{float((chunked - dense).abs().max())}")
+    rep["chunked_vs_dense_max_abs"] = float((chunked - dense).abs().max())
+    del p0, x, q, k, v, chunked, dense
+    # decode at B=16 against a 32,768-token cache
+    B, P, n_dec, max_seq = ZOO["decode"]
+    tok = tokens(B, P + n_dec, cfg.vocab, 3)
+    (cache, last), rep["decode_prefill"] = lm_part(
+        lambda: tt.lm_prefill(params, tok[:, :P], cfg))
+    full = tt.make_decode_cache(cfg, B, max_seq, device=dev)
+    rep["cache_gib"] = 2 * full["k"].numel() * full["k"].element_size() / 2**30
+    for n in ("k", "v"):
+        full[n][:, :, :P] = cache[n]
+    del cache
+
+    def decode():
+        outs = []
+        for pos in range(P, P + n_dec):
+            outs.append(tt.lm_decode_step(params, full, tok[:, pos], pos,
+                                          cfg)[0])
+        return torch.stack(outs, 1)
+
+    steps, rep["decode"] = lm_part(decode)
+    rep["decode"]["ms_a_step"] = rep["decode"]["wall_ms"] / n_dec
+    del full
+    with torch.no_grad():
+        fwd = tt.lm_forward(params, tok, cfg)[0][:, P - 1:]
+    rep["decode_vs_forward"] = bf16_close(
+        "llama decode", torch.cat([last[:, None], steps], 1), fwd)
+    del fwd, steps, last
+    # 3 train steps on one make_lm_batch, f32 moments
+    B, S, n_steps = ZOO["train"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 5)
+    batch = make_lm_batch(g, batch=B, seq=S, vocab=cfg.vocab, device=dev)
+    opt = tt.lm_adam_init(params, cfg)
+    losses, rep["train"] = [], []
+    for _ in range(n_steps):
+        (params, opt, m), t = lm_part(
+            lambda: tt.lm_train_step(params, opt, batch, cfg))
+        losses.append(float(m["loss"]))
+        rep["train"].append(dict(t, loss=losses[-1],
+                                 grad_norm=float(m["grad_norm"])))
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"phase Z: llama3.2-1b losses {losses} do not fall")
+    report["llama3.2-1b"] = rep
+    log(f"phase Z llama3.2-1b {json.dumps(rep)} ({smi})")
+    del params, opt, batch, m
+    torch.cuda.empty_cache()
+
+    # -- llama4-scout at FULL width, depth cut to 2 layers ------------------
+    cfg = dataclasses.replace(
+        get_arch("llama4-scout-17b-a16e").make_config(full=True),
+        n_layers=ZOO["scout_layers"])
+    gen.manual_seed(seed + 1)
+    params, t = lm_part(lambda: tt.lm_init(gen, cfg, device=dev))
+    rep = {"init": t, "n_params": cfg.n_params,
+           "n_layers": f"{cfg.n_layers} of 48 (depth cut)"}
+    B, S, n_dec = ZOO["scout"]
+    tok = tokens(B, S + n_dec, cfg.vocab, 4)
+    stats = {}
+    (cache, last), rep["prefill"] = lm_part(
+        lambda: tt.lm_prefill(params, tok[:, :S], cfg, stats=stats))
+    rep["prefill_dropped_by_layer"] = [int(x) for x in stats["moe_dropped"]]
+    rep["capacity"] = layers.moe_capacity(B * S, cfg)
+    with torch.no_grad():
+        rep["aux"] = float(tt.lm_forward(params, tok[:, :S], cfg)[1])
+    full = tt.make_decode_cache(cfg, B, 2 * S, device=dev)
+    for n in ("k", "v"):
+        full[n][:, :, :S] = cache[n]
+    del cache
+    stats = {}
+
+    def decode():
+        outs = []
+        for pos in range(S, S + n_dec):
+            outs.append(tt.lm_decode_step(params, full, tok[:, pos], pos,
+                                          cfg, stats=stats)[0])
+        return torch.stack(outs, 1)
+
+    steps, rep["decode"] = lm_part(decode)
+    rep["decode"]["ms_a_step"] = rep["decode"]["wall_ms"] / n_dec
+    rep["decode_dropped"] = sum(int(x) for x in stats["moe_dropped"])
+    if not bool(torch.isfinite(steps).all()):
+        fail("phase Z: llama4-scout decode logits are not finite")
+    del full, steps, last
+    # decode against forward on the configured path: a prompt and decode
+    # short enough (B * (S + n_dec) * top_k <= 8, the least capacity)
+    # that neither drops an assignment, so both route every token alike
+    B, S, n_dec = ZOO["scout_short"]
+    tok = tokens(B, S + n_dec, cfg.vocab, 5)
+    stats = {}
+    cache, last = tt.lm_prefill(params, tok[:, :S], cfg, stats=stats)
+    full = tt.make_decode_cache(cfg, B, S + n_dec, device=dev)
+    for n in ("k", "v"):
+        full[n][:, :, :S] = cache[n]
+    steps = [tt.lm_decode_step(params, full, tok[:, pos], pos, cfg,
+                               stats=stats)[0]
+             for pos in range(S, S + n_dec)]
+    with torch.no_grad():
+        fwd = tt.lm_forward(params, tok, cfg, stats=stats)[0][:, S - 1:]
+    if any(int(x) for x in stats["moe_dropped"]):
+        fail(f"phase Z: llama4-scout dropped assignments on {B} x "
+             f"{S + n_dec} tokens: {stats['moe_dropped']}")
+    rep["short_decode_vs_forward"] = bf16_close(
+        "scout decode", torch.cat([last[:, None], torch.stack(steps, 1)], 1),
+        fwd)
+    del params, cache, full, fwd, steps, last
+    torch.cuda.empty_cache()
+    report["llama4-scout-17b-a16e"] = rep
+    log(f"phase Z llama4-scout {json.dumps(rep)} ({smi})")
+    report["seconds"] = time.perf_counter() - t_phase
+    return report
+
+
 def table23(rows):
     """Tables 2-3 of the paper from the Fig. 2 rows, as
     benchmarks/table23_regression.py computes them (a copy: this script
@@ -3554,6 +3975,11 @@ def main() -> int:
         f"{warm['buckets']}, launches {serve_launches}, compliance "
         f"{summary['compliance']}, latency_ms {summary['latency_ms']}")
     eng.close()
+
+    # -- phase 3, the xla row: the same stream through executor="xla" -----
+    xla_report = serve_xla(dev, reqs, predictors, by_rid, summary, serve_s,
+                           wrappers)
+    log(f"phase 3 xla: {json.dumps(xla_report)}")
     mean_pred = serve_pipe.predictors["mean"]    # phase S's degradation rung
     del eng, serve_pipe
 
@@ -3687,6 +4113,11 @@ def main() -> int:
         f"{json.dumps(rank_split_ms)}")
     log(f"phase 4: device ms per call by kernel (sweep and merge) "
         f"{json.dumps({' '.join(key): row['split_ms'] for key, row in knn_t.items() if 'split_ms' in row})}")
+
+    # -- phase Z: the LM half of the zoo ------------------------------------
+    del lib
+    zoo_report = serve_lm_zoo(args.seed, dev, smi)
+    log(f"phase Z: {zoo_report['seconds']:.1f} s ({smi})")
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"rank_audited": (csrc + "rank_audited.cu",

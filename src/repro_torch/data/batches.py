@@ -1,5 +1,5 @@
-"""Synthetic recsys training and serving batches (counterpart of the
-recsys half of repro.data.batches).
+"""Synthetic LM and recsys training and serving batches (counterpart of
+the LM and recsys parts of repro.data.batches).
 
 Each function draws from an explicit torch.Generator (on its own device)
 and returns int32 tensors on `device` (None = the card). Torch cannot
@@ -10,6 +10,7 @@ tests carry JAX's own batches across through numpy.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -17,6 +18,38 @@ from repro_torch.device import resolve_device
 
 def _randint(gen: torch.Generator, lo: int, hi: int, shape) -> torch.Tensor:
     return torch.randint(lo, hi, shape, generator=gen, device=gen.device)
+
+
+def lm_bigram_batch(first, noise, vocab: int) -> dict:
+    """JAX's bigram recurrence on given draws: first (B, 1) and noise
+    (B, S) integers give tokens[:, 0] = first and tokens[:, t + 1] =
+    (3 tokens[:, t] + noise[:, t]) mod vocab; the labels are the tokens
+    shifted left, the last one the recurrence's next step. Runs on the
+    host in int64; returns int32 {tokens, labels} (B, S) on the CPU."""
+    first = torch.as_tensor(np.array(first) if isinstance(
+        first, np.ndarray) else first).to("cpu", torch.int64).reshape(-1)
+    noise = torch.as_tensor(np.array(noise) if isinstance(
+        noise, np.ndarray) else noise).to("cpu", torch.int64)
+    B, S = noise.shape
+    seq = torch.empty((B, S + 1), dtype=torch.int64)
+    seq[:, 0] = first
+    for t in range(S):
+        seq[:, t + 1] = (3 * seq[:, t] + noise[:, t]) % vocab
+    return {"tokens": seq[:, :S].to(torch.int32),
+            "labels": seq[:, 1:].to(torch.int32)}
+
+
+def make_lm_batch(gen: torch.Generator, *, batch: int, seq: int, vocab: int,
+                  device=None) -> dict:
+    """Causal-LM batch with learnable bigram structure, next token =
+    (3 * token + noise) mod vocab with noise in [0, 7): first (B, 1) and
+    noise (B, S) drawn from `gen`, then lm_bigram_batch. {tokens,
+    labels} (B, S) int32 on `device` (None = the card)."""
+    dev = resolve_device(device)
+    first = _randint(gen, 0, vocab, (batch, 1))
+    noise = _randint(gen, 0, 7, (batch, seq))
+    out = lm_bigram_batch(first, noise, vocab)
+    return {k: v.to(dev) for k, v in out.items()}
 
 
 def make_deepfm_batch(gen: torch.Generator, *, batch: int, n_sparse: int,

@@ -67,7 +67,7 @@ __all__ = ["knn_lambda_cuda", "knn_lambda_quant_cuda", "knn_lambda_ref",
            "knn_rank_audited_ref", "knn_topk_cuda", "knn_topk_ref",
            "SweepGeometry", "quant_sweep_geometry", "sweep_geometry"]
 
-_SHAPE_LIMIT = "(lifting it is ROADMAP Queue 2 item 5)"
+_SHAPE_LIMIT = "(lifting it is ROADMAP Queue 2 item 7)"
 _SWEEP_BLOCKS_PER_SM = 4        # sweep blocks an SM holds at k <= 32
 _MIN_PIECE = 32                 # coordinates a piece of a wide row holds
 H100_SMS = 132

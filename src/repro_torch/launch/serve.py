@@ -16,14 +16,17 @@ jittered (live retrieval returns varying candidate sets), exercising
 the engine's bucket lattice the way live traffic would. With
 --replicas N the stream goes through a FleetRouter over N engines.
 
-The flags and the JSON report's keys are the JAX launcher's, but
---executor: the port has one executor, the CUDA kernels on the card
-(their plain PyTorch versions with --device cpu), and the report's
-"executor" names it ("kernel" or "plain"). --device (the card by
-default; "cpu" for the plain path) has no JAX counterpart; without a
-card the default raises and nothing falls back to the CPU. Weights are
-drawn from fixed seeds; main() serves the arch's SMOKE config, `run`
-takes any config (chip_smoke.py passes the published one).
+The flags and the JSON report's keys are the JAX launcher's.
+--executor picks the engine's executor: "fused" (the default here, the
+engine's: the CUDA kernels on the card, their plain PyTorch versions
+with --device cpu) or "xla" (JAX's default: the predictor's predict,
+then the einsum, sort and audit as torch ops, no kernel launch); the
+report's "executor" carries the flag's value, as JAX's does. --device
+(the card by default; "cpu" for the plain path) has no JAX counterpart;
+without a card the default raises and nothing falls back to the CPU.
+Weights are drawn from fixed seeds; main() serves the arch's SMOKE
+config, `run` takes any config (chip_smoke.py passes the published
+one).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec \
       --requests 256 [--device cpu]
@@ -67,6 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="engine micro-batch capacity")
     ap.add_argument("--max-wait-ms", type=float, default=2.0,
                     help="micro-batch assembly deadline")
+    ap.add_argument("--executor", default="fused", choices=["xla", "fused"],
+                    help="fused: the CUDA kernels; xla: JAX's two-stage "
+                         "body as torch ops, no kernel launch")
     ap.add_argument("--pipeline-depth", type=int, default=1,
                     help="in-flight micro-batch window; 1 = double "
                          "buffering, 0 = synchronous engine")
@@ -241,6 +247,7 @@ def make_engine_factory(dep: Deployment, args, engine_cls=ServingEngine):
     def make_engine(_name=None):
         eng = engine_cls(max_batch=args.max_batch,
                          max_wait_ms=args.max_wait_ms,
+                         executor=args.executor,
                          pipeline_depth=args.pipeline_depth,
                          admission=args.admission,
                          default_budget_s=args.budget_ms / 1e3,
@@ -262,7 +269,7 @@ def serve(dep: Deployment, requests, args, engine_cls=ServingEngine) -> dict:
     report = {
         "arch": args.arch,
         "n_candidates": dep.n_cand, "m2": dep.m2, "K": args.constraints,
-        "executor": "kernel" if dep.device.type == "cuda" else "plain",
+        "executor": args.executor,
         "max_batch": args.max_batch, "max_wait_ms": args.max_wait_ms,
         "pipeline_depth": args.pipeline_depth,
         "admission": args.admission, "budget_ms": args.budget_ms,

@@ -29,7 +29,10 @@ engine
      stamps completion, feeds admission, recycles the slot and marks the
      futures done. Unpadding runs lazily on the consuming thread.
 
-With executor="dist" and a launch.mesh.Mesh the dispatcher call of
+With executor="xla" (JAX's default) the dispatcher call of step 3
+becomes JAX's two-stage body as torch ops with no kernel launch: the
+predictor's own `predict`, then core.ranking.rank_given_lambda. With
+executor="dist" and a launch.mesh.Mesh the dispatcher call of
 step 3 becomes lambda-hat, then core.serving_dist.rank_distributed over
 the mesh (the candidate axis split over 'model', each shard's top m2
 merged on the engine's device), as JAX's `dist` executor does; the
@@ -87,7 +90,7 @@ from repro_torch.core.predictors import (
     predictor_state,
     with_state,
 )
-from repro_torch.core.ranking import RankingOutput
+from repro_torch.core.ranking import RankingOutput, rank_given_lambda
 from repro_torch.core.serving_dist import (
     dist_kernel_launches,
     rank_distributed,
@@ -200,15 +203,18 @@ class ServingEngine:
     the boot bucket lattice (None = the static power-of-two one). clock:
     the engine's time source, injectable so tests can freeze it.
 
-    executor: 'fused' (the default) makes one dispatcher call into
-    kernels.ops a batch; 'dist' ranks each batch with
-    core.serving_dist.rank_distributed over `mesh` (a launch.mesh.Mesh
-    that holds the engine's device: the candidate axis split over its
-    'model' axis, the batch over 'pod' and 'data'), after lambda-hat
-    (`ops.lambda_hat`: given; KNN by the knn_lambda kernel; affine by
-    the linear kernel's prologue arithmetic on the bucket's padded W and
-    c; the MLP's predict) zero-padded to the bucket's K. JAX's 'xla'
-    executor is not ported.
+    executor: 'fused' (the port's default: on the card the kernels
+    are the main path) makes one dispatcher call into kernels.ops a
+    batch; 'xla' (JAX's default, its two-stage body) launches no kernel:
+    lambda-hat (given, or the predictor's own `predict` in f32
+    zero-padded to the bucket's K), then core.ranking.rank_given_lambda
+    (einsum score, stable sort, audit) as torch ops; 'dist' ranks each
+    batch with core.serving_dist.rank_distributed over `mesh` (a
+    launch.mesh.Mesh that holds the engine's device: the candidate axis
+    split over its 'model' axis, the batch over 'pod' and 'data'), after
+    lambda-hat (`ops.lambda_hat`: given; KNN by the knn_lambda kernel;
+    affine by the linear kernel's prologue arithmetic on the bucket's
+    padded W and c; the MLP's predict) zero-padded to the bucket's K.
     """
 
     def __init__(self, *, max_batch: int = 32, max_wait_ms: float = 2.0,
@@ -224,11 +230,6 @@ class ServingEngine:
             raise ValueError(f"unknown executor {executor!r}")
         if executor == "dist" and mesh is None:
             raise ValueError("executor='dist' needs a mesh")
-        if executor == "xla":
-            raise NotImplementedError(
-                "executor='xla' (JAX's two-stage XLA body) is not ported: "
-                "'fused' serves the same results through the kernels "
-                "(ROADMAP Queue 1 item 1)")
         if pipeline_depth < 0:
             raise ValueError(f"pipeline_depth must be >= 0, got "
                              f"{pipeline_depth}")
@@ -704,7 +705,9 @@ class ServingEngine:
                                depth=self.pipeline_depth + 2,
                                device=self.device)
         pred = self._predictors.get(bucket.tag)
-        if self.executor == "dist":
+        if self.executor == "xla":
+            launches = 0
+        elif self.executor == "dist":
             launches = sum(dist_kernel_launches(
                 pred, bucket.m2, mesh=self.mesh, device=self.device).values())
         else:
@@ -792,6 +795,8 @@ class ServingEngine:
                 t[k].copy_(host, non_blocking=True)
             if self.executor == "dist":
                 out = self._launch_dist(bucket, t, state, epoch)
+            elif self.executor == "xla":
+                out = self._launch_xla(bucket, t, state)
             elif bucket.tag == LAM_TAG:
                 out = ops.predict_rank_audited(
                     t["lam"], None, t["u"], t["a"], t["b"], t["gamma"],
@@ -808,6 +813,23 @@ class ServingEngine:
                 dst.copy_(getattr(out, k), non_blocking=True)
             if slot.event is not None:
                 slot.event.record(self._stream)
+
+    def _launch_xla(self, bucket: Bucket, t: dict,
+                    state: dict | None) -> RankingOutput:
+        """The `xla` executor's batch, JAX's two-stage body with no
+        kernel launch: lambda-hat (given, or the predictor's own
+        `predict` in f32, zero-padded to the bucket's K), then
+        rank_given_lambda."""
+        if bucket.tag == LAM_TAG:
+            lam = t["lam"]
+        else:
+            template = self._predictors[bucket.tag]
+            lam = with_state(template, state).predict(t["X"]).to(
+                torch.float32)
+            ref.check_pred_width(lam.shape[-1], bucket.K)
+            lam = torch.nn.functional.pad(lam, (0, bucket.K - lam.shape[-1]))
+        return rank_given_lambda(t["u"], t["a"], t["b"], lam, t["gamma"],
+                                 m2=bucket.m2, eps=self.eps)
 
     def _launch_dist(self, bucket: Bucket, t: dict, state: dict | None,
                      epoch: int) -> RankingOutput:

@@ -4,8 +4,9 @@ degrades and surface budgets, against repro.serving.
 The controller is plain Python over numpy in both packages: one
 sequence of observe_service / observe_lag / observe_result / decide
 calls gives equal decisions and equal state. The engine-level cases
-mirror tests/test_admission.py on the port's engine (device="cpu") and
-hold its outcomes (served or shed, rung, bucket, perm, compliant) to
+mirror tests/test_admission.py on the port's engine (device="cpu"; the
+shed and degrade cases with its fused and its xla executor) and hold
+its outcomes (served or shed, rung, bucket, perm, compliant) to
 the JAX engine's (executor="xla", pipeline_depth=0) on the same stream,
 both on a frozen clock, so admission sees the same EWMAs.
 """
@@ -228,8 +229,10 @@ def _engines(**kw):
     the admission EWMAs to exactly 0 ms in both), and a KNN stream."""
     X_db, lam_db, mean_lam = _fits()
     ctrl = kw.pop("admission", None)
+    executor = kw.pop("executor", "fused")
     eng = ServingEngine(max_batch=4, max_wait_ms=2.0, clock=FrozenClock(),
-                        device="cpu", admission=ctrl and ctrl(), **kw)
+                        device="cpu", admission=ctrl and ctrl(),
+                        executor=executor, **kw)
     eng.register_predictor("knn", KNNLambdaPredictor.fit(
         X_db, lam_db, k=5, device="cpu"), d_cov=D)
     eng.register_predictor("mean", MeanLambdaPredictor.fit(
@@ -303,10 +306,19 @@ def test_absolute_deadline_wins_over_budget(depth):
         assert eng.serve_stream([req], warmup=False)[0].deadline_hit is True
 
 
-@pytest.mark.parametrize("depth", [0, 1, 2])
-def test_shed_resolves_futures_with_typed_results_as_jax(depth):
+# the port's executors against JAX's xla engine: the fused cases keep
+# their depth ids, the xla ones end in "-xla"
+EXECUTOR_CASES = [pytest.param(0, "fused", id="0"),
+                  pytest.param(1, "fused", id="1"),
+                  pytest.param(0, "xla", id="0-xla"),
+                  pytest.param(1, "xla", id="1-xla")]
+
+
+@pytest.mark.parametrize("depth,executor", EXECUTOR_CASES + [
+    pytest.param(2, "fused", id="2")])
+def test_shed_resolves_futures_with_typed_results_as_jax(depth, executor):
     eng, jeng, reqs = _engines(admission=AdmissionController,
-                               pipeline_depth=depth)
+                               pipeline_depth=depth, executor=executor)
     eng.warmup(reqs)
     jeng.warmup(_as_jax(reqs))
     for e in (eng, jeng):
@@ -326,13 +338,13 @@ def test_shed_resolves_futures_with_typed_results_as_jax(depth):
     eng.close()
 
 
-@pytest.mark.parametrize("depth", [0, 1])
-def test_degrade_routes_to_the_fallback_bucket_as_jax(depth):
+@pytest.mark.parametrize("depth,executor", EXECUTOR_CASES)
+def test_degrade_routes_to_the_fallback_bucket_as_jax(depth, executor):
     """Rung 0 predicted to miss, the mean rung to fit: every request is
     served from the mean bucket with rung 1, its shortfall accounted,
     and perm and compliant equal the JAX engine's."""
     eng, jeng, reqs = _engines(admission=AdmissionController,
-                               pipeline_depth=depth)
+                               pipeline_depth=depth, executor=executor)
     eng.warmup(reqs)
     jeng.warmup(_as_jax(reqs))
     home = eng.bucket_of(reqs[0])

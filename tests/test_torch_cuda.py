@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint.store import flatten_with_paths
 from repro_torch.core import ranking
 from repro_torch.core.predictors import (
     KNNLambdaPredictor,
@@ -36,7 +37,7 @@ from repro_torch.kernels.knn_topk import (
     knn_rank_audited_quant_cuda,
     knn_topk_cuda,
 )
-from repro_torch.optim import adam_init, adam_update
+from repro_torch.optim import adam_init, adam_update, clip_by_global_norm
 from repro_torch.data.synthetic import DriftSpec
 from repro_torch.serving import (
     RefreshLane,
@@ -440,7 +441,7 @@ def test_knn_shape_limits_raise_on_the_card(card):
     for k, d, inside in ((257, 20, (256, 20)), (10, 1630, (10, 1629))):
         X_db = _t(rng.normal(size=(600, d)), card)
         X = _t(rng.normal(size=(4, d)), card)
-        with pytest.raises(ValueError, match="Queue 2 item 5"):
+        with pytest.raises(ValueError, match="Queue 2 item 7"):
             knn_topk_cuda(X, X_db, k=k)
         X_db = X_db[:, :inside[1]].contiguous()
         X = X[:, :inside[1]].contiguous()
@@ -453,7 +454,7 @@ def test_knn_shape_limits_raise_on_the_card(card):
         pack = pack_knn_db(X_db, mode=mode)
         lam_db = _t(np.abs(rng.normal(size=(600, 5))), card)
         X = _t(rng.normal(size=(4, d)), card)
-        with pytest.raises(ValueError, match="Queue 2 item 5"):
+        with pytest.raises(ValueError, match="Queue 2 item 7"):
             knn_lambda_quant_cuda(X, *pack, lam_db, k=k, k_extra=k_extra,
                                   mode=mode)
         inside = (k, k_extra - 1) if k_extra > 8 else (k, k_extra)
@@ -1216,3 +1217,134 @@ def test_a_mesh_across_cards_equals_a_virtual_one(card):
         np.testing.assert_array_equal(g.perm, w.perm)
         assert g.compliant == w.compliant and g.utility == w.utility
         np.testing.assert_array_equal(g.exposure, w.exposure)
+
+
+def test_xla_engine_on_the_card_launches_no_kernel(card):
+    """ServingEngine(executor='xla') on the card: no wrapper's counter
+    moves and the metrics count 0 launches; every row equals the same
+    executor's on the CPU (perm and compliant exact, floats within
+    rtol 1e-5, atol 1e-5) and the fused engine's perm where the row's
+    scores part at the cut."""
+    knn, reqs = _serving_stream(card, n=128)
+    wrappers = (rank_audited_cuda, knn_rank_audited_cuda, knn_lambda_cuda,
+                fused_rank_cuda, linear_rank_audited_cuda)
+    before = [w.launches for w in wrappers]
+    served = {}
+    for dev in (card, torch.device("cpu")):
+        eng = ServingEngine(max_batch=32, max_wait_ms=2.0, executor="xla",
+                            device=dev)
+        eng.register_predictor("knn", knn.to(dev), d_cov=20)
+        eng.warmup(reqs)
+        served[dev.type] = {r.rid: r for r in eng.serve_stream(reqs)}
+        assert eng.metrics.kernel_launches == 0
+        assert set(eng._launches.values()) == {0}
+        eng.close()
+    assert [w.launches for w in wrappers] == before
+    assert sorted(served["cuda"]) == list(range(len(reqs)))
+    for rid, w in served["cpu"].items():
+        g = served["cuda"][rid]
+        np.testing.assert_array_equal(g.perm, w.perm)
+        assert g.compliant == w.compliant
+        np.testing.assert_allclose(g.utility, w.utility, rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(g.exposure, w.exposure, rtol=1e-5,
+                                   atol=1e-5)
+
+
+LM_ARCHS = ("llama3.2-1b", "mistral-nemo-12b", "phi3-medium-14b",
+            "llama4-scout-17b-a16e", "kimi-k2-1t-a32b")
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_smoke_arch_on_the_card_equals_the_cpu(card, arch):
+    """Each LM arch's SMOKE config (f32) on the card against the CPU on
+    the same parameters and tokens: forward logits and aux, prefill's
+    last logits and caches, 4 decode steps (rtol 1e-4, atol 1e-5: the
+    card's f32 matmuls sum in another order), the loss and grad_norm
+    (rtol 1e-5) and every gradient (rtol 1e-4, atol 1e-5: kimi's
+    embedding gradient, each row summed over the tokens in another
+    order, measured 1.8e-6 apart at worst). The card's train step is
+    held to the CPU's clip and Adam applied to the card's own
+    gradients, every leaf within lr * 1e-4: a gradient that differs in
+    its rounding moves Adam's first step by up to the share of a step
+    that the difference is of Adam's eps, so the step is checked on the
+    gradients it used."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.batches import make_lm_batch
+    from repro_torch.models import transformer as tt
+
+    cfg = get_arch(arch).make_config(full=False)
+    params = tt.lm_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = make_lm_batch(torch.Generator().manual_seed(1), batch=2, seq=16,
+                          vocab=cfg.vocab, device="cpu")
+    lr = 1e-2
+    tol = dict(rtol=1e-4, atol=1e-5)
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        p = tt.lm_from_numpy(tt.lm_state_numpy(params), cfg, device=dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        logits, aux = tt.lm_forward(p, b["tokens"], cfg)
+        cache, last = tt.lm_prefill(p, b["tokens"][:, :12], cfg)
+        full = tt.make_decode_cache(cfg, 2, 16, device=dev)
+        for n in ("k", "v"):
+            full[n][:, :, :12] = cache[n]
+        steps = []
+        for pos in range(12, 16):
+            log, full = tt.lm_decode_step(p, full, b["tokens"][:, pos], pos,
+                                          cfg)
+            steps.append(log)
+        grads = flatten_with_paths(tt.lm_grads(p, b, cfg)[2])
+        new, _, m = tt.lm_train_step(p, tt.lm_adam_init(p, cfg), b, cfg,
+                                     lr=lr)
+        out[dev.type] = dict(
+            logits=logits, aux=aux, last=last, k=cache["k"], v=cache["v"],
+            decode=torch.stack(steps), loss=m["loss"],
+            grad_norm=m["grad_norm"],
+            **{f"grad/{k}": g for k, g in grads.items()})
+        new = {k: v.cpu() for k, v in flatten_with_paths(new).items()}
+    for k, want in out["cpu"].items():
+        got = out["cuda"][k].cpu()
+        if k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5)
+        elif k.startswith("grad/"):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), **tol,
+                                       err_msg=k)
+        else:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), **tol,
+                                       err_msg=k)
+    # the CPU's clip and Adam on the card's gradients
+    p = {k: v.detach() for k, v in flatten_with_paths(params).items()}
+    g = {k: out["cuda"][f"grad/{k}"].cpu() for k in p}
+    g, _ = clip_by_global_norm(g, 1.0)
+    want, _ = adam_update(g, tt.lm_adam_init(params, cfg), p, lr=lr)
+    for k, w in want.items():
+        assert float((new[k] - w).abs().max()) <= lr * 1e-4, k
+
+
+def test_lm_bf16_decode_matches_forward_on_the_card(card):
+    """llama3.2-1b's layout at a narrow width in bf16 on the card (the
+    FULL dtypes): prefill's last logits and 4 decode steps against
+    lm_forward on the whole sequence, within chip_smoke.py's
+    LM_BF16_TOL (max abs 0.25, relative L2 4e-2)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tt
+
+    base = get_arch("llama3.2-1b").make_config(full=False)
+    cfg = tt.LMConfig(**{**base.__dict__, "dtype": torch.bfloat16,
+                         "param_dtype": torch.bfloat16, "n_layers": 4})
+    p = tt.lm_init(torch.Generator(card).manual_seed(0), cfg, device=card)
+    tokens = torch.randint(0, cfg.vocab, (4, 36), device=card,
+                           generator=torch.Generator(card).manual_seed(1))
+    fwd = tt.lm_forward(p, tokens, cfg)[0].float()
+    cache, last = tt.lm_prefill(p, tokens[:, :32], cfg)
+    full = tt.make_decode_cache(cfg, 4, 128, device=card)
+    for n in ("k", "v"):
+        full[n][:, :, :32] = cache[n]
+    got = [last]
+    for pos in range(32, 36):
+        log, full = tt.lm_decode_step(p, full, tokens[:, pos], pos, cfg)
+        got.append(log)
+    got = torch.stack(got, 1)
+    want = fwd[:, 31:36]
+    assert float((got - want).abs().max()) <= 0.25
+    assert float((got - want).norm() / want.norm()) <= 4e-2

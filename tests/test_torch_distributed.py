@@ -644,13 +644,25 @@ def test_dist_engine_matches_jax_dist_engine(jax_ref, label):
         np.testing.assert_array_equal(g.exposure, f.exposure)
 
 
-def test_engine_executor_errors_match_jax():
+def test_engine_executor_errors_match_jax(monkeypatch):
+    """dist without a mesh and an unknown executor are refused as JAX
+    refuses them; the xla executor builds and counts 0 launches a bucket
+    even where the route would launch kernels (the count made as on the
+    card), where the fused executor counts the route's."""
     with pytest.raises(ValueError, match="needs a mesh"):
         ServingEngine(executor="dist", device="cpu")
     with pytest.raises(ValueError, match="unknown executor"):
         ServingEngine(executor="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(executor="xla", device="cpu")
+    monkeypatch.setattr(ops, "kernel_launch_count",
+                        lambda pred, m2, **kw: 2)
+    reqs = [_port_request(r) for r in make_stream(MIX, n_requests=12,
+                                                  seed=5)]
+    for executor, want in (("xla", 0), ("fused", 2)):
+        eng = ServingEngine(executor=executor, max_batch=4, device="cpu")
+        eng.serve_stream(reqs)
+        assert eng._launches and set(eng._launches.values()) == {want}
+        assert eng.metrics.kernel_launches == want * eng.metrics.batches
+        eng.close()
     elsewhere = np.empty((2, 4), dtype=object)
     elsewhere[...] = torch.device("cuda", 3)
     with pytest.raises(ValueError, match="do not hold"):

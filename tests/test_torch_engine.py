@@ -2,7 +2,9 @@
 same mixed streams of lambda-given, KNN, linear and mean requests, both
 under a frozen clock (batch composition is then a pure function of the
 stream). The JAX engine runs executor='xla' (the use_kernel=False
-route) at pipeline_depth=0.
+route) at pipeline_depth=0; the port's runs its 'fused' executor (the
+kernels' plain versions on the CPU) and its 'xla' one (the predictor's
+predict, then rank_given_lambda; 0 launches a batch).
 
 Per request: perm and compliant match exactly; utility and exposure
 within rtol=1e-5, atol=1e-5.
@@ -73,10 +75,12 @@ def _jax_predictors():
                                                            0.0, 0.0]))}
 
 
-def _serve_both(stream, max_batch, tags=("knn",), jpreds=None):
+def _serve_both(stream, max_batch, tags=("knn",), jpreds=None,
+                executor="fused"):
     """Serve `stream` through both engines with the JAX predictors of
     `tags` (from _jax_predictors, or the dict `jpreds`), each carried
-    across to the port by from_numpy."""
+    across to the port by from_numpy; the port's engine runs
+    `executor`."""
     if jpreds is None:
         jpreds = {t: p for t, p in _jax_predictors().items() if t in tags}
     jeng = JaxEngine(max_batch=max_batch, max_wait_ms=1e9, executor="xla",
@@ -86,7 +90,7 @@ def _serve_both(stream, max_batch, tags=("knn",), jpreds=None):
     want = {r.rid: r for r in jeng.serve_stream(
         [JaxRequest(**kw) for kw in stream])}
     eng = ServingEngine(max_batch=max_batch, max_wait_ms=1e9,
-                        clock=FrozenClock(), device="cpu")
+                        clock=FrozenClock(), executor=executor, device="cpu")
     for tag, jp in jpreds.items():
         state = {f: ({k: np.asarray(x) for k, x in v.items()}
                      if isinstance(v, dict) else np.asarray(v))
@@ -113,10 +117,15 @@ def _assert_streams_match(got, want, n_requests):
         assert g.bucket == w.bucket
 
 
-@pytest.mark.parametrize("max_batch,n_requests", [(8, 29), (4, 16)])
-def test_engine_matches_jax_engine_on_a_mixed_stream(max_batch, n_requests):
+@pytest.mark.parametrize("max_batch,n_requests,executor", [
+    pytest.param(8, 29, "fused", id="8-29"),
+    pytest.param(4, 16, "fused", id="4-16"),
+    pytest.param(8, 29, "xla", id="8-29-xla"),
+    pytest.param(4, 16, "xla", id="4-16-xla")])
+def test_engine_matches_jax_engine_on_a_mixed_stream(max_batch, n_requests,
+                                                     executor):
     stream = _stream(max_batch, n_requests)
-    eng, got, want = _serve_both(stream, max_batch)
+    eng, got, want = _serve_both(stream, max_batch, executor=executor)
     _assert_streams_match(got, want, n_requests)
     m = eng.metrics
     assert m.results == m.requests == n_requests
@@ -126,17 +135,28 @@ def test_engine_matches_jax_engine_on_a_mixed_stream(max_batch, n_requests):
     assert 0.0 < m.summary()["compliance"] <= 1.0
 
 
-@pytest.mark.parametrize("max_batch,n_requests", [(8, 41), (4, 23)])
+@pytest.mark.parametrize("max_batch,n_requests,executor", [
+    pytest.param(8, 41, "fused", id="8-41"),
+    pytest.param(4, 23, "fused", id="4-23"),
+    pytest.param(8, 41, "xla", id="8-41-xla"),
+    pytest.param(4, 23, "xla", id="4-23-xla")])
 def test_engine_matches_jax_engine_on_a_four_route_stream(max_batch,
-                                                          n_requests):
-    """KNN, linear, mean and lambda-given requests in one stream."""
+                                                          n_requests,
+                                                          executor):
+    """KNN, linear, mean and lambda-given requests in one stream. The
+    fused executor pads an affine predictor's W and c to each bucket's K
+    once; the xla executor runs the predictor's own predict."""
     stream = _stream(100 + max_batch, n_requests, kinds=5)
     assert {kw.get("tag", "_lam") for kw in stream} == {
         "_lam", "knn", "linear", "mean"}
     eng, got, want = _serve_both(stream, max_batch,
-                                 tags=("knn", "linear", "mean"))
+                                 tags=("knn", "linear", "mean"),
+                                 executor=executor)
     _assert_streams_match(got, want, n_requests)
     assert eng.metrics.kernel_launches == 0     # the CPU runs the plain path
+    if executor == "xla":
+        assert eng._affine == {}
+        return
     affine = {b for b in eng._rings if b.tag in ("linear", "mean")}
     assert set(eng._affine) == affine and affine
     for bucket, (W, c, relu) in eng._affine.items():
@@ -147,9 +167,14 @@ def test_engine_matches_jax_engine_on_a_four_route_stream(max_batch,
     assert all(eng._affine[b][0] is W for b, W in held.items())
 
 
-@pytest.mark.parametrize("max_batch,n_requests", [(8, 29), (4, 16)])
+@pytest.mark.parametrize("max_batch,n_requests,executor", [
+    pytest.param(8, 29, "fused", id="8-29"),
+    pytest.param(4, 16, "fused", id="4-16"),
+    pytest.param(8, 29, "xla", id="8-29-xla"),
+    pytest.param(4, 16, "xla", id="4-16-xla")])
 def test_engine_matches_jax_engine_on_a_quantized_knn_stream(max_batch,
-                                                             n_requests):
+                                                             n_requests,
+                                                             executor):
     """KNN requests over the int8 and the bf16 pack of one db, beside
     lambda-given ones."""
     stream = _stream(200 + max_batch, n_requests)
@@ -159,7 +184,8 @@ def test_engine_matches_jax_engine_on_a_quantized_knn_stream(max_batch,
     assert {kw.get("tag", "_lam") for kw in stream} == {
         "_lam", "knn_int8", "knn_bf16"}
     eng, got, want = _serve_both(stream, max_batch,
-                                 tags=("knn_int8", "knn_bf16"))
+                                 tags=("knn_int8", "knn_bf16"),
+                                 executor=executor)
     _assert_streams_match(got, want, n_requests)
     assert eng.metrics.kernel_launches == 0     # the CPU runs the plain path
     assert {eng._predictors[t].quant for t in ("knn_int8", "knn_bf16")} == {

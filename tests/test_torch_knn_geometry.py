@@ -39,7 +39,7 @@ from repro_torch.kernels.knn_topk import (
 D2_RTOL, D2_ATOL = 1e-5, 1e-3
 LAM_RTOL, LAM_ATOL = 1e-5, 1e-6
 CPU = "cpu"
-LIMIT = "Queue 2 item 5"
+LIMIT = "Queue 2 item 7"
 N_DB = 1_048_576
 
 

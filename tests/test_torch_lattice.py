@@ -4,7 +4,7 @@ engine's lattice seam) against repro.serving's on the same inputs.
 The host code (optimize_lattice, padding_waste, ShapeHistogram,
 TroughDetector) is held equal to the JAX package's: the same corners,
 floats and decisions. The engine and its LatticeLane at pipeline depth 0
-and 1 serve the lattice gate's two-phase mix (benchmarks/latency_serve.py
+and 1 (and with the xla executor at depth 0) serve the lattice gate's two-phase mix (benchmarks/latency_serve.py
 LATTICE_MIX_P0/P1) in chunks at a small size against the JAX engine
 (executor='xla', depth 0) with its lane: the same corners, swaps and
 epochs; per request perm, compliant, bucket and lattice_epoch exact,
@@ -209,12 +209,15 @@ def jax_gate():
     return chunks, served, reports, eng.metrics
 
 
-@pytest.mark.parametrize("depth", [0, 1])
-def test_engine_and_lane_match_jax_on_the_gate_chunks(jax_gate, depth):
+@pytest.mark.parametrize("depth,executor", [
+    pytest.param(0, "fused", id="0"), pytest.param(1, "fused", id="1"),
+    pytest.param(0, "xla", id="0-xla")])
+def test_engine_and_lane_match_jax_on_the_gate_chunks(jax_gate, depth,
+                                                      executor):
     chunks, want_served, want_reports, want_m = jax_gate
     eng = ServingEngine(max_batch=BATCH, max_wait_ms=1e9,
                         pipeline_depth=depth, clock=FrozenClock(),
-                        device="cpu")
+                        executor=executor, device="cpu")
     served, reports = _gate(tserving, eng, chunks, lambda r: r)
     # the same gated decisions, corners and epochs
     for (g_early, g_late), (w_early, w_late) in zip(reports[:2],
@@ -252,7 +255,7 @@ def test_engine_and_lane_match_jax_on_the_gate_chunks(jax_gate, depth):
     for (_, lattice, got), chunk in zip(served, chunks):
         cold = ServingEngine(max_batch=BATCH, max_wait_ms=1e9,
                              pipeline_depth=depth, lattice=lattice,
-                             device="cpu")
+                             executor=executor, device="cpu")
         ref = {r.rid: r for r in cold.serve_stream(chunk)}
         cold.close()
         for r in got:

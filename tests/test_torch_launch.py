@@ -4,7 +4,8 @@ twins on the CPU at tiny sizes (--train-steps 2, --requests 48,
 dispatch path after warmup (compiles_post_warmup 0), and the JSON
 report's keys those src/repro/launch/serve.py writes, read from its
 source for each of its two paths (one engine, a FleetRouter), with
---admission and with --replicas 3."""
+--admission, with --replicas 3 and with --executor fused and xla (the
+report carries the flag's value, as JAX's does)."""
 
 import ast
 import contextlib
@@ -20,6 +21,7 @@ from repro_torch.launch import serve as launch
 from repro_torch.serving import RankResult
 
 REPO = Path(__file__).resolve().parent.parent
+ARCHS = ("deepfm", "sasrec", "bert4rec", "mind")
 TINY = ["--train-steps", "2", "--requests", "48", "--offline-users", "32",
         "--device", "cpu"]
 
@@ -74,13 +76,19 @@ def test_jax_report_keys_were_read():
     assert "fleet" in JAX_KEYS["fleet"] and "pipeline" in JAX_KEYS["engine"]
 
 
-@pytest.mark.parametrize("arch", ("deepfm", "sasrec", "bert4rec", "mind"))
-def test_launcher_serves_every_arch(arch):
-    dep, report = _run(arch)
+@pytest.mark.parametrize("arch,executor", [
+    pytest.param(a, "fused", id=a) for a in ARCHS] + [
+    pytest.param(a, "xla", id=f"{a}-xla") for a in ARCHS])
+def test_launcher_serves_every_arch(arch, executor):
+    """Every arch through the default executor (fused) and through
+    --executor xla. The report carries the flag's value."""
+    dep, report = _run(arch, *(() if executor == "fused"
+                               else ("--executor", executor)))
     assert list(report) == JAX_KEYS["engine"]
     assert report["requests"] == report["served"] == 48
     assert report["shed"] == 0 and report["compiles_post_warmup"] == 0
-    assert report["executor"] == "plain"
+    assert report["executor"] == executor
+    assert dep.served["engines"][0].executor == executor
     cfg = get_arch(arch).make_config(full=False)
     assert dep.d_cov == (cfg.n_interests * cfg.embed_dim if arch == "mind"
                          else cfg.embed_dim)
@@ -116,9 +124,15 @@ def test_main_prints_the_report():
     with contextlib.redirect_stdout(out):
         report = launch.main(["--arch", "deepfm", *TINY])
     assert json.loads(out.getvalue()) == json.loads(json.dumps(report))
-    assert report["served"] == 48
-    with pytest.raises(SystemExit):
-        launch.main(["--arch", "deepfm", "--executor", "fused", *TINY])
+    assert report["served"] == 48 and report["executor"] == "fused"
+    for executor in ("fused", "xla"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            report = launch.main(["--arch", "deepfm", "--executor",
+                                  executor, *TINY])
+        assert report["executor"] == executor and report["served"] == 48
+    with pytest.raises(SystemExit), \
+            contextlib.redirect_stderr(io.StringIO()):
+        launch.main(["--arch", "deepfm", "--executor", "dist", *TINY])
 
 
 def _example(name):

@@ -1,6 +1,6 @@
 """The port's async pipeline: its engine at pipeline_depth 0, 1 and 2
-against repro.serving.ServingEngine (executor='xla', pipeline_depth=0)
-on a mixed stream, and the pipeline's lifetime rules, as
+(and its xla executor at 0 and 1) against repro.serving.ServingEngine
+(executor='xla', pipeline_depth=0) on a mixed stream, and the pipeline's lifetime rules, as
 tests/test_serving_pipeline.py holds the JAX engine to them.
 
 Both engines run on a frozen clock with max_wait_ms far away, so batch
@@ -105,22 +105,30 @@ def jax_served():
 
 @pytest.fixture(scope="module")
 def port_served(jax_served):
+    """The port's engine on the stream, by (depth, executor): fused at
+    depths 0, 1 and 2, xla at 0 and 1."""
     reqs, jknn, _ = jax_served
     out = {}
-    for depth in (0, 1, 2):
+    for depth, executor in ((0, "fused"), (1, "fused"), (2, "fused"),
+                            (0, "xla"), (1, "xla")):
         eng = ServingEngine(max_batch=8, max_wait_ms=1e9, clock=FrozenClock(),
-                            pipeline_depth=depth, device="cpu")
+                            pipeline_depth=depth, executor=executor,
+                            device="cpu")
         eng.register_predictor("knn", _port_knn(jknn), d_cov=D)
-        out[depth] = (eng, {r.rid: r for r in eng.serve_stream(reqs)})
+        out[depth, executor] = (eng, {r.rid: r for r in
+                                      eng.serve_stream(reqs)})
         eng.close()
     return out
 
 
-@pytest.mark.parametrize("depth", [0, 1, 2])
+@pytest.mark.parametrize("depth,executor", [
+    pytest.param(0, "fused", id="0"), pytest.param(1, "fused", id="1"),
+    pytest.param(2, "fused", id="2"), pytest.param(0, "xla", id="0-xla"),
+    pytest.param(1, "xla", id="1-xla")])
 def test_engine_matches_jax_engine_at_every_depth(jax_served, port_served,
-                                                  depth):
+                                                  depth, executor):
     reqs, _, want = jax_served
-    eng, got = port_served[depth]
+    eng, got = port_served[depth, executor]
     assert sorted(got) == sorted(want) == list(range(len(reqs)))
     assert {r.tag for r in reqs} == {"knn", "_lam"}
     for rid, w in want.items():
@@ -143,10 +151,12 @@ def test_engine_matches_jax_engine_at_every_depth(jax_served, port_served,
     assert max(eng.metrics.queue_depth) <= depth
 
 
-@pytest.mark.parametrize("depth", [1, 2])
-def test_depths_agree_bitwise(port_served, depth):
-    _, ref = port_served[0]
-    _, got = port_served[depth]
+@pytest.mark.parametrize("depth,executor", [
+    pytest.param(1, "fused", id="1"), pytest.param(2, "fused", id="2"),
+    pytest.param(1, "xla", id="1-xla")])
+def test_depths_agree_bitwise(port_served, depth, executor):
+    _, ref = port_served[0, executor]
+    _, got = port_served[depth, executor]
     for rid, r in ref.items():
         g = got[rid]
         np.testing.assert_array_equal(g.perm, r.perm)
@@ -157,7 +167,7 @@ def test_depths_agree_bitwise(port_served, depth):
 
 def test_summary_keys_equal_jax(port_served):
     """Every key of the JAX engine's summary, nested ones included."""
-    eng, _ = port_served[1]
+    eng, _ = port_served[1, "fused"]
     got = eng.metrics.summary()
     want = JaxEngine(max_batch=4, pipeline_depth=0).metrics.summary()
 
@@ -175,7 +185,7 @@ def test_summary_keys_equal_jax(port_served):
 
 def test_futures_resolve_to_their_own_request(jax_served, port_served):
     reqs, jknn, _ = jax_served
-    _, ref = port_served[0]
+    _, ref = port_served[0, "fused"]
     eng = ServingEngine(max_batch=8, max_wait_ms=1e9, pipeline_depth=2,
                         device="cpu")
     eng.register_predictor("knn", _port_knn(jknn), d_cov=D)

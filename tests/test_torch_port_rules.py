@@ -60,7 +60,8 @@ from repro_torch.serving.refresh import RefreshLane, knn_ring_update
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "bench_rank.py"] + [
+    REPO / "chip_smoke.py", REPO / "bench_rank.py",
+    REPO / "probe_admission.py"] + [
     REPO / "examples" / f"{name}_torch.py"
     for name in ("quickstart", "constrained_feed", "serve_recsys")]
 
@@ -97,6 +98,19 @@ def test_port_files_cover_the_distribution_slice():
                 "distributed/sharding.py", "distributed/topk.py",
                 "core/serving_dist.py", "configs/paper.py",
                 "core/assignment.py", "core/monge.py", "core/bvn.py"):
+        assert port / rel in PORT_FILES
+
+
+def test_port_files_cover_the_lm_slice():
+    port = REPO / "src" / "repro_torch"
+    for rel in ("models/layers.py", "models/transformer.py",
+                "optim/schedules.py", "optim/adafactor.py",
+                "optim/__init__.py", "data/batches.py",
+                "configs/lm_family.py", "configs/llama3_2_1b.py",
+                "configs/mistral_nemo_12b.py", "configs/phi3_medium_14b.py",
+                "configs/llama4_scout_17b_16e.py",
+                "configs/kimi_k2_1t_a32b.py", "serving/engine.py",
+                "launch/serve.py"):
         assert port / rel in PORT_FILES
 
 
@@ -179,9 +193,21 @@ def _example_main(name):
 
 def _default_device_calls():
     from repro_torch.configs import get_arch
-    from repro_torch.data.batches import make_deepfm_batch, make_seqrec_batch
+    from repro_torch.data.batches import (
+        make_deepfm_batch,
+        make_lm_batch,
+        make_seqrec_batch,
+    )
     from repro_torch.launch import serve as launch
     from repro_torch.models.recsys import RECSYS_REGISTRY
+    from repro_torch.models.transformer import (
+        TransformerLM,
+        lm_from_numpy,
+        lm_init,
+        lm_state_numpy,
+        make_decode_cache,
+    )
+    from repro_torch.optim import adafactor_init
 
     t = _small()
     fam = _families(t)
@@ -199,6 +225,7 @@ def _default_device_calls():
                                  device="cpu")
     bag = torch.tensor([[0, 3, -1], [19, 2, 2]], dtype=torch.int32)
     cpu_mesh = make_smoke_mesh(device="cpu")
+    lm_cfg = get_arch("llama3.2-1b").make_config(full=False)
     return {
         "make_smoke_mesh": lambda: make_smoke_mesh(),
         "make_smoke_mesh(multi_pod)": lambda: make_smoke_mesh(
@@ -212,6 +239,15 @@ def _default_device_calls():
         "bvn_decompose": lambda: bvn_decompose(np.eye(3)),
         "sinkhorn_project": lambda: sinkhorn_project(np.ones((3, 3))),
         "ServingEngine": lambda: ServingEngine(),
+        "ServingEngine(xla)": lambda: ServingEngine(executor="xla"),
+        "lm_init": lambda: lm_init(None, lm_cfg),
+        "TransformerLM": lambda: TransformerLM(lm_cfg),
+        "lm_from_numpy": lambda: lm_from_numpy(lm_state_numpy(
+            lm_init(None, lm_cfg, device="cpu")), lm_cfg),
+        "make_decode_cache": lambda: make_decode_cache(lm_cfg, 2, 8),
+        "make_lm_batch": lambda: make_lm_batch(
+            torch.Generator(), batch=2, seq=4, vocab=9),
+        "adafactor_init": lambda: adafactor_init({"w": t["X"]}),
         "RefreshLane": lambda: RefreshLane(ServingEngine()),
         "knn_ring_update": lambda: knn_ring_update(
             np.ones((20, 4)), np.ones((20, 3)), np.ones((2, 4)),

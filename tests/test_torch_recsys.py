@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import all_archs as jax_all_archs
 from repro.configs import get_arch as jax_get_arch
 from repro.data.batches import make_deepfm_batch as jax_deepfm_batch
 from repro.data.batches import make_seqrec_batch as jax_seqrec_batch
@@ -87,8 +88,14 @@ def _close(got, want, **tol):
                                **tol)
 
 
+# JAX's archs the port does not register yet (the GNN half of the zoo,
+# ROADMAP Queue 1 item 3)
+UNPORTED_ARCHS = ("meshgraphnet",)
+
+
 def test_configs_match_jax():
-    assert all_archs() == sorted(ARCHS + ("paper-ranking",))
+    assert all_archs() == sorted(set(jax_all_archs()) - set(UNPORTED_ARCHS))
+    assert {jax_get_arch(a).family for a in UNPORTED_ARCHS} == {"gnn"}
     for arch in ARCHS:
         spec, jspec = get_arch(arch), jax_get_arch(arch)
         assert spec.family == jspec.family == "recsys"
