@@ -246,6 +246,32 @@ Phases (any failure exits non-zero before a result is printed):
      (torch.profiler) and peak memory beside the card's name and power
      limit. No kernel of the port runs here: attention and the MoE are
      torch ops, as the JAX package has no Pallas kernel for them;
+  G. the GNN half of the zoo (GNN), after phase Z: MeshGraphNet at its
+     published config (15 layers, d_hidden 128, sum, remat on;
+     src/repro/configs/meshgraphnet.py) on the four cells of
+     gnn_family.py at their cell_config widths, 3 gnn_train_steps each:
+     full_graph_sm (2708 nodes, 10,556 edges, d_feat 1433) and molecule
+     (128 graphs of 30 nodes, 64 edges) uncut; minibatch_lg a block of
+     169,984 nodes / 168,960 edges neighbor_sample'd with 1024 seeds
+     and fanouts (15, 10) from a make_csr_graph of Reddit's 232,965
+     nodes at avg_degree 492 (~114.6M edges), node_mask on the seeds;
+     ogb_products cut to 1/16 of its nodes and edges (153,065 and
+     3,866,197), its widths kept. Logs each step's wall and device ms
+     (torch.profiler) and peak memory, and a fourth step's wall
+     without the profiler; fails unless every loss is finite, aggregate
+     over the cell's encoded edges is bitwise equal across two calls
+     (at full_graph_sm its distance from the CPU's is logged) and, at
+     full_graph_sm, the loss and every gradient with remat on equal
+     those with it off bitwise. Then the ranking head:
+     the 1024 seeds' node scores as one request's u (m1 = 1024, K = 8
+     random a, m2 = 64) through ops.rank_audited, one rank_audited
+     launch, bitwise its plain version;
+  T. the training driver (TRAIN): launch.train's body in process on the
+     card for meshgraphnet FULL, llama3.2-1b and sasrec at --smoke, 40
+     steps with a checkpoint every 10 (under build/phase_t_ckpt,
+     removed after), once uninterrupted and once with a failure
+     injected at step 25; fails unless the second run restarted once
+     and its final parameters and Adam state are bitwise the first's;
   4. time the nine kernels (CUDA events, medians) at the bucket shape and
      at a large batch (the quantized ones in both modes; fused_rank at
      64 x m1=100,000; rank_audited and knn_rank_audited also at
@@ -262,8 +288,8 @@ The launch counters are set to 0 just before each of phase O's holdout
 paths, the serving path, phase 3's xla row, each run of phases S, R
 and A, phase F, each
 run of phase D, each distributed call of phase M (its checked program
-runs, the sharded knn_topk and the dist engine's stream) and the kernel
-library path, and read just after each.
+runs, the sharded knn_topk and the dist engine's stream), the kernel
+library path and phase G's ranking head, and read just after each.
 Prints the kernel table as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 """
@@ -3158,6 +3184,257 @@ def serve_lm_zoo(seed, dev, smi):
     return report
 
 
+# phase G: MeshGraphNet's FULL config (15 layers, d_hidden 128) on the
+# four cells of src/repro/configs/gnn_family.py at their cell_config
+# widths: minibatch_lg samples its block from a CSR graph of Reddit's
+# 232,965 nodes at avg_degree 492 (~114.6M edges); ogb_products is cut
+# to 1/16 of its nodes and edges (one layer's edge latents alone would
+# be 31.7 GB at full size, and remat keeps 15); the ranking head ranks
+# the 1024 seeds' node_scores as one request
+GNN = dict(steps=3, products_cut=16, reddit_degree=492, head_K=8,
+           head_m2=64)
+# phase T: launch.train's body, a failure injected at step 25 of 40
+TRAIN = dict(steps=40, ckpt_every=10, fail_at=25,
+             runs=(("meshgraphnet", False), ("llama3.2-1b", True),
+                   ("sasrec", True)))
+
+
+def gnn_cell_graph(cell, gen, dev):
+    """The cell's training graph on the card (and, for minibatch_lg,
+    the sample and its seed count): a make_random_graph, a batch of
+    molecules, or a block sampled from the Reddit-sized CSR graph with
+    node_mask on the seeds."""
+    from repro_torch.configs.gnn_family import D_EDGE
+    from repro_torch.data.batches import (
+        make_csr_graph,
+        make_molecule_batch,
+        make_random_graph,
+    )
+    from repro_torch.models.gnn import (
+        block_graph_from_sample,
+        neighbor_sample,
+    )
+
+    widths = dict(d_node=cell["d_feat"], d_edge=D_EDGE, d_out=cell["d_out"],
+                  device=dev)
+    info = {}
+    if cell.kind == "train_batched":
+        g = make_molecule_batch(gen, batch=cell["batch"],
+                                n_nodes=cell["n_nodes"],
+                                n_edges=cell["n_edges"], **widths)
+    elif cell.kind == "train_sampled":
+        t0 = time.perf_counter()
+        N = cell["n_graph_nodes"]
+        indptr, indices = make_csr_graph(gen, n_nodes=N,
+                                         avg_degree=GNN["reddit_degree"],
+                                         device=dev)
+        info["csr_edges"] = int(indices.shape[0])
+        info["csr_s"] = time.perf_counter() - t0
+        seeds = torch.randperm(N, generator=gen, device=dev)[
+            :cell["batch_nodes"]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample = neighbor_sample(gen, indptr, indices, seeds,
+                                 fanouts=tuple(cell["fanouts"]))
+        torch.cuda.synchronize()
+        info["sample_ms"] = (time.perf_counter() - t0) * 1e3
+        del indptr, indices
+        table = torch.randn((N, cell["d_feat"]), generator=gen, device=dev)
+        feats = table[sample["node_ids"].long()]
+        del table
+        g = block_graph_from_sample(sample, feats, D_EDGE)
+        T = feats.shape[0]
+        g["targets"] = torch.tanh(feats[:, :cell["d_out"]])
+        mask = torch.zeros((T,), device=dev)
+        mask[:sample["n_seeds"]] = 1.0
+        g["node_mask"] = mask
+        info["n_seeds"] = sample["n_seeds"]
+    else:
+        n, e = cell["n_nodes"], cell["n_edges"]
+        if cell.name == "ogb_products":
+            n = -(-n // GNN["products_cut"])
+            e = -(-e // GNN["products_cut"])
+            info["cut"] = (f"nodes and edges / {GNN['products_cut']}: "
+                           f"{n} of {cell['n_nodes']}, {e} of "
+                           f"{cell['n_edges']}")
+        g = make_random_graph(gen, n_nodes=n, n_edges=e, **widths)
+    nodes = g["nodes"]
+    info["nodes"] = int(nodes.shape[0] * (nodes.shape[1]
+                                          if nodes.dim() == 3 else 1))
+    info["edges"] = int(g["senders"].numel())
+    return g, info
+
+
+def train_gnn_cells(seed, dev, wrappers, smi):
+    """Phase G: 3 gnn_train_steps of MeshGraphNet FULL on each cell
+    (GNN): each step's wall and device ms (torch.profiler) and peak
+    memory, then a fourth step's wall without the profiler, every loss
+    finite; aggregate on the cell's encoded edges
+    bitwise equal across two calls on the card (at full_graph_sm also
+    its distance from the CPU's); at full_graph_sm the loss and every
+    gradient with remat on bitwise those with remat off; then the
+    ranking head: the minibatch_lg seeds' node_scores as one request's
+    u (m1 = 1024, K = 8, m2 = 64) through ops.rank_audited, one
+    rank_audited launch counted, its outputs bitwise the plain
+    version's. Returns (launches, report)."""
+    from repro_torch.checkpoint.store import flatten_with_paths
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_family import GNN_CELLS, cell_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import gnn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    full = get_arch("meshgraphnet").make_config(full=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 7)
+    report = {"held_gib_at_start": torch.cuda.memory_allocated() / 2**30}
+    head_u = None
+    for cell in GNN_CELLS:
+        cfg = cell_config(full, cell)
+        graph, rep = gnn_cell_graph(cell, gen, dev)
+        params = gnn.gnn_init(gen, cfg, device=dev)
+        opt = gnn.gnn_adam_init(params)
+        rep["n_params"] = cfg.n_params
+        rep["steps"] = []
+        for _ in range(GNN["steps"]):
+            (params, opt, m), t = lm_part(
+                lambda: gnn.gnn_train_step(params, opt, graph, cfg))
+            rep["steps"].append(dict(t, loss=float(m["loss"]),
+                                     grad_norm=float(m["grad_norm"])))
+        # one more step without the profiler, whose per-op cost would
+        # inflate a host-bound step's wall time
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = gnn.gnn_train_step(params, opt, graph, cfg)
+        loss = float(m["loss"])
+        rep["unprofiled_step"] = {
+            "wall_ms": (time.perf_counter() - t0) * 1e3, "loss": loss}
+        losses = [r["loss"] for r in rep["steps"]] + [loss]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"phase G {cell.name}: losses {losses} are not finite")
+        # aggregate over the cell's encoded edges, twice
+        flat = gnn.flatten_batch(graph) if cell.kind == "train_batched" \
+            else graph
+        with torch.no_grad():
+            e = gnn._mlp_apply(params["edge_encoder"], flat["edges"], cfg)
+            n_nodes = flat["nodes"].shape[0]
+            recv = flat["receivers"].long()
+            a1 = gnn.aggregate(e, recv, n_nodes, "sum")
+            a2 = gnn.aggregate(e, recv, n_nodes, "sum")
+        if not torch.equal(a1, a2):
+            fail(f"phase G {cell.name}: aggregate differs between two "
+                 f"calls on the card")
+        rep["aggregate_bitwise_run_to_run"] = True
+        if cell.name == "full_graph_sm":
+            want = gnn.aggregate(e.cpu(), recv.cpu(), n_nodes, "sum")
+            diff = (a1.cpu() - want).abs()
+            rep["aggregate_vs_cpu"] = {
+                "max_abs": float(diff.max()),
+                "max_rel": float((diff / want.abs().clamp_min(1e-30))
+                                 .max()),
+                "bitwise": bool(torch.equal(a1.cpu(), want))}
+            outs = {}
+            for remat in (True, False):
+                c = dataclasses.replace(cfg, remat=remat)
+                loss, _, grads = gnn.gnn_grads(params, graph, c)
+                outs[remat] = (loss, flatten_with_paths(grads))
+            same = torch.equal(outs[True][0], outs[False][0]) and all(
+                torch.equal(v, outs[False][1][k])
+                for k, v in outs[True][1].items())
+            if not same:
+                fail("phase G full_graph_sm: remat on differs from remat "
+                     "off")
+            rep["remat_on_equals_off_bitwise"] = True
+        if cell.kind == "train_sampled":
+            with torch.no_grad():
+                head_u = gnn.gnn_forward(params, graph, cfg)[
+                    :rep["n_seeds"], 0][None].contiguous()
+        del graph, params, opt, flat, e, a1, a2
+        torch.cuda.empty_cache()
+        report[cell.name] = rep
+        log(f"phase G {cell.name} {json.dumps(rep)} ({smi})")
+
+    # the ranking head on the sampled seeds' node scores
+    m1, K, m2 = head_u.shape[1], GNN["head_K"], GNN["head_m2"]
+    _, a, b, lam, g = rank_inputs(gen, dev, 1, m1, K, m2)
+    reset_counters(wrappers)
+    out = ops.rank_audited(head_u, a, b, lam, g, m2=m2, device=dev)
+    torch.cuda.synchronize()
+    launches = read_counters(wrappers)
+    want = ref.rank_audited_ref(head_u, a, b, lam, g, m2)
+    if launches != {n: int(n == "rank_audited") for n in wrappers}:
+        fail(f"phase G ranking head: launch counters {launches}")
+    if not bitwise((out.perm, out.utility, out.exposure, out.compliant),
+                   want[1:]):
+        fail("phase G ranking head: rank_audited differs from its plain "
+             "version")
+    report["ranking_head"] = {"m1": m1, "K": K, "m2": m2,
+                              "launches": launches["rank_audited"],
+                              "bitwise_plain": True,
+                              "compliant": bool(out.compliant[0])}
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"phase G ranking head {json.dumps(report['ranking_head'])}")
+    return launches, report
+
+
+def train_with_failures(dev, smi):
+    """Phase T: launch.train's body (build_training, the runner, the
+    report) in process on the card for each of TRAIN's runs: 40 steps
+    with a checkpoint every 10, once uninterrupted and once with a
+    failure injected at step 25. Fails unless the second run restarted
+    once and its final parameters and Adam state are bitwise the first
+    run's. Checkpoints go under build/phase_t_ckpt and are removed.
+    Returns its report."""
+    import shutil
+
+    from repro_torch.checkpoint.store import flatten_with_paths
+    from repro_torch.launch import train as launch
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "phase_t_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    report = {}
+    try:
+        for arch, smoke in TRAIN["runs"]:
+            states, rep = {}, {"config": "SMOKE" if smoke else "FULL"}
+            for label, extra in (("uninterrupted", []),
+                                 ("failure", ["--fail-at",
+                                              str(TRAIN["fail_at"])])):
+                args = launch.build_parser().parse_args(
+                    ["--arch", arch, "--steps", str(TRAIN["steps"]),
+                     "--ckpt-every", str(TRAIN["ckpt_every"]),
+                     "--ckpt-dir", str(root / label), "--device", str(dev)]
+                    + (["--smoke"] if smoke else []) + extra)
+                torch.cuda.synchronize()
+                state, runner_rep, out = launch.run(args)
+                torch.cuda.synchronize()
+                states[label] = flatten_with_paths(state)
+                out["step_ms_median"] = float(np.median(
+                    runner_rep.step_times)) * 1e3
+                rep[label] = out
+            if rep["failure"]["restarts"] != 1 or \
+                    rep["uninterrupted"]["restarts"] != 0:
+                fail(f"phase T {arch}: restarts {rep['failure']['restarts']}"
+                     f" and {rep['uninterrupted']['restarts']}")
+            a, b = states["failure"], states["uninterrupted"]
+            differ = [k for k in b if not torch.equal(a[k], b[k])]
+            if list(a) != list(b) or differ:
+                fail(f"phase T {arch}: the replayed run's state differs "
+                     f"from the uninterrupted run's in {differ[:5]}")
+            rep["replay_bitwise"] = True
+            rep["leaves"] = len(b)
+            if not all(math.isfinite(rep[r]["last_loss"]) for r in
+                       ("failure", "uninterrupted")):
+                fail(f"phase T {arch}: the loss is not finite")
+            report[arch] = rep
+            log(f"phase T {arch} {json.dumps(rep)} ({smi})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report["seconds"] = time.perf_counter() - t_phase
+    return report
+
+
 def table23(rows):
     """Tables 2-3 of the paper from the Fig. 2 rows, as
     benchmarks/table23_regression.py computes them (a copy: this script
@@ -4119,6 +4396,15 @@ def main() -> int:
     zoo_report = serve_lm_zoo(args.seed, dev, smi)
     log(f"phase Z: {zoo_report['seconds']:.1f} s ({smi})")
 
+    # -- phase G: the GNN half of the zoo ------------------------------------
+    gnn_launches, gnn_report = train_gnn_cells(args.seed, dev, wrappers, smi)
+    log(f"phase G: {gnn_report['seconds']:.1f} s, launches {gnn_launches} "
+        f"({smi})")
+
+    # -- phase T: the training driver with an injected failure ---------------
+    train_report = train_with_failures(dev, smi)
+    log(f"phase T: {train_report['seconds']:.1f} s ({smi})")
+
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"rank_audited": (csrc + "rank_audited.cu",
                                 "src/repro/kernels/fused_rank.py:261"),
@@ -4174,7 +4460,8 @@ def main() -> int:
                          + load_launches[name] + refresh_launches[name]
                          + lattice_launches[name] + fleet_launches[name]
                          + deploy_launches[name] + mesh_launches[name]
-                         + mesh_dense_launches[name] + lib_launches[name]),
+                         + mesh_dense_launches[name] + lib_launches[name]
+                         + gnn_launches[name]),
             "launches_by_path": {"offline_holdout": offline_launches[name],
                                  "serving": serve_launches[name],
                                  "serving_under_load": load_launches[name],
@@ -4185,7 +4472,8 @@ def main() -> int:
                                  "distributed": mesh_launches[name],
                                  "distributed_dense_side":
                                      mesh_dense_launches[name],
-                                 "kernel_library": lib_launches[name]},
+                                 "kernel_library": lib_launches[name],
+                                 "gnn_ranking_head": gnn_launches[name]},
             "max_abs_err": err[name], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
             "bound_by": main_t["bound_by"],

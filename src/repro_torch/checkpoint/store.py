@@ -10,7 +10,10 @@ by either package loads in the other:
   * a tree flattens to '/'-joined paths as jax.tree_util's
     tree_flatten_with_path names them: dict keys in sorted order,
     list and tuple positions by index (an MLP's nested params come out
-    as params/w1, params/b1, ...); the npz key spells '/' as '__SL__';
+    as params/w1, params/b1, ...), a dataclass's fields in declaration
+    order as '.' + the field's name (JAX's register_dataclass: a
+    (params, AdamState) tuple gives 1/.step, 1/.mu/<name>,
+    1/.nu/<name>); the npz key spells '/' as '__SL__';
   * a dtype numpy's npz cannot hold (bfloat16, the float8 kinds) is
     written as its raw bits, a uint16 (or uint8) view, with the dtype's
     own name in the manifest; the port reads the bits back into a
@@ -29,6 +32,7 @@ item 4).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -103,12 +107,21 @@ def _decode(arr: np.ndarray, dtype_name: str):
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f"dtype {dtype_name} has no torch counterpart")
     signed = np.int8 if arr.dtype.itemsize == 1 else np.int16
-    return torch.from_numpy(np.ascontiguousarray(arr).view(signed)).view(
-        dtype)
+    return torch.from_numpy(np.ascontiguousarray(arr).reshape(
+        arr.shape).view(signed)).view(dtype)
+
+
+def _is_record(node) -> bool:
+    """A dataclass instance (AdamState, FactoredState): a tree node
+    whose children are its fields."""
+    return dataclasses.is_dataclass(node) and not isinstance(node, type)
 
 
 def _walk(node, prefix: tuple, out: dict) -> None:
-    if isinstance(node, dict):
+    if _is_record(node):
+        for f in dataclasses.fields(node):
+            _walk(getattr(node, f.name), prefix + ("." + f.name,), out)
+    elif isinstance(node, dict):
         for k in sorted(node):
             _walk(node[k], prefix + (str(k),), out)
     elif isinstance(node, (list, tuple)):
@@ -120,8 +133,9 @@ def _walk(node, prefix: tuple, out: dict) -> None:
 
 def flatten_with_paths(tree: PyTree) -> dict:
     """{path: leaf} in jax.tree_util's flatten order: dict keys sorted,
-    list and tuple items by position, None an empty subtree; a path
-    joins its keys with '/'. The engine's swap checks compare two
+    list and tuple items by position, a dataclass's fields in order
+    under '.' + name, None an empty subtree; a path joins its keys with
+    '/'. The engine's swap checks compare two
     states' structure through it too. (The walks are module functions:
     a recursive closure would make a reference cycle that keeps the
     leaves, gigabytes of a table's gradient, alive until the collector
@@ -132,6 +146,10 @@ def flatten_with_paths(tree: PyTree) -> dict:
 
 
 def _build(node, prefix: tuple, leaves: dict):
+    if _is_record(node):
+        return dataclasses.replace(node, **{
+            f.name: _build(getattr(node, f.name), prefix + ("." + f.name,),
+                           leaves) for f in dataclasses.fields(node)})
     if isinstance(node, dict):
         return {k: _build(node[k], prefix + (str(k),), leaves) for k in node}
     if isinstance(node, (list, tuple)):
@@ -176,8 +194,9 @@ def _like_dtype(ref):
 def _to_device(buf, dev: torch.device, dtype=None) -> torch.Tensor:
     """A host buffer (numpy, or a decoded CPU tensor) on `dev`, cast to
     `dtype` when one is given."""
+    # np.ascontiguousarray gives a 0-d array one dimension: reshape back
     t = buf if isinstance(buf, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(buf))
+        np.ascontiguousarray(buf).reshape(buf.shape))
     return t.to(device=dev, dtype=dtype)
 
 

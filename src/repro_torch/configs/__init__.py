@@ -1,6 +1,7 @@
 """Architecture configs of the port (counterpart of repro.configs): the
-five LM archs, the four recsys backbones and the paper's own arch,
-paper-ranking. Importing this package registers them (side effect)."""
+five LM archs, the four recsys backbones, the GNN (meshgraphnet) and
+the paper's own arch, paper-ranking. Importing this package registers
+them (side effect)."""
 
 from repro_torch.configs import (  # noqa: F401
     bert4rec,
@@ -8,6 +9,7 @@ from repro_torch.configs import (  # noqa: F401
     kimi_k2_1t_a32b,
     llama3_2_1b,
     llama4_scout_17b_16e,
+    meshgraphnet,
     mind,
     mistral_nemo_12b,
     paper,

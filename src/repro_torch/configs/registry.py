@@ -7,10 +7,10 @@ Each ArchSpec provides make_config(full): the published config
 cells. `build(cfg, cell, mesh) -> Program` gives a cell's program as a
 callable on tensors with its arguments' shapes and dtypes (the JAX
 package's Lowerable without shardings or lowering): paper-ranking has
-one. The LM and recsys archs' JAX `build` gives their cells' programs
-over sharded abstract parameters for the dry run, which waits for
-training and the mesh-context half of distribution (ROADMAP Queue 1
-item 4): theirs is None.
+one. The LM, recsys and GNN archs' JAX `build` gives their cells'
+programs over sharded abstract parameters for the dry run, which waits
+for the mesh-context half of distribution (ROADMAP Queue 1 item 4):
+theirs is None.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ mesh does not have, so ('pod', 'data') also serves the single-pod mesh.
 The mesh-context half (use_mesh_rules, current_mesh, current_rules,
 logical_spec, logical_shard, named_sharding, param_shardings,
 drop_nondivisible, eval_shape_with_sharding) annotates the zoo's
-models and the dry run and waits for them (ROADMAP Queue 1 item 5).
+models and the dry run and waits for them (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -63,7 +63,8 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "bench_rank.py",
     REPO / "probe_admission.py"] + [
     REPO / "examples" / f"{name}_torch.py"
-    for name in ("quickstart", "constrained_feed", "serve_recsys")]
+    for name in ("quickstart", "constrained_feed", "serve_recsys",
+                 "train_lm")]
 
 
 def test_port_files_cover_the_refresh_slice():
@@ -112,6 +113,17 @@ def test_port_files_cover_the_lm_slice():
                 "configs/kimi_k2_1t_a32b.py", "serving/engine.py",
                 "launch/serve.py"):
         assert port / rel in PORT_FILES
+
+
+def test_port_files_cover_the_gnn_and_training_slice():
+    port = REPO / "src" / "repro_torch"
+    for rel in ("models/gnn.py", "configs/gnn_family.py",
+                "configs/meshgraphnet.py", "configs/__init__.py",
+                "data/batches.py", "distributed/runner.py",
+                "distributed/__init__.py", "launch/train.py",
+                "checkpoint/store.py"):
+        assert port / rel in PORT_FILES
+    assert REPO / "examples" / "train_lm_torch.py" in PORT_FILES
 
 
 def test_core_has_every_name_of_jax_core():

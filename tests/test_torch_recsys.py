@@ -88,14 +88,15 @@ def _close(got, want, **tol):
                                **tol)
 
 
-# JAX's archs the port does not register yet (the GNN half of the zoo,
-# ROADMAP Queue 1 item 3)
-UNPORTED_ARCHS = ("meshgraphnet",)
-
-
 def test_configs_match_jax():
-    assert all_archs() == sorted(set(jax_all_archs()) - set(UNPORTED_ARCHS))
-    assert {jax_get_arch(a).family for a in UNPORTED_ARCHS} == {"gnn"}
+    """The port registers every arch JAX does (meshgraphnet, the GNN
+    half of the zoo, included), and meshgraphnet's family and cells are
+    JAX's; the recsys archs' configs are JAX's field for field."""
+    assert all_archs() == jax_all_archs()
+    gnn, jgnn = get_arch("meshgraphnet"), jax_get_arch("meshgraphnet")
+    assert gnn.family == jgnn.family == "gnn"
+    assert [(c.name, c.kind, dict(c.params)) for c in gnn.cells] == \
+        [(c.name, c.kind, dict(c.params)) for c in jgnn.cells]
     for arch in ARCHS:
         spec, jspec = get_arch(arch), jax_get_arch(arch)
         assert spec.family == jspec.family == "recsys"
