@@ -269,9 +269,37 @@ Phases (any failure exits non-zero before a result is printed):
   T. the training driver (TRAIN): launch.train's body in process on the
      card for meshgraphnet FULL, llama3.2-1b and sasrec at --smoke, 40
      steps with a checkpoint every 10 (under build/phase_t_ckpt,
-     removed after), once uninterrupted and once with a failure
+     removed after phase P), once uninterrupted and once with a failure
      injected at step 25; fails unless the second run restarted once
      and its final parameters and Adam state are bitwise the first's;
+  P. the zoo's cell programs (configs/*_family.py's build_lm,
+     build_recsys, build_gnn and build_paper) over a virtual
+     make_smoke_mesh() ((2, 4) ('data', 'model') on the card,
+     PROGRAMS): every arch x cell built at FULL, its arguments'
+     shapes, dtypes and specs those of the same build on a CPU mesh
+     (the build tests/test_torch_cell_programs.py holds against JAX's
+     Lowerable.args) and every sharding on the card's mesh;
+     retrieval_cand uncut for deepfm, sasrec, bert4rec and mind at
+     their published configs (1,000,448 candidates, the 65,536-row
+     KNN database, m2 = 50; DeepFM's 39M x 10 table is 1.56 GB):
+     lambda-hat through the knn_lambda kernel, the adjusted top-50
+     through fused_rank, DeepFM's context through embedding_bag, each
+     launch counted, perm exactly and lambda-hat and the scores bitwise
+     the same program with the plain versions on the card; serve_p99
+     (B = 512) for the four, and full_graph_sm and molecule through
+     build_gnn at MeshGraphNet's published config on graphs padded by
+     pad_graph, every output finite (nothing cut); llama4-scout's "opt"
+     variant (moe_dispatch 'shmap') at its published width with its
+     depth cut to 2 of 48 layers, under use_mesh_rules(mesh, LM_RULES):
+     lm_forward through moe_apply_shmap against the global dispatch at
+     2 x 4 tokens (neither drops) within LM_BF16_TOL, and at 2 x 2048
+     timed with both paths' drops logged; compressed_psum and
+     psum_with_error_feedback over 'data' on llama3.2-1b's FULL
+     parameter shapes (two shards of f32 draws), every shard's result
+     equal, the error within shards x scale / 2, each leaf's first 64
+     rows bitwise the CPU's; phase T's llama3.2-1b checkpoint restored
+     with param_shardings onto the mesh, every block bitwise the saved
+     leaf's slice;
   4. time the nine kernels (CUDA events, medians) at the bucket shape and
      at a large batch (the quantized ones in both modes; fused_rank at
      64 x m1=100,000; rank_audited and knn_rank_audited also at
@@ -289,7 +317,8 @@ paths, the serving path, phase 3's xla row, each run of phases S, R
 and A, phase F, each
 run of phase D, each distributed call of phase M (its checked program
 runs, the sharded knn_topk and the dist engine's stream), the kernel
-library path and phase G's ranking head, and read just after each.
+library path, phase G's ranking head and each retrieval_cand program
+of phase P, and read just after each.
 Prints the kernel table as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 """
@@ -3006,13 +3035,13 @@ def bf16_close(label, got, want):
     two errors."""
     got, want = got.float(), want.float()
     if not bool(torch.isfinite(got).all()):
-        fail(f"phase Z {label}: non-finite logits")
+        fail(f"{label}: non-finite logits")
     diff = got - want
     err = {"max_abs": float(diff.abs().max()),
            "rel_l2": float(diff.norm() / want.norm())}
     if err["max_abs"] > LM_BF16_TOL["max_abs"] or \
             err["rel_l2"] > LM_BF16_TOL["rel_l2"]:
-        fail(f"phase Z {label}: {err} outside {LM_BF16_TOL}")
+        fail(f"{label}: {err} outside {LM_BF16_TOL}")
     return err
 
 
@@ -3054,7 +3083,7 @@ def serve_lm_zoo(seed, dev, smi):
         (fwd, _), rep["dense_forward"] = lm_part(
             lambda: tt.lm_forward(params, tok, dense))
     rep["chunked_prefill_vs_dense_forward"] = bf16_close(
-        "llama chunked prefill", last, fwd[:, -1])
+        "phase Z llama chunked prefill", last, fwd[:, -1])
     del fwd, last
     # chunked against dense attention on layer 0's q, k, v in f32
     B, S = ZOO["attn_check"]
@@ -3096,7 +3125,7 @@ def serve_lm_zoo(seed, dev, smi):
     with torch.no_grad():
         fwd = tt.lm_forward(params, tok, cfg)[0][:, P - 1:]
     rep["decode_vs_forward"] = bf16_close(
-        "llama decode", torch.cat([last[:, None], steps], 1), fwd)
+        "phase Z llama decode", torch.cat([last[:, None], steps], 1), fwd)
     del fwd, steps, last
     # 3 train steps on one make_lm_batch, f32 moments
     B, S, n_steps = ZOO["train"]
@@ -3174,7 +3203,8 @@ def serve_lm_zoo(seed, dev, smi):
         fail(f"phase Z: llama4-scout dropped assignments on {B} x "
              f"{S + n_dec} tokens: {stats['moe_dropped']}")
     rep["short_decode_vs_forward"] = bf16_close(
-        "scout decode", torch.cat([last[:, None], torch.stack(steps, 1)], 1),
+        "phase Z scout decode",
+        torch.cat([last[:, None], torch.stack(steps, 1)], 1),
         fwd)
     del params, cache, full, fwd, steps, last
     torch.cuda.empty_cache()
@@ -3378,13 +3408,17 @@ def train_gnn_cells(seed, dev, wrappers, smi):
     return launches, report
 
 
+PHASE_T_CKPT = Path(__file__).resolve().parent / "build" / "phase_t_ckpt"
+
+
 def train_with_failures(dev, smi):
     """Phase T: launch.train's body (build_training, the runner, the
     report) in process on the card for each of TRAIN's runs: 40 steps
     with a checkpoint every 10, once uninterrupted and once with a
     failure injected at step 25. Fails unless the second run restarted
     once and its final parameters and Adam state are bitwise the first
-    run's. Checkpoints go under build/phase_t_ckpt and are removed.
+    run's. Checkpoints go under build/phase_t_ckpt (PHASE_T_CKPT); the
+    caller removes them after phase P has restored one onto a mesh.
     Returns its report."""
     import shutil
 
@@ -3392,47 +3426,443 @@ def train_with_failures(dev, smi):
     from repro_torch.launch import train as launch
 
     t_phase = time.perf_counter()
-    root = Path(__file__).resolve().parent / "build" / "phase_t_ckpt"
+    root = PHASE_T_CKPT
     shutil.rmtree(root, ignore_errors=True)
     report = {}
-    try:
-        for arch, smoke in TRAIN["runs"]:
-            states, rep = {}, {"config": "SMOKE" if smoke else "FULL"}
-            for label, extra in (("uninterrupted", []),
-                                 ("failure", ["--fail-at",
-                                              str(TRAIN["fail_at"])])):
-                args = launch.build_parser().parse_args(
-                    ["--arch", arch, "--steps", str(TRAIN["steps"]),
-                     "--ckpt-every", str(TRAIN["ckpt_every"]),
-                     "--ckpt-dir", str(root / label), "--device", str(dev)]
-                    + (["--smoke"] if smoke else []) + extra)
-                torch.cuda.synchronize()
-                state, runner_rep, out = launch.run(args)
-                torch.cuda.synchronize()
-                states[label] = flatten_with_paths(state)
-                out["step_ms_median"] = float(np.median(
-                    runner_rep.step_times)) * 1e3
-                rep[label] = out
-            if rep["failure"]["restarts"] != 1 or \
-                    rep["uninterrupted"]["restarts"] != 0:
-                fail(f"phase T {arch}: restarts {rep['failure']['restarts']}"
-                     f" and {rep['uninterrupted']['restarts']}")
-            a, b = states["failure"], states["uninterrupted"]
-            differ = [k for k in b if not torch.equal(a[k], b[k])]
-            if list(a) != list(b) or differ:
-                fail(f"phase T {arch}: the replayed run's state differs "
-                     f"from the uninterrupted run's in {differ[:5]}")
-            rep["replay_bitwise"] = True
-            rep["leaves"] = len(b)
-            if not all(math.isfinite(rep[r]["last_loss"]) for r in
-                       ("failure", "uninterrupted")):
-                fail(f"phase T {arch}: the loss is not finite")
-            report[arch] = rep
-            log(f"phase T {arch} {json.dumps(rep)} ({smi})")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    for arch, smoke in TRAIN["runs"]:
+        states, rep = {}, {"config": "SMOKE" if smoke else "FULL"}
+        for label, extra in (("uninterrupted", []),
+                             ("failure", ["--fail-at",
+                                          str(TRAIN["fail_at"])])):
+            args = launch.build_parser().parse_args(
+                ["--arch", arch, "--steps", str(TRAIN["steps"]),
+                 "--ckpt-every", str(TRAIN["ckpt_every"]),
+                 "--ckpt-dir", str(root / label), "--device", str(dev)]
+                + (["--smoke"] if smoke else []) + extra)
+            torch.cuda.synchronize()
+            state, runner_rep, out = launch.run(args)
+            torch.cuda.synchronize()
+            states[label] = flatten_with_paths(state)
+            out["step_ms_median"] = float(np.median(
+                runner_rep.step_times)) * 1e3
+            rep[label] = out
+        if rep["failure"]["restarts"] != 1 or \
+                rep["uninterrupted"]["restarts"] != 0:
+            fail(f"phase T {arch}: restarts {rep['failure']['restarts']}"
+                 f" and {rep['uninterrupted']['restarts']}")
+        a, b = states["failure"], states["uninterrupted"]
+        differ = [k for k in b if not torch.equal(a[k], b[k])]
+        if list(a) != list(b) or differ:
+            fail(f"phase T {arch}: the replayed run's state differs "
+                 f"from the uninterrupted run's in {differ[:5]}")
+        rep["replay_bitwise"] = True
+        rep["leaves"] = len(b)
+        if not all(math.isfinite(rep[r]["last_loss"]) for r in
+                   ("failure", "uninterrupted")):
+            fail(f"phase T {arch}: the loss is not finite")
+        report[arch] = rep
+        log(f"phase T {arch} {json.dumps(rep)} ({smi})")
     report["seconds"] = time.perf_counter() - t_phase
     return report
+
+
+# phase P: the zoo's cell programs (configs/*_family.py build_*) over a
+# virtual make_smoke_mesh() ((2, 4) ('data', 'model')) on the card.
+# retrieval_cand runs uncut at FULL (1,000,448 candidates, the 65,536-row
+# KNN database, m2 = 50); llama4-scout's "opt" variant (moe_dispatch
+# 'shmap') at FULL width with its depth cut to 2 of 48 layers, as phase
+# Z cuts it: held against the global dispatch at 2 x 4 tokens (top-1 of
+# 8 tokens fits the least capacity, 8: nothing drops in either path),
+# and timed at 2 x 2048 with both paths' drops logged; the compressed
+# psum over 'data' on llama3.2-1b's FULL parameter shapes, two shards of
+# f32 draws, and on each leaf's first PSUM_SLICE rows against the CPU
+PROGRAMS = dict(scout_layers=2, scout_check=(2, 4), scout_timed=(2, 2048),
+                psum_slice=64, reps=3)
+
+
+def plain_retrieval_wrappers():
+    """The three kernels on retrieval_cand's path as their plain
+    versions, in the wrappers' signatures (for ops' module attributes)."""
+    from repro_torch.kernels import ref
+
+    return {
+        "knn_lambda_cuda": lambda xq, xdb, lam_db, *, k=10, device=None:
+            ref.knn_lambda_ref(xq, xdb, lam_db, k),
+        "fused_rank_cuda": lambda u, a, lam, *, m2, eps=1e-4, device=None:
+            ref.fused_rank_ref(u, a, lam, m2, eps),
+        "embedding_bag_cuda": lambda table, indices, weights=None, *,
+        device=None: ref.embedding_bag_ref(table, indices, weights),
+    }
+
+
+def run_plain(fn, *args):
+    """fn(*args) with ops' three retrieval wrappers swapped for their
+    plain versions on the card (no counter moves), restored after."""
+    from repro_torch.kernels import ops
+
+    saved = {name: getattr(ops, name) for name in plain_retrieval_wrappers()}
+    try:
+        for name, plain in plain_retrieval_wrappers().items():
+            setattr(ops, name, plain)
+        return fn(*args)
+    finally:
+        for name, w in saved.items():
+            setattr(ops, name, w)
+
+
+def program_specs(prog):
+    """{arg|path: (shape, dtype, spec entries, the sharding's mesh)}."""
+    from repro_torch.checkpoint.store import flatten_with_paths
+    from repro_torch.launch.mesh import spec_entries
+
+    out = {}
+    for i, arg in enumerate(prog.args):
+        for path, a in flatten_with_paths(arg).items():
+            sh = a.sharding
+            out[f"{i}|{path}"] = (a.shape, a.dtype, None if sh is None else
+                                  spec_entries(sh.spec, len(sh.spec)),
+                                  None if sh is None else sh.mesh)
+    return out
+
+
+def retrieval_inputs(cfg, prog, gen, dev):
+    """retrieval_cand's arguments after the parameters, drawn on the
+    card: the user's fields or sequence, candidate ids (DeepFM's from
+    field 0), a 0/1 constraint matrix, the KNN database and its
+    nonnegative lambda rows."""
+    (B, width), n = prog.args[1].shape, prog.args[2].shape[0]
+    K, (n_db, d) = prog.args[3].shape[0], prog.args[4].shape
+    i32 = torch.int32
+    if cfg.kind == "deepfm":
+        fv = cfg.field_vocab
+        user = (torch.randint(0, fv, (B, width), generator=gen, device=dev)
+                + torch.arange(1, cfg.n_sparse, device=dev) * fv).to(i32)
+        cand = torch.randint(0, fv, (n,), generator=gen, device=dev)
+    else:
+        user = torch.randint(0, cfg.n_items, (B, width), generator=gen,
+                             device=dev).to(i32)
+        cand = torch.randint(0, cfg.n_items, (n,), generator=gen, device=dev)
+    a = (torch.rand((K, n), generator=gen, device=dev) < 0.15).float()
+    X_db = torch.randn((n_db, d), generator=gen, device=dev) * 0.05
+    lam_db = torch.randn((n_db, K), generator=gen, device=dev).abs()
+    return user, cand.to(i32), a, X_db, lam_db
+
+
+def serve_cell_programs(seed, dev, wrappers, ckpt_root, smi):
+    """Phase P: the zoo's cell programs over a virtual (2, 4) mesh on the
+    card (PROGRAMS). (a) every arch x cell at FULL built on the card's
+    mesh, its arguments' shapes, dtypes and specs those of the same
+    build on a CPU mesh (which tests/test_torch_cell_programs.py holds
+    against JAX's Lowerable.args), every sharding on the card's mesh;
+    (b) retrieval_cand uncut for the four recsys archs at FULL: the
+    program through the kernels (launches counted) against the same
+    program with the plain versions on the card, perm exactly and
+    lambda-hat and the adjusted scores bitwise; (c) serve_p99 for the
+    four recsys archs and full_graph_sm and molecule through build_gnn
+    at FULL, every output finite; (d) llama4-scout's "opt" variant under
+    use_mesh_rules(mesh, LM_RULES) through moe_apply_shmap against the
+    global dispatch within LM_BF16_TOL where neither drops, and timed;
+    (e) compressed_psum and psum_with_error_feedback over 'data' on
+    llama3.2-1b's FULL parameter shapes, each shard's result equal, the
+    int8 bound held, each leaf's first rows bitwise the CPU's; (f) phase
+    T's llama3.2-1b checkpoint restored onto the mesh with
+    param_shardings, every block bitwise the saved leaf's slice.
+    Returns (launches, report)."""
+    from dataclasses import replace
+
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.checkpoint.store import flatten_with_paths
+    from repro_torch.configs import all_archs, get_arch
+    from repro_torch.configs.gnn_family import cell_config, pad_graph
+    from repro_torch.configs.registry import pad_up
+    from repro_torch.distributed.sharding import (
+        LM_RULES,
+        param_shardings,
+        use_mesh_rules,
+    )
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import (
+        Sharded,
+        block_of,
+        make_smoke_mesh,
+        spec_entries,
+    )
+    from repro_torch.models import gnn
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.recsys import RECSYS_REGISTRY
+    from repro_torch.optim import compression
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = make_smoke_mesh(device=dev)
+    cpu_mesh = make_smoke_mesh(device="cpu")
+    report = {"mesh": "(2, 4) ('data', 'model'), virtual on the card"}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 11)
+
+    # (a) every arch x cell at FULL ----------------------------------------
+    t0, n_leaves, n_cells = time.perf_counter(), 0, 0
+    for arch in all_archs():
+        spec = get_arch(arch)
+        cfg = spec.make_config(True)
+        for cell in spec.cells:
+            got = program_specs(spec.build(cfg, cell, mesh))
+            want = program_specs(spec.build(cfg, cell, cpu_mesh))
+            if sorted(got) != sorted(want) or any(
+                    got[k][:3] != want[k][:3] for k in want):
+                fail(f"phase P {arch} {cell.name}: the card mesh's build "
+                     f"differs from the CPU mesh's")
+            if any(v[3] is not mesh for v in got.values()
+                   if v[2] is not None):
+                fail(f"phase P {arch} {cell.name}: a sharding off the mesh")
+            n_leaves += len(got)
+            n_cells += 1
+    report["full_builds"] = {"cells": n_cells, "arg_leaves": n_leaves,
+                             "s": time.perf_counter() - t0}
+
+    # (b) retrieval_cand uncut, and (c) serve_p99, for the recsys archs ----
+    launches = {name: 0 for name in wrappers}
+    report["retrieval_cand"], report["serve_p99"] = {}, {}
+    for arch in ("deepfm", "sasrec", "bert4rec", "mind"):
+        spec = get_arch(arch)
+        cfg = spec.make_config(True)
+        t0 = time.perf_counter()
+        model = RECSYS_REGISTRY[cfg.kind](cfg, gen=gen, device=dev)
+        params = model.params()
+        torch.cuda.synchronize()
+        rep = {"init_s": time.perf_counter() - t0,
+               "n_params": sum(p.numel() for p in model.parameters())}
+        prog = spec.build(cfg, spec.cell("retrieval_cand"), mesh)
+        args = (params,) + retrieval_inputs(cfg, prog, gen, dev)
+        for a, s in zip(args[1:], prog.args[1:]):
+            if tuple(a.shape) != s.shape or a.dtype != s.dtype:
+                fail(f"phase P {arch}: an argument is {tuple(a.shape)} "
+                     f"{a.dtype}, the program's {s.shape} {s.dtype}")
+        torch.cuda.synchronize()
+        reset_counters(wrappers)
+        vals, idx, lam = prog.fn(*args)
+        torch.cuda.synchronize()
+        got = read_counters(wrappers)
+        for name, n in got.items():
+            launches[name] += n
+        want_l = {"knn_lambda": 2, "fused_rank": 1,
+                  "embedding_bag": 1 if cfg.kind == "deepfm" else 0}
+        if any(got[n] != want_l.get(n, 0) for n in got):
+            fail(f"phase P {arch}: launches {got}, expected {want_l}")
+        pv, pidx, plam = run_plain(prog.fn, *args)
+        same = {"perm": torch.equal(idx, pidx),
+                "scores": torch.equal(vals, pv),
+                "lambda-hat": torch.equal(lam, plam)}
+        if not all(same.values()):
+            fail(f"phase P {arch}: retrieval_cand through the kernels "
+                 f"against its plain version, equal: {same}")
+        if not bool(torch.isfinite(vals).all()) or vals.shape != (1, 50):
+            fail(f"phase P {arch}: retrieval values {tuple(vals.shape)} "
+                 f"not finite")
+        rep.update(
+            n_candidates=prog.args[2].shape[0], n_db=prog.args[4].shape[0],
+            d_cov=prog.args[4].shape[1], launches=got, bitwise_plain=True,
+            ms=time_ms(lambda: prog.fn(*args), PROGRAMS["reps"]),
+            plain_ms=time_ms(lambda: run_plain(prog.fn, *args),
+                             PROGRAMS["reps"]))
+        report["retrieval_cand"][arch] = rep
+        log(f"phase P retrieval_cand {arch} {json.dumps(rep)} ({smi})")
+        # serve_p99 on the same parameters
+        prog = spec.build(cfg, spec.cell("serve_p99"), mesh)
+        B = prog.args[1].shape[0]
+        if cfg.kind == "deepfm":
+            ids = (torch.randint(0, cfg.field_vocab, prog.args[1].shape,
+                                 generator=gen, device=dev)
+                   + torch.arange(cfg.n_sparse, device=dev)
+                   * cfg.field_vocab).to(torch.int32)
+            sargs = (params, ids)
+        else:
+            sargs = (params,) + tuple(
+                torch.randint(0, cfg.n_items, a.shape, generator=gen,
+                              device=dev).to(torch.int32)
+                for a in prog.args[1:])
+        scores = prog.fn(*sargs)
+        if scores.shape != (B,) or not bool(torch.isfinite(scores).all()):
+            fail(f"phase P {arch} serve_p99: scores {tuple(scores.shape)} "
+                 f"not finite")
+        report["serve_p99"][arch] = {
+            "batch": B, "ms": time_ms(lambda: prog.fn(*sargs),
+                                      PROGRAMS["reps"])}
+        del model, params, args, sargs, prog, vals, idx, lam, pv, plam
+        torch.cuda.empty_cache()
+    log(f"phase P serve_p99 {json.dumps(report['serve_p99'])} ({smi})")
+
+    # (c) the GNN's full_graph_sm and molecule through build_gnn ----------
+    spec = get_arch("meshgraphnet")
+    full = spec.make_config(True)
+    report["gnn"] = {}
+    for name in ("full_graph_sm", "molecule"):
+        cell = spec.cell(name)
+        prog = spec.build(full, cell, mesh)
+        graph, info = gnn_cell_graph(cell, gen, dev)
+        want = {k: a for k, a in prog.args[2].items()}
+        n_pad, e_pad = want["nodes"].shape[-2], want["edges"].shape[-2]
+        graph = pad_graph({k: v for k, v in graph.items() if k in want},
+                          n_pad, e_pad)
+        graph = {k: v.to(want[k].dtype) for k, v in graph.items()}
+        for k, a in want.items():
+            if tuple(graph[k].shape) != a.shape:
+                fail(f"phase P {name}: graph {k} {tuple(graph[k].shape)} "
+                     f"!= {a.shape}")
+        params = gnn.gnn_init(gen, cell_config(full, cell), device=dev)
+        opt = gnn.gnn_adam_init(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, opt, m = prog.fn(params, opt, graph)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        leaves = flatten_with_paths(new)
+        if not math.isfinite(float(m["loss"])) or not all(
+                bool(torch.isfinite(v).all()) for v in leaves.values()):
+            fail(f"phase P {name}: the padded train step is not finite")
+        report["gnn"][name] = dict(info, padded=(n_pad, e_pad),
+                                   loss=float(m["loss"]), step_ms=step_ms)
+        del params, opt, new, graph
+        torch.cuda.empty_cache()
+    log(f"phase P gnn {json.dumps(report['gnn'])} ({smi})")
+
+    # (d) llama4-scout's "opt" variant through moe_apply_shmap -------------
+    cfg = replace(get_arch("llama4-scout-17b-a16e").variants["opt"](),
+                  n_layers=PROGRAMS["scout_layers"])
+    params = tt.lm_init(gen, cfg, device=dev)
+    calls = []
+    orig = tt.moe_apply_shmap_with_drops
+
+    def counting(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    def forward(tok, on_mesh, stats):
+        with torch.no_grad():
+            if not on_mesh:
+                return tt.lm_forward(params, tok, cfg, stats=stats)
+            with use_mesh_rules(mesh, LM_RULES):
+                return tt.lm_forward(params, tok, cfg, stats=stats)
+
+    rep = {"n_layers": f"{cfg.n_layers} of 48 (depth cut)",
+           "moe_dispatch": cfg.moe_dispatch}
+    tt.moe_apply_shmap_with_drops = counting
+    try:
+        for label, (B, S) in (("check", PROGRAMS["scout_check"]),
+                              ("timed", PROGRAMS["scout_timed"])):
+            tok = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                device=dev)
+            out, drops = {}, {}
+            for path, on_mesh in (("shmap", True), ("global", False)):
+                stats = {}
+                before = len(calls)
+                (logits, aux), t = lm_part(lambda: forward(tok, on_mesh,
+                                                           stats))
+                if (len(calls) - before) != (cfg.n_layers if on_mesh else 0):
+                    fail(f"phase P scout {path}: moe_apply_shmap ran "
+                         f"{len(calls) - before} times")
+                out[path] = logits
+                drops[path] = [int(x) for x in stats["moe_dropped"]]
+                rep[f"{label}_{path}"] = dict(t, aux=float(aux),
+                                              dropped=drops[path])
+            if label == "check":
+                if any(drops["shmap"]) or any(drops["global"]):
+                    fail(f"phase P scout: assignments dropped at {B} x {S}: "
+                         f"{drops}")
+                rep["shmap_vs_global"] = bf16_close(
+                    "phase P scout shmap", out["shmap"], out["global"])
+            del out
+    finally:
+        tt.moe_apply_shmap_with_drops = orig
+    report["llama4-scout-opt"] = rep
+    log(f"phase P llama4-scout opt {json.dumps(rep)} ({smi})")
+    del params
+    torch.cuda.empty_cache()
+
+    # (e) the int8 compressed psum over 'data' -------------------------------
+    cfg = get_arch("llama3.2-1b").make_config(True)
+    shapes = flatten_with_paths(tt.lm_init(None, cfg, device="meta"))
+    t0 = time.perf_counter()
+    worst, n_el, rows = 0.0, 0, PROGRAMS["psum_slice"]
+    for path, like in shapes.items():
+        xs = [torch.randn(like.shape, generator=gen, device=dev) * s
+              for s in (1.0, 0.5)]
+        rs = [torch.randn(like.shape, generator=gen, device=dev) * 1e-3
+              for _ in xs]
+        got = compression.compressed_psum(xs, "data", mesh)
+        if not torch.equal(got[0], got[1]):
+            fail(f"phase P psum {path}: the shards' results differ")
+        scale = max(float(compression.compress_int8(x)[1]) for x in xs)
+        err = float((got[0] - (xs[0] + xs[1])).abs().max())
+        if err > 2 * scale / 2 * (1 + 1e-6):
+            fail(f"phase P psum {path}: error {err} past the int8 bound "
+                 f"{scale}")
+        worst = max(worst, err / scale)
+        mean, res = compression.psum_with_error_feedback(xs, rs, "data",
+                                                         mesh)
+        if not (torch.isfinite(mean[0]).all() and torch.equal(mean[0],
+                                                              mean[1])):
+            fail(f"phase P error feedback {path}: the means differ")
+        # each leaf's first rows (as a matrix of its last dim): the card
+        # against the CPU, bitwise
+        cut = [x.reshape(-1, x.shape[-1])[:rows].contiguous() for x in xs]
+        rcut = [r.reshape(-1, r.shape[-1])[:rows].contiguous() for r in rs]
+        card = (compression.compressed_psum(cut, "data", mesh),
+                compression.psum_with_error_feedback(cut, rcut, "data", mesh))
+        host = (compression.compressed_psum([c.cpu() for c in cut], "data",
+                                             cpu_mesh),
+                compression.psum_with_error_feedback(
+                    [c.cpu() for c in cut], [r.cpu() for r in rcut], "data",
+                    cpu_mesh))
+        pairs = [(card[0][0], host[0][0]), (card[1][0][0], host[1][0][0]),
+                 (card[1][1][0], host[1][1][0])]
+        if not all(torch.equal(g.cpu(), w) for g, w in pairs):
+            fail(f"phase P psum {path}: the card's first {rows} rows differ "
+                 f"from the CPU's")
+        n_el += like.numel()
+        del xs, rs, got, mean, res
+    torch.cuda.synchronize()
+    report["compressed_psum"] = {
+        "leaves": len(shapes), "elements_a_shard": n_el,
+        "worst_error_over_scale": worst, "bound": "shards x scale / 2",
+        "cpu_bitwise_rows": rows, "s": time.perf_counter() - t0}
+    log(f"phase P compressed psum {json.dumps(report['compressed_psum'])} "
+        f"({smi})")
+    torch.cuda.empty_cache()
+
+    # (f) phase T's llama3.2-1b checkpoint restored onto the mesh -----------
+    state, _, _, _ = launch.build_training("llama3.2-1b", smoke=True,
+                                           batch=None, seq=None, device=dev)
+    cfg = get_arch("llama3.2-1b").make_config(False)
+    store = CheckpointStore(str(ckpt_root / "uninterrupted" / "llama3.2-1b"),
+                            keep_last=2)
+    shardings = (param_shardings(tt.lm_logical_axes(cfg), mesh, LM_RULES),
+                 None)
+    (placed, popt), extra = store.restore(state, shardings=shardings,
+                                          device=dev)
+    (saved, sopt), _ = store.restore(state, device=dev)
+    n_blocks = 0
+    flat_saved = flatten_with_paths(saved)
+    for path, leaf in flatten_with_paths(placed).items():
+        want = flat_saved[path]
+        if not isinstance(leaf, Sharded):
+            fail(f"phase P restore {path}: not placed onto the mesh")
+        entries = spec_entries(leaf.spec, want.dim())
+        bs = leaf.block_shape()
+        for pos in np.ndindex(*mesh.devices.shape):
+            idx = block_of(mesh, entries, pos)
+            sl = tuple(slice(i * b, (i + 1) * b) for i, b in zip(idx, bs))
+            if not torch.equal(leaf.at(pos), want[sl]):
+                fail(f"phase P restore {path}: block at {pos} differs")
+            n_blocks += 1
+    if not all(torch.equal(popt.mu[k], sopt.mu[k]) for k in sopt.mu):
+        fail("phase P restore: Adam's state differs")
+    report["restore"] = {"step": int(extra["next_step"]),
+                         "leaves": len(flat_saved), "blocks": n_blocks,
+                         "bitwise": True}
+    log(f"phase P restore {json.dumps(report['restore'])} ({smi})")
+    report["seconds"] = time.perf_counter() - t_phase
+    return launches, report
 
 
 def table23(rows):
@@ -4401,9 +4831,18 @@ def main() -> int:
     log(f"phase G: {gnn_report['seconds']:.1f} s, launches {gnn_launches} "
         f"({smi})")
 
-    # -- phase T: the training driver with an injected failure ---------------
-    train_report = train_with_failures(dev, smi)
-    log(f"phase T: {train_report['seconds']:.1f} s ({smi})")
+    # -- phase T: the training driver with an injected failure, then --------
+    # -- phase P: the zoo's cell programs over a mesh (its checkpoint) -------
+    import shutil
+    try:
+        train_report = train_with_failures(dev, smi)
+        log(f"phase T: {train_report['seconds']:.1f} s ({smi})")
+        prog_launches, prog_report = serve_cell_programs(
+            args.seed, dev, wrappers, PHASE_T_CKPT, smi)
+    finally:
+        shutil.rmtree(PHASE_T_CKPT, ignore_errors=True)
+    log(f"phase P: {prog_report['seconds']:.1f} s, launches {prog_launches} "
+        f"({smi})")
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"rank_audited": (csrc + "rank_audited.cu",
@@ -4461,7 +4900,7 @@ def main() -> int:
                          + lattice_launches[name] + fleet_launches[name]
                          + deploy_launches[name] + mesh_launches[name]
                          + mesh_dense_launches[name] + lib_launches[name]
-                         + gnn_launches[name]),
+                         + gnn_launches[name] + prog_launches[name]),
             "launches_by_path": {"offline_holdout": offline_launches[name],
                                  "serving": serve_launches[name],
                                  "serving_under_load": load_launches[name],
@@ -4473,7 +4912,8 @@ def main() -> int:
                                  "distributed_dense_side":
                                      mesh_dense_launches[name],
                                  "kernel_library": lib_launches[name],
-                                 "gnn_ranking_head": gnn_launches[name]},
+                                 "gnn_ranking_head": gnn_launches[name],
+                                 "cell_programs": prog_launches[name]},
             "max_abs_err": err[name], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
             "bound_by": main_t["bound_by"],

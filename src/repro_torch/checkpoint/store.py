@@ -22,12 +22,14 @@ by either package loads in the other:
   * a write goes to step_<n>.tmp-<pid>-<thread>, is fsynced and renamed,
     so a crashed writer never leaves a partial step behind.
 
-Tensors are snapshotted to the host (one device-to-host copy a leaf)
-before anything is written; `save_async` writes on a thread after that
-snapshot. `restore` and `load_predictor_epoch` put the leaves on a
-device (None = the card). Restoring onto a sharded mesh, as the JAX
-store's `shardings` does, is not in the port yet (ROADMAP Queue 1
-item 4).
+Tensors are snapshotted to the host (one device-to-host copy a leaf; a
+launch.mesh.Sharded leaf is gathered first) before anything is
+written; `save_async` writes on a thread after that snapshot. `restore`
+and `load_predictor_epoch` put the leaves on a device (None = the
+card); `restore(..., shardings=)` places each leaf that has a
+NamedSharding onto its mesh instead (launch.mesh.shard: a Sharded,
+each block placed once a physical device), the elastic path of the
+JAX store: the mesh may differ from the run that saved.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import Sharded, shard
 
 PyTree = Any
 
@@ -82,6 +85,8 @@ def _host_leaf(x):
     """A leaf as host memory the npz can hold: numpy for the usual
     dtypes, _Bits for an exotic one (a bf16 tensor as its uint16 view;
     a numpy array of ml_dtypes' bfloat16 likewise)."""
+    if isinstance(x, Sharded):
+        x = x.gather("cpu")
     if isinstance(x, torch.Tensor):
         x = x.detach()
         name = _dtype_name(x)
@@ -113,8 +118,11 @@ def _decode(arr: np.ndarray, dtype_name: str):
 
 def _is_record(node) -> bool:
     """A dataclass instance (AdamState, FactoredState): a tree node
-    whose children are its fields."""
-    return dataclasses.is_dataclass(node) and not isinstance(node, type)
+    whose children are its fields. A dataclass that marks itself
+    `tree_leaf` (a placed launch.mesh.Sharded, a NamedSharding, a
+    configs.registry.ArgSpec) is a leaf."""
+    return (dataclasses.is_dataclass(node) and not isinstance(node, type)
+            and not getattr(node, "tree_leaf", False))
 
 
 def _walk(node, prefix: tuple, out: dict) -> None:
@@ -414,12 +422,21 @@ class CheckpointStore:
     # -- restore ------------------------------------------------------------
 
     def restore(self, like: PyTree, *, step: int | None = None,
+                shardings: PyTree | None = None,
                 device=None) -> tuple[PyTree, dict]:
         """Restore into the structure of `like` (tensors, numpy arrays,
-        or anything with .shape and .dtype), every leaf on `device`
-        (None = the card) in the template's dtype. Returns (tree,
-        manifest extra)."""
-        dev = resolve_device(device)
+        or anything with .shape and .dtype) in the template's dtypes.
+        A leaf with a sharding in `shardings` (a matching tree of
+        distributed.sharding.NamedSharding) comes back placed onto its
+        mesh by launch.mesh.shard (its spec relaxed to the leaf's shape
+        by drop_nondivisible); every other leaf lies on `device` (None =
+        the card). Returns (tree, manifest extra)."""
+        from repro_torch.distributed.sharding import drop_nondivisible
+
+        flat_shard = ({} if shardings is None
+                      else flatten_with_paths(shardings))
+        dev = (resolve_device(device) if len(flat_shard) < len(
+            flatten_with_paths(like)) else None)
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -444,5 +461,11 @@ class CheckpointStore:
                 raise ValueError(
                     f"leaf {key}: checkpoint shape {tuple(buf.shape)} != "
                     f"expected {tuple(ref.shape)}")
-            out[key] = _to_device(buf, dev, _like_dtype(ref))
+            sh = flat_shard.get(key)
+            if sh is None:
+                out[key] = _to_device(buf, dev, _like_dtype(ref))
+                continue
+            host = _to_device(buf, torch.device("cpu"), _like_dtype(ref))
+            out[key] = shard(sh.mesh, host, drop_nondivisible(
+                sh.spec, host.shape, sh.mesh))
         return unflatten_like(like, out), manifest.get("extra", {})

@@ -10,13 +10,14 @@ implemented WITHOUT the technique; API compatibility (node_scores ->
 ranking head) is exercised in tests and chip_smoke.py's phase G only.
 """
 
-from repro_torch.configs.gnn_family import GNN_CELLS, make_config
+from repro_torch.configs.gnn_family import GNN_CELLS, build_gnn, make_config
 from repro_torch.configs.registry import ArchSpec, register
 
 SPEC = register(ArchSpec(
     name="meshgraphnet", family="gnn",
     cells=GNN_CELLS,
     make_config=make_config,
+    build=build_gnn,
     notes="paper technique inapplicable (no ranking decision); "
           "implemented without it per instructions.",
 ))

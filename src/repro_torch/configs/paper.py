@@ -27,14 +27,18 @@ import torch
 
 from repro_torch.configs.registry import (
     ArchSpec,
-    ArgSpec,
     Cell,
     Program,
     register,
+    sds,
 )
 from repro_torch.core.constraints import dcg_discount
 from repro_torch.core.dual_solver import solve_dual_batch
-from repro_torch.distributed.sharding import PAPER_RULES, filter_rules
+from repro_torch.distributed.sharding import (
+    PAPER_RULES,
+    NamedSharding,
+    filter_rules,
+)
 from repro_torch.kernels import ops
 
 PAPER_CELLS = (
@@ -87,8 +91,13 @@ def build_paper(cfg: PaperConfig, cell: Cell, mesh) -> Program:
     rules = filter_rules(PAPER_RULES, mesh)
     B, m1, K, m2 = cell["batch"], cell["m1"], cell["K"], cell["m2"]
     f32 = torch.float32
-    u, a, b = ArgSpec((B, m1), f32), ArgSpec((B, K, m1), f32), \
-        ArgSpec((K,), f32)
+
+    def sh(*logical):
+        return NamedSharding(mesh, rules.resolve(*logical))
+
+    u = sds((B, m1), f32, sh("batch", "items"))
+    a = sds((B, K, m1), f32, sh("batch", None, "items"))
+    b = sds((K,), f32, NamedSharding(mesh, ()))
 
     if cell.kind == "offline":
         iters = cell["iters"]
@@ -97,11 +106,11 @@ def build_paper(cfg: PaperConfig, cell: Cell, mesh) -> Program:
             return solve_dual_batch(u, a, b, dcg_discount(m2).to(u.device),
                                     m2=m2, num_iters=iters)
 
-        return Program(fn=fn, args=(u, a, b))
+        return Program(fn=fn, args=(u, a, b), rules=rules)
 
     d_cov, n_db = cell["d_cov"], cell["n_db"]
-    X = ArgSpec((B, d_cov), f32)
-    X_db, lam_db = ArgSpec((n_db, d_cov), f32), ArgSpec((n_db, K), f32)
+    X = sds((B, d_cov), f32, sh("batch", None))
+    X_db = sds((n_db, d_cov), f32, sh("users_db", None))
     eps, k = cfg.eps, cfg.knn_k
 
     if cfg.distributed and mesh.devices.size > 1:
@@ -123,8 +132,9 @@ def build_paper(cfg: PaperConfig, cell: Cell, mesh) -> Program:
                                     eps=eps, item_axis=item_axis,
                                     batch_axes=batch_axes)
 
-        return Program(fn=fn, args=(X, u, ArgSpec((K, m1), f32), b, X_db,
-                                    lam_db))
+        return Program(fn=fn, args=(
+            X, u, sds((K, m1), f32, sh(None, "items")), b, X_db,
+            sds((n_db, K), f32, NamedSharding(mesh, ()))), rules=rules)
 
     def fn(X, u, a, b, X_db, lam_db):
         lam_hat = ops.knn_lambda(X, X_db, lam_db, k=k, device=u.device)
@@ -132,7 +142,9 @@ def build_paper(cfg: PaperConfig, cell: Cell, mesh) -> Program:
                                 dcg_discount(m2).to(u.device), m2=m2,
                                 eps=eps, device=u.device)
 
-    return Program(fn=fn, args=(X, u, a, b, X_db, lam_db))
+    return Program(fn=fn, args=(X, u, a, b, X_db,
+                                sds((n_db, K), f32, sh("users_db", None))),
+                   rules=rules)
 
 
 SPEC = register(ArchSpec(

@@ -10,7 +10,12 @@ smallest entry. At most (m-1)^2 + 1 terms.
 
 `sinkhorn_project` computes in float32. JAX's is spelt float64, but the
 repository runs JAX with jax_enable_x64 off, so the reference computes
-in float32 too, and the port computes what it computes.
+in float32 too, and the port computes what it computes, in the order
+XLA's CPU fusion of JAX's scan body computes it: the row sums r and the
+column sums c of M / r, each added one element after another, then
+one division, M / (r c^T), where JAX's source writes two. Two
+divisions round apart from it by up to ~1e-6 relative over 400
+iterations; this order gives its bits.
 """
 
 from __future__ import annotations
@@ -89,6 +94,16 @@ def sinkhorn_project(M, *, iters: int = 200, device=None) -> torch.Tensor:
     M = torch.as_tensor(M, dtype=torch.float32, device=resolve_device(device))
     M = torch.clamp_min(M, 1e-12)
     for _ in range(iters):
-        M = M / torch.sum(M, dim=1, keepdim=True)
-        M = M / torch.sum(M, dim=0, keepdim=True)
+        r = _sum_in_order(M, 1)
+        c = _sum_in_order(M / r[:, None], 0)
+        M = M / (r[:, None] * c[None, :])
     return M
+
+
+def _sum_in_order(M: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over `dim`, the elements added one after another."""
+    parts = M.unbind(dim)
+    s = parts[0]
+    for p in parts[1:]:
+        s = s + p
+    return s

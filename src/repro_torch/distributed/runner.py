@@ -21,9 +21,10 @@ launcher's is (params, AdamState)), `step_fn(state, batch) -> (state,
 metrics)` must be functional (the state it returns is all the next step
 reads, so a restore replaces everything a step depends on), and
 `batch_fn(step) -> batch` regenerates data deterministically for
-replay. Metrics come back to the host through `.item()`. `restore`
-puts the leaves on `device` (None = the card), where JAX's takes
-shardings.
+replay. Metrics come back to the host through `.item()`. A restore
+passes `shardings` through to CheckpointStore.restore, as JAX's does
+(the leaves with a sharding come back placed onto their mesh), and puts
+the other leaves on `device` (None = the card).
 """
 
 from __future__ import annotations
@@ -67,8 +68,10 @@ class FaultTolerantRunner:
         self.straggler_factor = straggler_factor
         self.async_ckpt = async_ckpt
 
-    def _restore(self, state: PyTree, device) -> tuple[PyTree, int]:
-        state, extra = self.store.restore(state, device=device)
+    def _restore(self, state: PyTree, device, shardings
+                 ) -> tuple[PyTree, int]:
+        state, extra = self.store.restore(state, shardings=shardings,
+                                          device=device)
         return state, int(extra.get("next_step", self.store.latest_step()))
 
     def run(
@@ -79,10 +82,13 @@ class FaultTolerantRunner:
         start_step: int = 0,
         resume: bool = True,
         fail_at: Callable[[int], bool] | None = None,
+        shardings: PyTree | None = None,
         device=None,
     ) -> tuple[PyTree, RunnerReport]:
-        """Run to `num_steps`, surviving step failures. A restore puts
-        the state on `device` (None = the card).
+        """Run to `num_steps`, surviving step failures. A restore places
+        each leaf with a sharding in `shardings` onto its mesh
+        (CheckpointStore.restore) and the rest on `device` (None = the
+        card).
 
         `fail_at(step)` is the failure-injection hook used by tests and
         chaos drills: when it returns True the runner behaves as if the
@@ -92,7 +98,7 @@ class FaultTolerantRunner:
         initial = state
         step = start_step
         if resume and self.store.latest_step() is not None:
-            state, step = self._restore(state, device)
+            state, step = self._restore(state, device, shardings)
         restarts = 0
         ewma = None
 
@@ -112,7 +118,7 @@ class FaultTolerantRunner:
                 if restarts > self.max_restarts:
                     raise
                 if self.store.latest_step() is not None:
-                    state, step = self._restore(state, device)
+                    state, step = self._restore(state, device, shardings)
                 else:
                     state, step = initial, start_step
                 continue

@@ -1,23 +1,42 @@
-"""Logical-axis sharding rules (counterpart of the rules half of
+"""Logical-axis sharding rules and the mesh context (counterpart of
 repro.distributed.sharding): a table per architecture family maps
-logical axis names ('batch', 'users_db', 'items', ...) to mesh axes.
+logical axis names ('batch', 'heads', 'table_rows', 'users_db', ...) to
+mesh axes, and a thread-local (mesh, rules) context resolves the
+models' annotations against it.
 
 `AxisRules.resolve` gives one mesh-axis entry per tensor dimension (a
 name, a tuple of names, or None: replicated), the tuple JAX's
-PartitionSpec holds; the port's sharded functions take it to decide
-which dimension a mesh axis splits. `filter_rules` drops the axes a
-mesh does not have, so ('pod', 'data') also serves the single-pod mesh.
+PartitionSpec holds; `NamedSharding(mesh, spec)` pairs it with a
+launch.mesh.Mesh. `filter_rules` drops the axes a mesh does not have,
+so ('pod', 'data') also serves the single-pod mesh.
 
-The mesh-context half (use_mesh_rules, current_mesh, current_rules,
-logical_spec, logical_shard, named_sharding, param_shardings,
-drop_nondivisible, eval_shape_with_sharding) annotates the zoo's
-models and the dry run and waits for them (ROADMAP Queue 1 item 4).
+The port has no SPMD partitioner: one process drives the mesh
+(launch/mesh.py). Where JAX writes a shard body with shard_map
+(layers.moe_apply_shmap, optim.compression), the port writes it over
+distributed.topk.map_shards. Where JAX only annotates and leaves the
+rest to GSPMD, the port resolves the same specs but runs the program
+on global tensors: `logical_shard` under an active context checks the
+spec against the tensor and relaxes it as `drop_nondivisible` does,
+and returns x unchanged in value, as with_sharding_constraint does;
+with no context it is the identity, as JAX's is. So the specs match
+JAX's, and placement is enforced only where there is a shard body
+(`launch.mesh.shard` places a tensor by a spec; a checkpoint restores
+onto a mesh through it).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass, field
-from typing import Any, Mapping
+from typing import Any, ClassVar, Mapping
+
+import torch
+
+from repro_torch.checkpoint.store import _is_record
+from repro_torch.launch.mesh import Mesh, axis_size
+
+_ctx = threading.local()
 
 
 @dataclass(frozen=True)
@@ -139,3 +158,155 @@ RULES_BY_FAMILY = {
     "gnn": GNN_RULES,
     "paper": PAPER_RULES,
 }
+
+
+# --------------------------------------------------------------------------
+# Shardings and trees of them
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """A spec (one mesh-axis entry per leading dim, as AxisRules.resolve
+    gives it) on a launch.mesh.Mesh: JAX's NamedSharding(mesh, P(*spec))."""
+
+    tree_leaf: ClassVar[bool] = True    # a leaf of a tree of shardings
+
+    mesh: Mesh
+    spec: tuple
+
+    def __eq__(self, other):
+        return (isinstance(other, NamedSharding) and other.mesh is self.mesh
+                and tuple(other.spec) == tuple(self.spec))
+
+    def __hash__(self):
+        return hash((id(self.mesh), tuple(self.spec)))
+
+
+def tree_map(fn, tree, *rest, is_leaf=None):
+    """fn over the leaves of `tree` (dicts, lists, tuples and dataclass
+    records are nodes, as checkpoint.store walks them; None is an empty
+    subtree), with the matching leaves of the `rest` trees, which share
+    tree's structure at least down to its leaves."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
+    if _is_record(tree):
+        return type(tree)(**{
+            f: tree_map(fn, getattr(tree, f), *(getattr(r, f) for r in rest),
+                        is_leaf=is_leaf)
+            for f in tree.__dataclass_fields__})
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest),
+                                   is_leaf=is_leaf)
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+# --------------------------------------------------------------------------
+# Context + constraint helpers
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def use_mesh_rules(mesh: Mesh | None, rules: AxisRules | None):
+    """Activate (mesh, rules) for `logical_shard` within the block (on
+    this thread)."""
+    prev = getattr(_ctx, "state", None)
+    _ctx.state = (mesh, filter_rules(rules, mesh)) if (mesh and rules) \
+        else None
+    try:
+        yield
+    finally:
+        _ctx.state = prev
+
+
+def current_mesh() -> Mesh | None:
+    st = getattr(_ctx, "state", None)
+    return st[0] if st else None
+
+
+def current_rules() -> AxisRules | None:
+    st = getattr(_ctx, "state", None)
+    return st[1] if st else None
+
+
+def logical_spec(*logical: str | None) -> tuple:
+    rules = current_rules()
+    if rules is None:
+        return ()
+    return rules.resolve(*logical)
+
+
+def drop_nondivisible(spec, shape, mesh: Mesh) -> tuple:
+    """Relax a spec: replicate any dim whose size is not an exact
+    multiple of its mesh-axis product (e.g. 40 heads on a 16-way 'model'
+    axis, or batch 1), and drop repeated mesh axes (a spec may map each
+    axis to at most one dim: the first use is kept). Returns one entry
+    per dim of `shape`."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    used: set = set()
+    for dim, entry in zip(shape, entries):
+        if dim % axis_size(mesh, entry) != 0:
+            entry = None
+        if entry is not None:
+            axes = (entry,) if isinstance(entry, str) else tuple(entry)
+            if any(a in used for a in axes):
+                entry = None
+            else:
+                used.update(axes)
+        out.append(entry)
+    return tuple(out)
+
+
+def logical_shard(x: torch.Tensor, *logical: str | None) -> torch.Tensor:
+    """JAX's with_sharding_constraint against the active (mesh, rules):
+    the spec is resolved and relaxed against x's shape as
+    drop_nondivisible does; x comes back unchanged (the port runs the
+    program on global tensors). The identity when no context is
+    active."""
+    st = getattr(_ctx, "state", None)
+    if st is None:
+        return x
+    mesh, rules = st
+    drop_nondivisible(rules.resolve(*logical), x.shape, mesh)
+    return x
+
+
+def named_sharding(*logical: str | None) -> NamedSharding | None:
+    st = getattr(_ctx, "state", None)
+    if st is None:
+        return None
+    mesh, rules = st
+    return NamedSharding(mesh, rules.resolve(*logical))
+
+
+# --------------------------------------------------------------------------
+# Param shardings from logical-axis annotations
+# --------------------------------------------------------------------------
+
+def param_shardings(logical_axes: Any, mesh: Mesh, rules: AxisRules) -> Any:
+    """Map a tree of per-dim logical-axis tuples to NamedShardings.
+
+    `logical_axes` mirrors the params tree; each leaf is a tuple of
+    logical axis names (or None), one per tensor dimension."""
+    rules = filter_rules(rules, mesh)
+    return tree_map(lambda axes: NamedSharding(mesh, rules.resolve(*axes)),
+                    logical_axes, is_leaf=lambda x: isinstance(x, tuple))
+
+
+def eval_shape_with_sharding(fn, logical_axes_fn, mesh, rules, *args):
+    """jax.eval_shape + attach shardings (dry-run parameter stand-ins):
+    fn(*args) runs on the meta device (nothing is allocated), and each
+    output leaf comes back as a configs.registry.ArgSpec with its
+    NamedSharding from logical_axes_fn()."""
+    from repro_torch.configs.registry import ArgSpec
+
+    with torch.device("meta"):
+        shapes = fn(*args)
+    shardings = param_shardings(logical_axes_fn(), mesh, rules)
+    return tree_map(lambda s, sh: ArgSpec(tuple(s.shape), s.dtype, sh),
+                    shapes, shardings)

@@ -132,21 +132,22 @@ def batch_axes_of(mesh: Mesh, batch_axes) -> tuple[str, ...]:
     return tuple(a for a in batch_axes if a in mesh.axis_names)
 
 
-def shard_bodies(mesh: Mesh, shard_axis: str, batch_axes) -> int:
+def shard_bodies(mesh: Mesh, shard_axis: str | None, batch_axes) -> int:
     """Shard bodies one call runs: a body for each batch block and each
-    shard of `shard_axis`. Axes in neither replicate the work in JAX;
-    here their first position runs it, once."""
+    shard of `shard_axis` (None: one shard). Axes in neither replicate
+    the work in JAX; here their first position runs it, once."""
     return (axis_size(mesh, batch_axes_of(mesh, batch_axes))
-            * mesh.shape[shard_axis])
+            * axis_size(mesh, shard_axis))
 
 
-def map_shards(mesh: Mesh, shard_axis: str, batch_axes, n_batch: int,
-               body, merge_device: torch.device):
+def map_shards(mesh: Mesh, shard_axis: str | None, batch_axes,
+               n_batch: int, body, merge_device: torch.device):
     """Run body(rows, shard, device) for every batch block (rows: the
     block's slice of the batch dimension) and every shard of
-    `shard_axis`, each on its device (run_on_shard). Returns, per batch
-    block, (rows, [each shard's outputs on merge_device]). Every body is
-    started before any merge, so bodies on different cards overlap."""
+    `shard_axis` (None: one shard, 0), each on its device
+    (run_on_shard). Returns, per batch block, (rows, [each shard's
+    outputs on merge_device]). Every body is started before any merge,
+    so bodies on different cards overlap."""
     axes = batch_axes_of(mesh, batch_axes)
     nb = axis_size(mesh, axes)
     rows_l = split_dim(n_batch, nb, f"batch over {axes}")
@@ -155,8 +156,10 @@ def map_shards(mesh: Mesh, shard_axis: str, batch_axes, n_batch: int,
         rows = slice(bi * rows_l, (bi + 1) * rows_l)
         coords = block_coords(mesh, axes, bi)
         parts = []
-        for si in range(mesh.shape[shard_axis]):
-            dev = shard_device(mesh, {**coords, shard_axis: si})
+        for si in range(axis_size(mesh, shard_axis)):
+            at = coords if shard_axis is None else {**coords,
+                                                    shard_axis: si}
+            dev = shard_device(mesh, at)
             parts.append(run_on_shard(
                 dev, merge_device,
                 lambda si=si, dev=dev: body(rows, si, dev)))

@@ -14,6 +14,13 @@ card it is the only way to run more than one shard. Times taken on
 such a mesh measure the cost of splitting the work on one card, not an
 interconnect.
 
+Placement: `shard(mesh, x, spec)` lays a tensor over the mesh by a
+spec (one mesh-axis entry per dim, the tuple AxisRules.resolve gives)
+as a `Sharded`, each block placed once a physical device and a view
+where the tensor already lies there; `Sharded.gather` puts the blocks
+back into one tensor. `shard_rows` is the row-split case the KNN
+database takes.
+
 Mesh axes, as JAX's:
   single-pod  (16, 16)      ('data', 'model')
   multi-pod   (2, 16, 16)   ('pod', 'data', 'model')
@@ -24,6 +31,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import ClassVar
 
 import numpy as np
 import torch
@@ -47,6 +55,10 @@ class Mesh:
                              f"{self.axis_names}")
         if len(set(self.axis_names)) != len(self.axis_names):
             raise ValueError(f"repeated mesh axis in {self.axis_names}")
+
+    def __repr__(self):
+        return (f"Mesh({dict(zip(self.axis_names, self.devices.shape))}, "
+                f"{list(self.physical_devices)})")
 
     @property
     def shape(self) -> dict[str, int]:
@@ -145,31 +157,146 @@ def place(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     return x if x.device == device else x.to(device, non_blocking=True)
 
 
+def spec_entries(spec, ndim: int) -> tuple:
+    """`spec` (one mesh-axis entry per leading dim: a name, a tuple of
+    names or None) padded with None to `ndim` entries, each entry a
+    tuple of names (() = replicated). More entries than dims, or a mesh
+    axis named twice, raise, as NamedSharding does."""
+    spec = tuple(spec)
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than the tensor's "
+                         f"{ndim} dimensions")
+    out, used = [], set()
+    for entry in spec + (None,) * (ndim - len(spec)):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        if used & set(axes):
+            raise ValueError(f"spec {spec} names a mesh axis twice")
+        used |= set(axes)
+        out.append(axes)
+    return tuple(out)
+
+
+def block_of(mesh: Mesh, entries: tuple, pos: tuple) -> tuple:
+    """The block index (one per dim) that the mesh position `pos` holds
+    under `entries` (spec_entries' form): a dim split over axes (a, b)
+    takes block pos[a] * size(b) + pos[b], the first axis slowest, as
+    JAX tiles it; a replicated dim takes block 0."""
+    out = []
+    for axes in entries:
+        i = 0
+        for a in axes:
+            j = mesh.axis_names.index(a)
+            i = i * mesh.devices.shape[j] + pos[j]
+        out.append(i)
+    return tuple(out)
+
+
 @dataclass(frozen=True, eq=False)
-class ShardedRows:
-    """A tensor split by rows over one mesh axis, placed once: shard i
-    holds rows offsets[i]:offsets[i] + rows on every device of the mesh
-    whose `axis` position is i (one copy a physical device; a view where
-    the tensor already lies there)."""
+class Sharded:
+    """A tensor of `shape` laid over a mesh by `spec` (one entry per
+    dim: a mesh-axis name, a tuple of names or None), placed once:
+    `blocks` maps each block index (one per dim) to {device: the block
+    there}, with one copy a physical device that holds the block (a
+    view where the tensor already lay there, so a virtual mesh copies
+    nothing). JAX's jax.Array with a NamedSharding, as one process
+    drives the port's mesh."""
+
+    tree_leaf: ClassVar[bool] = True    # a leaf of a parameter tree
 
     mesh: Mesh
-    axis: str
-    n_rows: int
-    rows: int
-    copies: tuple[dict, ...]     # per shard: device -> its rows there
+    spec: tuple
+    shape: tuple
+    dtype: torch.dtype
+    blocks: dict
+
+    @property
+    def grid(self) -> tuple[int, ...]:
+        """Blocks along each dim."""
+        return tuple(axis_size(self.mesh, axes) for axes in
+                     spec_entries(self.spec, len(self.shape)))
+
+    def block_shape(self) -> tuple[int, ...]:
+        return tuple(n // g for n, g in zip(self.shape, self.grid))
+
+    def at(self, pos: tuple) -> torch.Tensor:
+        """The block the mesh position `pos` holds, on that position's
+        device."""
+        blk = block_of(self.mesh, spec_entries(self.spec, len(self.shape)),
+                       tuple(pos))
+        return self.blocks[blk][self.mesh.devices[tuple(pos)]]
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole tensor on `device` (None = the mesh's first device):
+        each block copied once into its place."""
+        dev = self.mesh.devices.flat[0] if device is None else \
+            resolve_device(device)
+        if len(self.blocks) == 1:
+            return place(next(iter(next(iter(self.blocks.values()))
+                                   .values())), dev)
+        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
+        bs = self.block_shape()
+        for blk, copies in self.blocks.items():
+            piece = next(iter(copies.values()))
+            out[tuple(slice(i * b, (i + 1) * b) for i, b in zip(blk, bs))
+                ].copy_(piece)
+        return out
+
+
+def _place_blocks(mesh: Mesh, x: torch.Tensor, spec) -> dict:
+    entries = spec_entries(spec, x.dim())
+    bs = tuple(split_dim(n, axis_size(mesh, axes),
+                         f"dim {i} over {axes}")
+               for i, (n, axes) in enumerate(zip(x.shape, entries)))
+    blocks: dict = {}
+    for pos in np.ndindex(*mesh.devices.shape):
+        blk = block_of(mesh, entries, pos)
+        dev = mesh.devices[pos]
+        copies = blocks.setdefault(blk, {})
+        if dev not in copies:
+            copies[dev] = place(x[tuple(slice(i * b, (i + 1) * b)
+                                        for i, b in zip(blk, bs))], dev)
+    return blocks
+
+
+def shard(mesh: Mesh, x: torch.Tensor, spec) -> Sharded:
+    """x laid over `mesh` by `spec` (JAX's jax.device_put(x,
+    NamedSharding(mesh, P(*spec)))): each block placed once a physical
+    device, a view where x lies there. A dim its mesh axes do not
+    divide raises, as shard_map does."""
+    spec = tuple(spec)
+    return Sharded(mesh=mesh, spec=spec, shape=tuple(x.shape),
+                   dtype=x.dtype, blocks=_place_blocks(mesh, x, spec))
+
+
+@dataclass(frozen=True, eq=False)
+class ShardedRows(Sharded):
+    """A Sharded split by rows over one mesh axis (spec (axis,)): shard
+    i holds rows offsets[i]:offsets[i] + rows on every device of the
+    mesh whose `axis` position is i."""
+
+    @property
+    def axis(self) -> str:
+        return self.spec[0]
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def rows(self) -> int:
+        return self.shape[0] // self.mesh.shape[self.axis]
+
+    @property
+    def copies(self) -> tuple[dict, ...]:
+        """Per shard: device -> its rows there."""
+        rest = (0,) * (len(self.shape) - 1)
+        return tuple(self.blocks[(i,) + rest]
+                     for i in range(self.mesh.shape[self.axis]))
 
     @property
     def offsets(self) -> tuple[int, ...]:
         return tuple(i * self.rows for i in range(len(self.copies)))
-
-    @property
-    def shape(self) -> tuple[int, ...]:
-        first = next(iter(self.copies[0].values()))
-        return (self.n_rows,) + tuple(first.shape[1:])
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return next(iter(self.copies[0].values())).dtype
 
     def local(self, i: int, device: torch.device) -> torch.Tensor:
         return self.copies[i][device]
@@ -183,14 +310,6 @@ def shard_rows(mesh: Mesh, x, axis: str = "model") -> ShardedRows:
         if x.mesh is not mesh or x.axis != axis:
             raise ValueError(f"rows placed over {x.axis!r} of another mesh")
         return x
-    S = mesh.shape[axis]
-    rows = split_dim(x.shape[0], S, f"rows over {axis!r}")
-    copies = []
-    for i in range(S):
-        piece = x[i * rows:(i + 1) * rows]
-        devs = dict.fromkeys(np.take(
-            mesh.devices, [i], axis=mesh.axis_names.index(axis)).flat)
-        copies.append({d: place(piece, d) for d in devs})
-    return ShardedRows(mesh=mesh, axis=axis, n_rows=x.shape[0], rows=rows,
-                       copies=tuple(copies))
-
+    split_dim(x.shape[0], mesh.shape[axis], f"rows over {axis!r}")
+    return ShardedRows(mesh=mesh, spec=(axis,), shape=tuple(x.shape),
+                       dtype=x.dtype, blocks=_place_blocks(mesh, x, (axis,)))

@@ -52,19 +52,6 @@ def _seeded(seed: int, dev: torch.device) -> torch.Generator:
     return gen
 
 
-def _functional(model, params: dict, opt, batch):
-    """One in-place train_step of a recsys module run as a function of
-    (params, opt): the module reads `params` (no copy), steps, and its
-    new tensors are returned as the next state's."""
-    flat = flatten_with_paths(params)
-    for k, p in flatten_with_paths(model.params()).items():
-        p.data = flat[k]
-    opt, metrics = model.train_step(opt, batch)
-    new = {k: p.detach() for k, p in flatten_with_paths(
-        model.params()).items()}
-    return unflatten_like(params, new), opt, metrics
-
-
 def build_training(arch_name: str, *, smoke: bool, batch: int | None,
                    seq: int | None, device=None):
     """-> (state, step_fn, batch_fn, describe) on `device` (None = the
@@ -102,7 +89,7 @@ def build_training(arch_name: str, *, smoke: bool, batch: int | None,
         state = (params, model.init_opt())
 
         def step(params, opt, batch):
-            return _functional(model, params, opt, batch)
+            return model.functional_step(params, opt, batch)
 
         def batch_fn(s):
             g = _seeded(s, dev)

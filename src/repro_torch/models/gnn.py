@@ -30,9 +30,11 @@ edge_encoder, processor/{edge_mlp,node_mlp}/w0.., decoder), drawn from a
 torch.Generator in JAX's layout and scales; `load_numpy` carries a JAX
 `init(key)` across. The sampler's uniforms come from a torch.Generator
 (torch cannot reproduce jax.random); `sample_from_uniforms` is its
-deterministic body, which JAX's own uniforms drive in the tests. The
-`*_axes` function waits for the mesh-context half of
-distributed/sharding.py (ROADMAP Queue 1 item 4).
+deterministic body, which JAX's own uniforms drive in the tests.
+`gnn_logical_axes` (MeshGraphNet.logical_axes) mirrors the parameter
+tree with per-dim logical axis names: the weights replicate, the
+processor's stacked leaves lead with 'layers'; the node and edge
+states carry JAX's logical_shard annotations ('nodes', 'edges').
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.store import flatten_with_paths, unflatten_like
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import logical_shard
 from repro_torch.models.layers import dense_init
 from repro_torch.models.recsys import _register, _tree_of
 from repro_torch.models.transformer import _device_of
@@ -104,6 +107,17 @@ def _mlp_init(gen, d_in: int, d_out: int, cfg: GNNConfig, dev) -> dict:
                                    device=dev)
         p["ln_bias"] = torch.zeros((d_out,), dtype=cfg.param_dtype,
                                    device=dev)
+    return p
+
+
+def _mlp_axes(cfg: GNNConfig) -> dict:
+    p = {}
+    for i in range(cfg.mlp_layers + 1):
+        p[f"w{i}"] = ("mlp_in", "mlp_out")
+        p[f"b{i}"] = (None,)
+    if cfg.layer_norm:
+        p["ln_scale"] = (None,)
+        p["ln_bias"] = (None,)
     return p
 
 
@@ -185,6 +199,16 @@ def gnn_init(gen: torch.Generator | None, cfg: GNNConfig, *,
             "decoder": _mlp_init(gen, h, cfg.d_out, cfg, dev)}
 
 
+def gnn_logical_axes(cfg: GNNConfig) -> dict:
+    """The parameter tree's logical axes (JAX's
+    MeshGraphNet.logical_axes)."""
+    m = _mlp_axes(cfg)
+    proc = {name: {k: ("layers",) + v for k, v in m.items()}
+            for name in ("edge_mlp", "node_mlp")}
+    return {"node_encoder": dict(m), "edge_encoder": dict(m),
+            "processor": proc, "decoder": dict(m)}
+
+
 def gnn_from_numpy(tree, cfg: GNNConfig, *, device=None) -> dict:
     """A JAX `MeshGraphNet.init` tree (numpy arrays) as the port's
     parameters, in cfg.param_dtype."""
@@ -237,7 +261,7 @@ def _proc_step(v, e, p_layer, senders, receivers, n_nodes, cfg):
     agg = aggregate(e, receivers, n_nodes, cfg.aggregator)
     v = v + _mlp_apply(p_layer["node_mlp"], torch.cat([v, agg], dim=-1),
                        cfg)
-    return v, e
+    return logical_shard(v, "nodes", None), logical_shard(e, "edges", None)
 
 
 def gnn_forward(params: dict, graph: dict, cfg: GNNConfig) -> torch.Tensor:
@@ -251,8 +275,10 @@ def gnn_forward(params: dict, graph: dict, cfg: GNNConfig) -> torch.Tensor:
     receivers = _as_tensor(graph["receivers"], dev, torch.long)
     N = nodes.shape[0]
 
-    v = _mlp_apply(params["node_encoder"], nodes, cfg)
-    e = _mlp_apply(params["edge_encoder"], edges, cfg)
+    v = logical_shard(_mlp_apply(params["node_encoder"], nodes, cfg),
+                      "nodes", None)
+    e = logical_shard(_mlp_apply(params["edge_encoder"], edges, cfg),
+                      "edges", None)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         p_layer = _layer(params, i)
@@ -374,6 +400,9 @@ class MeshGraphNet(nn.Module):
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
+
+    def logical_axes(self) -> dict:
+        return gnn_logical_axes(self.cfg)
 
     def load_numpy(self, tree) -> "MeshGraphNet":
         """Take a JAX `init` tree (numpy arrays) as the parameters."""

@@ -9,8 +9,18 @@ in cfg.param_dtype, activations in cfg.dtype, softmax statistics and
 attention logits in f32 (q and k widened to f32 before their product,
 which is exact for bf16 operands, as XLA's preferred_element_type=f32
 is). No F.scaled_dot_product_attention: its backends change the order
-of rounding. The `*_axes` functions and `moe_apply_shmap` wait for the
-mesh-context half of distributed/sharding.py (ROADMAP Queue 1 item 4).
+of rounding. The `*_axes` functions give each parameter's logical
+axes (distributed/sharding.py resolves them against a mesh), and the
+activations carry JAX's `logical_shard` annotations, which check and
+relax their specs under an active mesh context and leave the values
+as they are.
+
+`moe_apply_shmap` is JAX's shard_map expert-parallel MoE written over
+distributed.topk.map_shards on a one-process mesh (launch/mesh.py): a
+body for each batch block and each 'model' shard routes its block's
+tokens, dispatches those bound for its own experts into slots, runs
+its experts and scatters their outputs back to the tokens; the
+partial sums add over 'model' in shard order.
 """
 
 from __future__ import annotations
@@ -19,6 +29,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import logical_shard
+from repro_torch.distributed.topk import batch_axes_of, map_shards
+from repro_torch.launch.mesh import axis_size, place
 
 # masked attention logits (the chunked and decode paths; dense uses -inf)
 MASK_LOGIT = -1e30
@@ -100,6 +114,15 @@ def attn_init(gen, cfg, device=None) -> dict:
     }
 
 
+def attn_axes() -> dict:
+    return {
+        "wq": ("qkv_in", "qkv_out"),
+        "wk": ("qkv_in", "qkv_out"),
+        "wv": ("qkv_in", "qkv_out"),
+        "wo": ("o_in", "o_out"),
+    }
+
+
 def _qkv(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
     """q (B, S, H, Dh), k and v (B, S, KV, Dh), q and k rotated."""
     B, S, _ = x.shape
@@ -109,6 +132,9 @@ def _qkv(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
     v = (x @ params["wv"].to(x.dtype)).reshape(B, S, KV, Dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = logical_shard(q, "batch", "seq", "heads", None)
+    k = logical_shard(k, "batch", "seq", "kv_heads", None)
+    v = logical_shard(v, "batch", "seq", "kv_heads", None)
     return q, k, v
 
 
@@ -227,9 +253,18 @@ def ffn_init(gen, cfg, d_ff: int | None = None, device=None) -> dict:
     }
 
 
+def ffn_axes() -> dict:
+    return {
+        "w_gate": ("ffn_in", "ffn_out"),
+        "w_up": ("ffn_in", "ffn_out"),
+        "w_down": ("ffn_down_in", "ffn_down_out"),
+    }
+
+
 def ffn_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ params["w_gate"].to(x.dtype)) * (
         x @ params["w_up"].to(x.dtype))
+    h = logical_shard(h, "batch", "seq", "mlp")
     return h @ params["w_down"].to(x.dtype)
 
 
@@ -253,6 +288,20 @@ def moe_init(gen, cfg, device=None) -> dict:
     if cfg.shared_expert:
         params["shared"] = ffn_init(gen, cfg, d_ff=cfg.d_ff_moe, device=device)
     return params
+
+
+def moe_axes(cfg) -> dict:
+    axes = {
+        "router": (None, None),
+        "experts": {
+            "w_gate": ("experts", "expert_in", "expert_out"),
+            "w_up": ("experts", "expert_in", "expert_out"),
+            "w_down": ("experts", "expert_out", "expert_in"),
+        },
+    }
+    if cfg.shared_expert:
+        axes["shared"] = ffn_axes()
+    return axes
 
 
 def moe_capacity(n_tokens: int, cfg) -> int:
@@ -327,11 +376,16 @@ def moe_apply_with_drops(params: dict, x: torch.Tensor, cfg):
     keep = pos < C
     buf = x.new_zeros((E, C, D)).index_put(
         (flat_e[keep], pos[keep]), xt[flat_tok[keep]])
+    sort_path = getattr(cfg, "moe_dispatch", "onehot") == "sort"
+    cap_axis = "expert_cap" if sort_path else None
+    buf = logical_shard(buf, "experts", cap_axis, None)
 
     we = params["experts"]
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, we["w_gate"].to(x.dtype))
                ) * torch.einsum("ecd,edf->ecf", buf, we["w_up"].to(x.dtype))
+    h = logical_shard(h, "experts", cap_axis, "expert_out")
     out_buf = torch.einsum("ecf,efd->ecd", h, we["w_down"].to(x.dtype))
+    out_buf = logical_shard(out_buf, "experts", cap_axis, None)
 
     gathered = out_buf[flat_e, torch.where(keep, pos, 0)]    # (T*K, D)
     gathered = torch.where(keep[:, None], gathered,
@@ -344,6 +398,116 @@ def moe_apply_with_drops(params: dict, x: torch.Tensor, cfg):
     if cfg.shared_expert:
         y = y + ffn_apply(params["shared"], xt)
     return y.reshape(B, S, D), aux, (~keep).sum()
+
+
+# --------------------------------------------------------------------------
+# shard_map expert-parallel MoE (the 'shmap' dispatch)
+# --------------------------------------------------------------------------
+#
+# Tokens are split over the batch axes ('pod', 'data') and replicated
+# over 'model'; each 'model' shard holds E / ep experts. So dispatch
+# needs no communication: each (batch block, model shard) body scatters
+# its block's tokens into slots of its own experts. The expert weights
+# are FSDP-sharded over the batch axes in JAX and all-gathered a body;
+# here a body reads its experts' slice of the global weights, a view
+# where they lie on its device (a virtual mesh copies nothing). The
+# combine is a psum over 'model' of each block's (T_l, D) partial sums.
+# Capacity is enforced per batch block: C_l = moe_capacity(T_l).
+
+def moe_apply_shmap(params: dict, x: torch.Tensor, cfg, mesh):
+    """The shard_map twin of moe_apply over `mesh` (a launch.mesh.Mesh).
+    x: (B, S, D) global -> (y (B, S, D), aux loss ())."""
+    return moe_apply_shmap_with_drops(params, x, cfg, mesh)[:2]
+
+
+def moe_apply_shmap_with_drops(params: dict, x: torch.Tensor, cfg, mesh):
+    """moe_apply_shmap, plus the assignments dropped over the blocks'
+    capacities (0-d int64 on x's device).
+
+    Each body: routing of its block's tokens (moe_route: ties to the
+    lower expert); me and ce, pmeaned over the batch blocks into the
+    load-balance loss; stable positions by expert and the local
+    capacity; slot-centric dispatch (each kept assignment of the shard's
+    own experts writes its token and gate into its (expert, slot); the
+    others, dropped or another shard's, write nothing, as JAX's
+    out-of-bounds scatter drops them); the experts' FFN on the gathered
+    slot rows; the combine, each slot's gate x output added to its token
+    by a sorted index_put(accumulate=True) (never index_add_, whose adds
+    on the card come in no fixed order). The blocks' partial outputs
+    add over 'model' in shard order; the shared expert is added after."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    batch_axes = batch_axes_of(mesh, ("pod", "data"))
+    n_batch = axis_size(mesh, batch_axes)
+    model = "model" if "model" in mesh.axis_names else None
+    ep = axis_size(mesh, model)
+    if E % ep:
+        raise ValueError(f"{E} experts do not split over {ep} 'model' "
+                         f"shards")
+    E_l = E // ep
+    T_l = B * S // n_batch
+    C_l = moe_capacity(T_l, cfg)
+    we = params["experts"]
+
+    def body(rows, si, dev):
+        xt = place(x[rows], dev).reshape(-1, D)
+        tl = xt.shape[0]
+        probs, gate_vals, expert_ids = moe_route(
+            {"router": place(params["router"], dev)}, xt, cfg)
+        # combine in the activation dtype, as JAX's body does
+        gate_vals = gate_vals.to(x.dtype)
+        me = probs.mean(dim=0)
+        ce = F.one_hot(expert_ids[:, 0], E).to(torch.float32).mean(dim=0)
+
+        flat_e = expert_ids.reshape(-1)
+        flat_g = gate_vals.reshape(-1)
+        flat_tok = torch.arange(tl, device=dev).repeat_interleave(K)
+        pos = _positions_by_expert(flat_e, E)
+        e0 = si * E_l
+        local = (flat_e >= e0) & (flat_e < e0 + E_l)
+        keep = local & (pos < C_l)
+        el, pk = flat_e[keep] - e0, pos[keep]
+        slot_tok = torch.zeros((E_l, C_l), dtype=torch.long, device=dev)
+        slot_tok = slot_tok.index_put((el, pk), flat_tok[keep])
+        slot_gate = torch.zeros((E_l, C_l), dtype=x.dtype, device=dev
+                                ).index_put((el, pk), flat_g[keep])
+        slot_valid = torch.zeros((E_l, C_l), dtype=x.dtype, device=dev
+                                 ).index_put((el, pk), torch.ones_like(
+                                     flat_g[keep]))
+        buf = xt[slot_tok] * slot_valid[..., None]            # (E_l, C_l, D)
+
+        # this shard's experts: JAX's FSDP all-gather, a view here
+        wg = place(we["w_gate"][e0:e0 + E_l], dev).to(x.dtype)
+        wu = place(we["w_up"][e0:e0 + E_l], dev).to(x.dtype)
+        wd = place(we["w_down"][e0:e0 + E_l], dev).to(x.dtype)
+        h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg)) * torch.einsum(
+            "ecd,edf->ecf", buf, wu)
+        out_buf = torch.einsum("ecf,efd->ecd", h, wd)
+
+        weighted = out_buf * (slot_gate * slot_valid)[..., None]
+        y = torch.zeros((tl, D), dtype=x.dtype, device=dev).index_put(
+            (slot_tok.reshape(-1),), weighted.reshape(-1, D),
+            accumulate=True)
+        dropped = (local & (pos >= C_l)).sum()
+        return y, me, ce, dropped
+
+    ys, mes, ces, drops = [], [], [], []
+    for _, parts in map_shards(mesh, model, batch_axes, B, body, x.device):
+        y = parts[0][0]
+        for p in parts[1:]:
+            y = y + p[0]                  # the EP combine, in shard order
+        ys.append(y)
+        mes.append(parts[0][1])           # routing is the same on every
+        ces.append(parts[0][2])           # model shard of a block
+        drops.extend(p[3] for p in parts)
+    me = torch.stack(mes).sum(dim=0) / n_batch
+    ce = torch.stack(ces).sum(dim=0) / n_batch
+    aux = E * torch.sum(me * ce)
+    y = torch.cat(ys).reshape(B, S, D)
+    if cfg.shared_expert:
+        y = y + ffn_apply(params["shared"], x.reshape(B * S, D)).reshape(
+            B, S, D)
+    return y, aux, torch.stack(drops).sum()
 
 
 # --------------------------------------------------------------------------

@@ -25,6 +25,13 @@ context-field rows, is a sum-mode bag and runs through
 kernels.ops.embedding_bag (the `embedding_bag` kernel on the card); it
 sums in slot order, where XLA's sum(axis=1) may not, so it agrees with
 JAX to rounding. The inference methods run without autograd.
+
+`logical_axes()` mirrors each model's parameter tree with per-dim
+logical axis names (the tables' rows over 'table_rows', the dense
+layers replicated); `device="meta"` builds a model's parameters as
+shapes only, and `bound(cfg, params)` wraps a given parameter tree
+without a copy, so a cell program (configs/recsys_family.py) runs on
+the tensors it is handed.
 """
 
 from __future__ import annotations
@@ -38,8 +45,9 @@ from torch import nn
 
 from repro_torch.checkpoint.store import flatten_with_paths, unflatten_like
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import logical_shard
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import _draw, dense_init, rms_norm
 from repro_torch.optim import adam_init, adam_update, clip_by_global_norm
 
 NEG_MASK = -1e30
@@ -137,14 +145,30 @@ class _RecsysModel(nn.Module):
     def __init__(self, cfg: RecsysConfig, *,
                  gen: torch.Generator | None = None, device=None):
         super().__init__()
-        dev = resolve_device(device)
+        meta = device is not None and torch.device(device).type == "meta"
+        dev = torch.device("meta") if meta else resolve_device(device)
         self.cfg = cfg
-        if gen is None:
+        if gen is None and not meta:
             gen = torch.Generator(device=dev)
             gen.manual_seed(0)
-        tree = self._init(gen)
+        tree = self._init(gen, dev if meta else gen.device)
         _register(self, unflatten_like(tree, {
             k: v.to(dev) for k, v in flatten_with_paths(tree).items()}))
+
+    @classmethod
+    def bound(cls, cfg: RecsysConfig, params: dict) -> "_RecsysModel":
+        """A model over `params` (a tree of this model's paths), read
+        without a copy; training it rebinds its own parameters and
+        leaves the given tensors as they are."""
+        self = cls.__new__(cls)
+        nn.Module.__init__(self)
+        self.cfg = cfg
+        _register(self, unflatten_like(params, {
+            k: v.detach() for k, v in flatten_with_paths(params).items()}))
+        return self
+
+    def logical_axes(self) -> dict:
+        return recsys_logical_axes(self.cfg)
 
     @property
     def device(self) -> torch.device:
@@ -198,6 +222,19 @@ class _RecsysModel(nn.Module):
              for (k, p), gk in zip(flat.items(), g)}
         return loss, metrics, unflatten_like(tree, g)
 
+    def functional_step(self, params: dict, opt_state, batch: dict, *,
+                        lr=1e-3):
+        """One train_step run as a function of (params, opt): the module
+        reads `params` (no copy), steps, and its new tensors come back as
+        the next state's: (new params, new opt state, metrics)."""
+        flat = flatten_with_paths(params)
+        for k, p in flatten_with_paths(self.params()).items():
+            p.data = flat[k]
+        opt_state, metrics = self.train_step(opt_state, batch, lr=lr)
+        new = {k: p.detach() for k, p in flatten_with_paths(
+            self.params()).items()}
+        return unflatten_like(params, new), opt_state, metrics
+
     def train_step(self, opt_state, batch: dict, *, lr=1e-3):
         """One step of the JAX package's generic train step: gradients,
         clip at global norm 1, Adam. Updates the parameters in place;
@@ -226,14 +263,12 @@ class DeepFM(_RecsysModel):
     [f*field_vocab, (f+1)*field_vocab)) into one flat
     (n_sparse*field_vocab, D) table."""
 
-    def _init(self, gen):
+    def _init(self, gen, g):
         cfg = self.cfg
         V = cfg.n_sparse * cfg.field_vocab
-        g = gen.device
 
         def normal(shape, scale):
-            return (torch.randn(shape, generator=gen, device=g)
-                    * scale).to(cfg.param_dtype)
+            return (_draw(gen, shape, g) * scale).to(cfg.param_dtype)
 
         params = {
             "table": normal((V, cfg.embed_dim), 0.01),
@@ -244,11 +279,12 @@ class DeepFM(_RecsysModel):
         prev = cfg.n_sparse * cfg.embed_dim
         for i, h in enumerate(cfg.mlp_dims):
             params["mlp"][f"w{i}"] = dense_init(gen, (prev, h),
-                                                cfg.param_dtype)
+                                                cfg.param_dtype, device=g)
             params["mlp"][f"b{i}"] = torch.zeros((h,), dtype=cfg.param_dtype,
                                                  device=g)
             prev = h
-        params["mlp"]["w_out"] = dense_init(gen, (prev, 1), cfg.param_dtype)
+        params["mlp"]["w_out"] = dense_init(gen, (prev, 1), cfg.param_dtype,
+                                            device=g)
         return params
 
     def forward(self, ids) -> torch.Tensor:
@@ -258,6 +294,7 @@ class DeepFM(_RecsysModel):
         B = ids.shape[0]
         flat = ids.reshape(-1)
         emb = p["table"][flat].reshape(B, cfg.n_sparse, cfg.embed_dim)
+        emb = logical_shard(emb, "batch", None, None)
         # FM 2nd order: 0.5 * ((sum v)^2 - sum v^2) summed over dim
         s = torch.sum(emb, dim=1)
         fm2 = 0.5 * torch.sum(s * s - torch.sum(emb * emb, dim=1), dim=-1)
@@ -308,7 +345,7 @@ class DeepFM(_RecsysModel):
         context, plus the candidate's first-order weight."""
         ctx = self.context_sum(user_ids)                        # (B, D)
         cand_ids = _ids(cand_ids, self.device)
-        cand = self.table[cand_ids]                             # (n, D)
+        cand = logical_shard(self.table[cand_ids], "candidates", None)
         lin = self.w_linear[cand_ids][:, 0]
         return ctx @ cand.T + lin[None, :]
 
@@ -317,17 +354,53 @@ class DeepFM(_RecsysModel):
 # Shared transformer block for SASRec / BERT4Rec
 # --------------------------------------------------------------------------
 
-def _block_init(gen, d: int, n_heads: int, d_ff: int, dtype) -> dict:
+def _block_init(gen, d: int, n_heads: int, d_ff: int, dtype, g) -> dict:
     del n_heads
-    zeros = torch.zeros((d,), dtype=dtype, device=gen.device)
+    zeros = torch.zeros((d,), dtype=dtype, device=g)
     return {
-        "wqkv": dense_init(gen, (d, 3 * d), dtype),
-        "wo": dense_init(gen, (d, d), dtype),
-        "w1": dense_init(gen, (d, d_ff), dtype),
-        "w2": dense_init(gen, (d_ff, d), dtype),
+        "wqkv": dense_init(gen, (d, 3 * d), dtype, device=g),
+        "wo": dense_init(gen, (d, d), dtype, device=g),
+        "w1": dense_init(gen, (d, d_ff), dtype, device=g),
+        "w2": dense_init(gen, (d_ff, d), dtype, device=g),
         "ln1": zeros,
         "ln2": zeros.clone(),
     }
+
+
+_BLOCK_AXES = {
+    "wqkv": ("dense_in", "dense_out"),
+    "wo": ("dense_in", "dense_out"),
+    "w1": ("dense_in", "dense_out"),
+    "w2": ("dense_in", "dense_out"),
+    "ln1": (None,),
+    "ln2": (None,),
+}
+
+
+def recsys_logical_axes(cfg: RecsysConfig) -> dict:
+    """The parameter tree's logical axes (JAX's `logical_axes()` of the
+    cfg.kind model)."""
+    if cfg.kind == "deepfm":
+        axes = {
+            "table": ("table_rows", "table_dim"),
+            "w_linear": ("table_rows", None),
+            "bias": (),
+            "mlp": {},
+        }
+        for i in range(len(cfg.mlp_dims)):
+            axes["mlp"][f"w{i}"] = ("dense_in", "dense_out")
+            axes["mlp"][f"b{i}"] = (None,)
+        axes["mlp"]["w_out"] = ("dense_in", None)
+        return axes
+    axes = {
+        "items": ("table_rows", "table_dim"),
+        "pos": (None, None),
+        "blocks": [dict(_BLOCK_AXES) for _ in range(cfg.n_blocks)],
+        "final_ln": (None,),
+    }
+    if cfg.kind == "mind":
+        axes["bilinear"] = ("dense_in", "dense_out")
+    return axes
 
 
 def _block_apply(p: dict, x: torch.Tensor, n_heads: int,
@@ -373,19 +446,17 @@ class _SeqRecBase(_RecsysModel):
 
     causal = True
 
-    def _init(self, gen):
+    def _init(self, gen, g):
         cfg = self.cfg
-        g = gen.device
 
         def normal(shape):
-            return (torch.randn(shape, generator=gen, device=g)
-                    * 0.02).to(cfg.param_dtype)
+            return (_draw(gen, shape, g) * 0.02).to(cfg.param_dtype)
 
         return {
             "items": normal((cfg.n_items, cfg.embed_dim)),
             "pos": normal((cfg.seq_len, cfg.embed_dim)),
             "blocks": [_block_init(gen, cfg.embed_dim, cfg.n_heads,
-                                   4 * cfg.embed_dim, cfg.param_dtype)
+                                   4 * cfg.embed_dim, cfg.param_dtype, g)
                        for _ in range(cfg.n_blocks)],
             "final_ln": torch.zeros((cfg.embed_dim,), dtype=cfg.param_dtype,
                                     device=g),
@@ -397,6 +468,7 @@ class _SeqRecBase(_RecsysModel):
         seq = _ids(seq, self.device)
         x = _masked_rows(p["items"], seq)
         x = x + p["pos"][None, :seq.shape[1]]
+        x = logical_shard(x, "batch", "seq", None)
         for blk in p["blocks"]:
             x = _block_apply(blk, x, self.cfg.n_heads, self.causal)
         return rms_norm(x, p["final_ln"])
@@ -413,7 +485,8 @@ class _SeqRecBase(_RecsysModel):
     def retrieval_scores(self, seq, cand_ids) -> torch.Tensor:
         """(B, n_cand): the user's query dotted with each candidate."""
         q = self.user_repr(seq)                                 # (B, D)
-        cand = self.items[_ids(cand_ids, self.device)]          # (n, D)
+        cand = logical_shard(self.items[_ids(cand_ids, self.device)],
+                             "candidates", None)                # (n, D)
         return q @ cand.T
 
     @torch.no_grad()
@@ -467,11 +540,11 @@ class MIND(_SeqRecBase):
 
     causal = False
 
-    def _init(self, gen):
-        params = super()._init(gen)
+    def _init(self, gen, g):
+        params = super()._init(gen, g)
         cfg = self.cfg
         params["bilinear"] = dense_init(gen, (cfg.embed_dim, cfg.embed_dim),
-                                        cfg.param_dtype)
+                                        cfg.param_dtype, device=g)
         return params
 
     @staticmethod
@@ -511,7 +584,8 @@ class MIND(_SeqRecBase):
         """max over interests of interest . candidate (MIND's serving
         rule)."""
         u = self.interests(seq)                                 # (B, K, D)
-        cand = self.items[_ids(cand_ids, self.device)]          # (n, D)
+        cand = logical_shard(self.items[_ids(cand_ids, self.device)],
+                             "candidates", None)                # (n, D)
         return torch.amax(torch.einsum("bkd,nd->bkn", u, cand), dim=1)
 
     def loss(self, batch: dict):

@@ -18,9 +18,13 @@ dots_with_no_batch_dims_saveable does), "none" keeps everything. Remat
 changes memory, never numbers.
 
 A decode step writes the new token's k and v into the cache in place
-(JAX returns a new cache; its decode cell donates the old one). The
-'shmap' MoE dispatch needs the mesh-context half of
-distributed/sharding.py (ROADMAP Queue 1 item 4) and is refused.
+(JAX returns a new cache; its decode cell donates the old one).
+`lm_logical_axes` and `cache_logical_axes` mirror the parameter and
+cache trees with per-dim logical axis names (distributed/sharding.py:
+FSDP over 'data', TP/EP over 'model', DP over ('pod', 'data')). The
+'shmap' MoE dispatch runs layers.moe_apply_shmap when a mesh context is
+active and its 'model' axis divides n_experts, and the global dispatch
+otherwise, as JAX's _moe_dispatching chooses.
 """
 
 from __future__ import annotations
@@ -35,8 +39,14 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.checkpoint.store import flatten_with_paths, unflatten_like
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (
+    current_mesh,
+    logical_shard,
+    tree_map,
+)
 from repro_torch.models.layers import (
     _qkv,
+    attn_axes,
     attn_init,
     chunked_causal_attention,
     decode_attention,
@@ -45,8 +55,11 @@ from repro_torch.models.layers import (
     embed_init,
     embed_lookup,
     ffn_apply,
+    ffn_axes,
     ffn_init,
+    moe_apply_shmap_with_drops,
     moe_apply_with_drops,
+    moe_axes,
     moe_init,
     rms_norm,
 )
@@ -73,8 +86,8 @@ class LMConfig:
     capacity_factor: float = 1.25
     aux_loss_weight: float = 0.01
     # 'onehot' and 'sort' give the same positions (a stable sort) and
-    # differ in capacity rounding; 'shmap' waits for ROADMAP Queue 1
-    # item 4
+    # differ in capacity rounding; 'shmap' is the expert-parallel
+    # layers.moe_apply_shmap under a mesh context
     moe_dispatch: str = "onehot"
     # numerics / execution
     rope_theta: float = 500_000.0
@@ -119,14 +132,6 @@ class LMConfig:
         layer = attn + ffn
         embed = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
         return self.n_layers * layer + embed
-
-
-def _check_dispatch(cfg: LMConfig) -> None:
-    if cfg.moe and cfg.moe_dispatch == "shmap":
-        raise NotImplementedError(
-            "moe_dispatch='shmap' (the shard_map expert-parallel MoE) needs "
-            "the mesh-context half of distributed/sharding.py: ROADMAP "
-            "Queue 1 item 4")
 
 
 def _device_of(device) -> torch.device:
@@ -179,6 +184,30 @@ def lm_init(gen: torch.Generator | None, cfg: LMConfig, *,
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab),
                                        cfg.param_dtype, device=dev)
     return params
+
+
+def lm_logical_axes(cfg: LMConfig) -> dict:
+    """The parameter tree's logical axes: a tuple per leaf, one name (or
+    None) per dim, the stacked layer leaves led by 'layers'."""
+    L = "layers"
+    layer_axes = {
+        "ln1": (L, "norm"),
+        "ln2": (L, "norm"),
+        "attn": {k: (L,) + v for k, v in attn_axes().items()},
+    }
+    if cfg.moe:
+        layer_axes["moe"] = tree_map(lambda v: (L,) + v, moe_axes(cfg),
+                                     is_leaf=lambda x: isinstance(x, tuple))
+    else:
+        layer_axes["ffn"] = {k: (L,) + v for k, v in ffn_axes().items()}
+    axes = {
+        "embed": ("vocab", "embed_fsdp"),
+        "layers": layer_axes,
+        "final_ln": ("norm",),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed_fsdp", "vocab")
+    return axes
 
 
 def lm_from_numpy(tree, cfg: LMConfig, *, device=None) -> dict:
@@ -236,20 +265,32 @@ def _attention_fwd(p_attn, x, cfg: LMConfig, positions):
     return out @ p_attn["wo"].to(x.dtype), (k, v)
 
 
+def _moe_dispatching(p_moe, hn, cfg: LMConfig):
+    """The MoE's execution path: 'shmap' needs an active mesh whose
+    'model' axis divides n_experts (layers.moe_apply_shmap); otherwise
+    the global dispatch. (out, aux loss, assignments dropped)."""
+    if cfg.moe_dispatch == "shmap":
+        mesh = current_mesh()
+        ep = mesh.shape.get("model", 1) if mesh is not None else 1
+        if mesh is not None and cfg.n_experts % ep == 0:
+            return moe_apply_shmap_with_drops(p_moe, hn, cfg, mesh)
+    return moe_apply_with_drops(p_moe, hn, cfg)
+
+
 def _mlp(p, hn, cfg: LMConfig):
     """The layer's MoE or FFN on hn: (out, aux loss, assignments dropped
     over capacity)."""
     if cfg.moe:
-        return moe_apply_with_drops(p["moe"], hn, cfg)
+        return _moe_dispatching(p["moe"], hn, cfg)
     zero = torch.zeros((), device=hn.device)
     return ffn_apply(p["ffn"], hn), zero, zero.long()
 
 
 def _layer_fwd(p, x, cfg: LMConfig, positions):
     h, kv = _attention_fwd(p["attn"], rms_norm(x, p["ln1"]), cfg, positions)
-    x = x + h
+    x = logical_shard(x + h, "batch", "seq", "embed")
     h2, aux, dropped = _mlp(p, rms_norm(x, p["ln2"]), cfg)
-    return x + h2, aux, kv, dropped
+    return logical_shard(x + h2, "batch", "seq", "embed"), aux, kv, dropped
 
 
 def _record(stats, dropped):
@@ -307,10 +348,9 @@ def lm_forward(params: dict, tokens, cfg: LMConfig, *, stats=None):
     layers' load-balance losses summed, f32). A dict `stats` gets
     'moe_dropped', each layer's assignments dropped over capacity (0-d
     tensors; 0 for a dense layer)."""
-    _check_dispatch(cfg)
     tokens = _tokens(tokens, _param_device(params))
     S = tokens.shape[1]
-    x = _embed(params, tokens, cfg)
+    x = logical_shard(_embed(params, tokens, cfg), "batch", "seq", "embed")
     positions = torch.arange(S, device=x.device)[None, :]
 
     def body(x, p):
@@ -324,7 +364,8 @@ def lm_forward(params: dict, tokens, cfg: LMConfig, *, stats=None):
         drops.append(dropped)
     _record(stats, drops)
     x = rms_norm(x, params["final_ln"])
-    return _head(params, x, cfg), torch.stack(auxes).sum()
+    logits = logical_shard(_head(params, x, cfg), "batch", "seq", "vocab")
+    return logits, torch.stack(auxes).sum()
 
 
 def lm_loss(params: dict, batch: dict, cfg: LMConfig):
@@ -396,17 +437,16 @@ def lm_train_step(params: dict, opt_state, batch: dict, cfg: LMConfig, *,
 def lm_prefill(params: dict, tokens, cfg: LMConfig, *, stats=None):
     """The KV cache of a prompt: ({'k', 'v': (L, B, S, KV, Dh)},
     last-token logits (B, V) f32); `stats` as lm_forward's."""
-    _check_dispatch(cfg)
     tokens = _tokens(tokens, _param_device(params))
     S = tokens.shape[1]
-    x = _embed(params, tokens, cfg)
+    x = logical_shard(_embed(params, tokens, cfg), "batch", "seq", "embed")
     positions = torch.arange(S, device=x.device)[None, :]
     ks, vs, drops = [], [], []
     for i in range(cfg.n_layers):
         x, _, (k, v), dropped = _layer_fwd(_layer(params, i), x, cfg,
                                            positions)
-        ks.append(k)
-        vs.append(v)
+        ks.append(logical_shard(k, "kv_batch", "seq_shard", None, None))
+        vs.append(logical_shard(v, "kv_batch", "seq_shard", None, None))
         drops.append(dropped)
     _record(stats, drops)
     x_last = rms_norm(x[:, -1, :], params["final_ln"])
@@ -417,12 +457,19 @@ def lm_prefill(params: dict, tokens, cfg: LMConfig, *, stats=None):
 def make_decode_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None,
                       device=None) -> dict:
     """Zero caches {'k', 'v': (L, batch, max_seq, KV, Dh)} on `device`
-    (None = the card)."""
-    dev = resolve_device(device)
+    (None = the card; "meta" gives shapes only)."""
+    dev = _device_of(device)
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
     dtype = dtype or cfg.dtype
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def cache_logical_axes(cfg: LMConfig) -> dict:
+    return {
+        "k": ("layers", "kv_batch", "seq_shard", None, None),
+        "v": ("layers", "kv_batch", "seq_shard", None, None),
+    }
 
 
 @torch.no_grad()
@@ -432,7 +479,6 @@ def lm_decode_step(params: dict, cache: dict, token, pos: int,
     (positions <= pos are attended after the write). Writes the cache in
     place and returns (logits (B, V) f32, the cache); `stats` as
     lm_forward's."""
-    _check_dispatch(cfg)
     token = _tokens(token, _param_device(params))
     pos = int(pos)
     B = token.shape[0]

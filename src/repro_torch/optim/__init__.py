@@ -1,7 +1,8 @@
 """Optimisers of the port (counterpart of repro.optim): Adam, which the
 paper's recommender, the MLP shadow-price predictor, the recsys
 backbones and the LMs train with, the factored Adafactor-style Adam,
-the learning-rate schedules and global-norm clipping."""
+the learning-rate schedules, global-norm clipping and the int8
+compressed psum with error feedback."""
 
 from repro_torch.optim.adafactor import (
     FactoredState,
@@ -10,6 +11,12 @@ from repro_torch.optim.adafactor import (
 )
 from repro_torch.optim.adam import AdamState, adam_init, adam_update
 from repro_torch.optim.clip import clip_by_global_norm, global_norm
+from repro_torch.optim.compression import (
+    compress_int8,
+    compressed_psum,
+    decompress_int8,
+    psum_with_error_feedback,
+)
 from repro_torch.optim.schedules import (
     constant_schedule,
     cosine_schedule,
@@ -18,5 +25,7 @@ from repro_torch.optim.schedules import (
 
 __all__ = ["AdamState", "FactoredState", "adafactor_init",
            "adafactor_update", "adam_init", "adam_update",
-           "clip_by_global_norm", "constant_schedule", "cosine_schedule",
-           "global_norm", "linear_warmup_cosine"]
+           "clip_by_global_norm", "compress_int8", "compressed_psum",
+           "constant_schedule", "cosine_schedule", "decompress_int8",
+           "global_norm", "linear_warmup_cosine",
+           "psum_with_error_feedback"]

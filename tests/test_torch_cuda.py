@@ -1425,3 +1425,136 @@ def test_gnn_train_step_on_the_card_equals_the_cpu(card):
     got = flatten_with_paths(new)
     for k, w in want.items():
         assert float((got[k].cpu() - w).abs().max()) <= lr * 1e-4, k
+
+
+def test_retrieval_program_through_the_kernels_equals_plain(card,
+                                                            monkeypatch):
+    """retrieval_cand's program (build_recsys) at DeepFM's and MIND's
+    SMOKE widths over 16,384 candidates and the 65,536-row KNN database,
+    on a virtual (2, 4) mesh on the card: through the knn_lambda,
+    fused_rank and embedding_bag kernels (their launches counted), then
+    with ops' three wrappers swapped for their plain versions: perm
+    exactly, the adjusted scores and lambda-hat bitwise."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.recsys_family import build_recsys
+    from repro_torch.configs.registry import Cell
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.recsys import RECSYS_REGISTRY
+
+    mesh = make_smoke_mesh(device=card)
+    cell = Cell("retrieval_cand", "retrieval",
+                {"batch": 1, "n_candidates": 16384})
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+    for arch in ("deepfm", "mind"):
+        cfg = get_arch(arch).make_config(False)
+        prog = build_recsys(cfg, cell, mesh)
+        model = RECSYS_REGISTRY[cfg.kind](cfg, gen=gen, device=card)
+        (B, w), n = prog.args[1].shape, prog.args[2].shape[0]
+        hi = cfg.field_vocab if arch == "deepfm" else cfg.n_items
+        user = torch.randint(0, hi, (B, w), generator=gen, device=card)
+        if arch == "deepfm":
+            user = user + torch.arange(1, cfg.n_sparse, device=card) * hi
+        args = (model.params(), user.to(torch.int32),
+                torch.randint(0, hi, (n,), generator=gen,
+                              device=card).to(torch.int32),
+                (torch.rand(prog.args[3].shape, generator=gen,
+                            device=card) < 0.15).float(),
+                torch.randn(prog.args[4].shape, generator=gen, device=card),
+                torch.rand(prog.args[5].shape, generator=gen, device=card))
+        before = (knn_lambda_cuda.launches, fused_rank_cuda.launches,
+                  embedding_bag_cuda.launches)
+        got = prog.fn(*args)
+        torch.cuda.synchronize()
+        assert (knn_lambda_cuda.launches - before[0],
+                fused_rank_cuda.launches - before[1],
+                embedding_bag_cuda.launches - before[2]) == (
+            2, 1, 1 if arch == "deepfm" else 0)
+        with monkeypatch.context() as m:
+            m.setattr(ops, "knn_lambda_cuda", lambda xq, xdb, lam, *, k=10,
+                      device=None: ref.knn_lambda_ref(xq, xdb, lam, k))
+            m.setattr(ops, "fused_rank_cuda", lambda u, a, lam, *, m2,
+                      eps=1e-4, device=None: ref.fused_rank_ref(
+                          u, a, lam, m2, eps))
+            m.setattr(ops, "embedding_bag_cuda", lambda t, i, w=None, *,
+                      device=None: ref.embedding_bag_ref(t, i, w))
+            want = prog.fn(*args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), arch
+
+
+def test_moe_apply_shmap_on_the_card_matches_the_global_dispatch(card):
+    """llama4-scout's layout at SMOKE widths in bf16 (its FULL dtypes)
+    with 8 experts: moe_apply_shmap on a virtual (2, 4) mesh on the card
+    against the global moe_apply on tokens where neither drops an
+    assignment, within chip_smoke.py's LM_BF16_TOL (max abs 0.25,
+    relative L2 4e-2)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import layers
+
+    cfg = replace(get_arch("llama4-scout-17b-a16e").make_config(False),
+                  n_experts=8, dtype=torch.bfloat16,
+                  param_dtype=torch.bfloat16, moe_dispatch="shmap")
+    gen = torch.Generator(device=card)
+    gen.manual_seed(6)
+    params = layers.moe_init(gen, cfg, device=card)
+    x = torch.randn((2, 4, cfg.d_model), generator=gen,
+                    device=card).to(torch.bfloat16)
+    y, aux, drops = layers.moe_apply_shmap_with_drops(
+        params, x, cfg, make_smoke_mesh(device=card))
+    yg, auxg, dg = layers.moe_apply_with_drops(params, x, cfg)
+    assert int(drops) == int(dg) == 0
+    diff = (y.float() - yg.float())
+    assert float(diff.abs().max()) <= 0.25
+    assert float(diff.norm() / yg.float().norm()) <= 4e-2
+    torch.testing.assert_close(aux, auxg, rtol=1e-5, atol=0)
+
+
+def test_a_mesh_across_cards_equals_a_virtual_one_for_moe_and_psum(card):
+    """A (1, n) mesh over n cards gives moe_apply_shmap's outputs, aux
+    and drops bitwise a virtual (1, n) mesh's on one card; an (n, 1)
+    mesh gives compressed_psum and psum_with_error_feedback over 'data'
+    bitwise a virtual one's. Skips on one card."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_mesh, virtual_mesh
+    from repro_torch.models import layers
+    from repro_torch.optim import compression
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    axes = ("data", "model")
+    cfg = replace(get_arch("kimi-k2-1t-a32b").make_config(False),
+                  n_experts=4 * n, moe_dispatch="shmap")
+    gen = torch.Generator(device=card)
+    gen.manual_seed(7)
+    params = layers.moe_init(gen, cfg, device=card)
+    x = torch.randn((2, 16, cfg.d_model), generator=gen, device=card)
+    got = layers.moe_apply_shmap_with_drops(params, x, cfg,
+                                            make_mesh((1, n), axes))
+    want = layers.moe_apply_shmap_with_drops(
+        params, x, cfg, virtual_mesh((1, n), axes, card))
+    for g, w in zip(got, want):
+        assert g.device == card and torch.equal(g, w)
+    xs = [torch.randn((64, 33), generator=gen, device=card) * (i + 1)
+          for i in range(n)]
+    rs = [torch.randn((64, 33), generator=gen, device=card) * 1e-3
+          for _ in range(n)]
+    cards = make_mesh((n, 1), axes)
+    virt = virtual_mesh((n, 1), axes, card)
+    placed = [x.to(torch.device("cuda", i)) for i, x in enumerate(xs)]
+    placed_r = [r.to(torch.device("cuda", i)) for i, r in enumerate(rs)]
+    got = compression.compressed_psum(placed, "data", cards)
+    want = compression.compressed_psum(xs, "data", virt)
+    assert [g.device.index for g in got] == list(range(n))
+    assert all(torch.equal(g.to(card), w) for g, w in zip(got, want))
+    got = compression.psum_with_error_feedback(placed, placed_r, "data",
+                                               cards)
+    want = compression.psum_with_error_feedback(xs, rs, "data", virt)
+    for gs, ws in zip(got, want):
+        assert all(torch.equal(g.to(card), w) for g, w in zip(gs, ws))

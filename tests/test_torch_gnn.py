@@ -57,6 +57,7 @@ from repro_torch.configs.gnn_family import (
     D_EDGE,
     GNN_CELLS,
     GNN_SMOKE_CELLS,
+    build_gnn,
     cell_config,
 )
 from repro_torch.core.constraints import dcg_discount
@@ -157,7 +158,7 @@ def _cells(cells):
 def test_config_and_cells_match_jax():
     spec, jspec = get_arch("meshgraphnet"), jax_get_arch("meshgraphnet")
     assert spec.family == jspec.family == "gnn"
-    assert spec.build is None and spec.notes == jspec.notes
+    assert spec.build is build_gnn and spec.notes == jspec.notes
     assert _cells(spec.cells) == _cells(jspec.cells) == _cells(GNN_CELLS)
     assert _cells(GNN_CELLS) == _cells(JAX_CELLS)
     assert _cells(GNN_SMOKE_CELLS) == _cells(JAX_SMOKE_CELLS)

@@ -26,7 +26,7 @@ from repro.optim import adafactor as jada
 from repro.optim import schedules as jsched
 from repro_torch.checkpoint.store import flatten_with_paths
 from repro_torch.configs import get_arch
-from repro_torch.configs.lm_family import LM_CELLS, LM_SMOKE_CELLS
+from repro_torch.configs.lm_family import LM_CELLS, LM_SMOKE_CELLS, build_lm
 from repro_torch.data import lm_bigram_batch, make_lm_batch
 from repro_torch.models.transformer import LMConfig, lm_init
 from repro_torch.optim import adafactor as tada
@@ -64,7 +64,7 @@ def _cells(cells):
 def test_lm_configs_match_jax(arch):
     spec, jspec = get_arch(arch), jax_get_arch(arch)
     assert spec.family == jspec.family == "lm"
-    assert spec.build is None
+    assert spec.build is build_lm
     assert spec.notes == jspec.notes
     assert _cells(spec.cells) == _cells(jspec.cells)
     for full in (True, False):

@@ -126,6 +126,50 @@ def test_port_files_cover_the_gnn_and_training_slice():
     assert REPO / "examples" / "train_lm_torch.py" in PORT_FILES
 
 
+def test_port_files_cover_the_cell_programs_slice():
+    port = REPO / "src" / "repro_torch"
+    for rel in ("distributed/sharding.py", "optim/compression.py",
+                "optim/__init__.py", "configs/registry.py",
+                "configs/lm_family.py", "configs/recsys_family.py",
+                "configs/gnn_family.py", "launch/mesh.py",
+                "models/layers.py", "checkpoint/store.py"):
+        assert port / rel in PORT_FILES
+
+
+@pytest.mark.parametrize("package", ["distributed", "optim"])
+def test_package_exports_every_name_of_jax(package):
+    """repro_torch.distributed and repro_torch.optim export every public
+    name their JAX counterparts import (the mesh-context half of
+    sharding and the compressed psum included), each defined."""
+    import importlib
+    import inspect
+
+    jpkg = importlib.import_module(f"repro.{package}")
+    tpkg = importlib.import_module(f"repro_torch.{package}")
+    names = {n for n, v in vars(jpkg).items()
+             if not n.startswith("_") and not inspect.ismodule(v)}
+    assert names <= set(tpkg.__all__), sorted(names - set(tpkg.__all__))
+    assert all(hasattr(tpkg, name) for name in tpkg.__all__)
+
+
+def test_distributed_exports_every_name_of_jax_sharding():
+    """repro_torch.distributed exports every public name that
+    repro.distributed.sharding defines (its functions, tables and
+    classes), as the mesh-context half of sharding is now ported."""
+    import inspect
+
+    import repro.distributed.sharding as jsharding
+    import repro_torch.distributed as tdist
+
+    names = {n for n, v in vars(jsharding).items()
+             if not n.startswith("_") and not inspect.ismodule(v)
+             and getattr(v, "__module__", jsharding.__name__)
+             in (jsharding.__name__, None)}
+    names |= {n for n in ("LM_RULES", "RECSYS_RULES", "GNN_RULES",
+                          "PAPER_RULES", "RULES_BY_FAMILY")}
+    assert names <= set(tdist.__all__), sorted(names - set(tdist.__all__))
+
+
 def test_core_has_every_name_of_jax_core():
     """Every public name repro.core imports is in repro_torch.core's
     exports, and nothing more."""

@@ -37,7 +37,7 @@ from repro.optim.clip import clip_by_global_norm as jax_clip
 from repro.optim.clip import global_norm as jax_global_norm
 from repro_torch.checkpoint.store import flatten_with_paths
 from repro_torch.configs import all_archs, get_arch
-from repro_torch.configs.recsys_family import _covariate_dim
+from repro_torch.configs.recsys_family import _covariate_dim, build_recsys
 from repro_torch.data.batches import make_deepfm_batch, make_seqrec_batch
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rms_norm
@@ -100,7 +100,7 @@ def test_configs_match_jax():
     for arch in ARCHS:
         spec, jspec = get_arch(arch), jax_get_arch(arch)
         assert spec.family == jspec.family == "recsys"
-        assert spec.build is None
+        assert spec.build is build_recsys
         assert [(c.name, c.kind, dict(c.params)) for c in spec.cells] == \
             [(c.name, c.kind, dict(c.params)) for c in jspec.cells]
         assert sorted(spec.variants) == sorted(jspec.variants)

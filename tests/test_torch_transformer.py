@@ -277,11 +277,19 @@ def test_checkpoint_round_trips_across_packages(carried):
 
 
 def test_shmap_dispatch_is_refused():
+    """Without a mesh context the 'shmap' dispatch is not taken: the
+    layers run the global moe_apply, bitwise the 'onehot' dispatch's
+    (both round the capacity to 8), as JAX's _moe_dispatching falls
+    back; under a mesh whose 'model' axis divides n_experts it runs
+    moe_apply_shmap (tests/test_torch_moe_shmap.py)."""
     cfg = get_arch("kimi-k2-1t-a32b").make_config(full=False)
     cfg = tt.LMConfig(**{**cfg.__dict__, "moe_dispatch": "shmap"})
     params = tt.lm_init(None, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tt.lm_forward(params, torch.zeros((1, 4), dtype=torch.long), cfg)
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    got = tt.lm_forward(params, tokens, cfg)
+    want = tt.lm_forward(params, tokens, tt.LMConfig(**{
+        **cfg.__dict__, "moe_dispatch": "onehot"}))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_transformer_module_wraps_the_functions():
