@@ -300,6 +300,24 @@ Phases (any failure exits non-zero before a result is printed):
      rows bitwise the CPU's; phase T's llama3.2-1b checkpoint restored
      with param_shardings onto the mesh, every block bitwise the saved
      leaf's slice;
+  Y. the dry run's cost model against the card (launch/graph_cost.py,
+     after phase P): the programs the earlier phases ran, at the shapes
+     they ran (COST_PROGRAMS: phase M's three paper cells, dense; phase
+     P's four retrieval_cand programs; phase Z's llama3.2-1b prefill
+     2 x 4096 and a decode step at 16 x 32,768; phase G's ogb_products
+     /16 train step; phase D's DeepFM train step), each traced on a
+     one-device mesh over the fake card (the meta device): its strict
+     bound is its matmul flops at their dtype's peak against the bytes
+     it must move (every argument byte it reads, once; every output
+     byte, once) at 3.35 TB/s. Fails unless every program was kept and,
+     where the bound's bytes reach 1 GB (20 x the 50 MB L2), the
+     measured device time (CUDA events around the program on its
+     stream: phases M's and P's own timings, a pair around phase Z's
+     and G's profiled calls, 5 more of phase D's steps) is at least
+     0.95 x the bound. Logs each program's bound, what bounds it, its
+     share of the measured time, the JAX-convention roofline terms and
+     the device time by the dry run's op categories (torch.profiler:
+     one more run in phases M and P). Launches nothing;
   4. time the nine kernels (CUDA events, medians) at the bucket shape and
      at a large batch (the quantized ones in both modes; fused_rank at
      64 x m1=100,000; rank_audited and knn_rank_audited also at
@@ -318,7 +336,8 @@ and A, phase F, each
 run of phase D, each distributed call of phase M (its checked program
 runs, the sharded knn_topk and the dist engine's stream), the kernel
 library path, phase G's ranking head and each retrieval_cand program
-of phase P, and read just after each.
+of phase P, and read just after each (the profiled runs phase Y takes
+in phases M and P come after those readings, and count nowhere).
 Prints the kernel table as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 """
@@ -341,9 +360,27 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
-DOT_OP_PER_S = {"int8": 1979e12, "bf16": 989e12}  # dense tensor-core peaks
+
+def _load_roofline():
+    """src/repro_torch/launch/roofline.py of this checkout, by its path:
+    the card's peaks and the kernels' work formulas (it imports nothing
+    of the package, so bench_rank.py can time another tree's kernels
+    against this one's bounds)."""
+    import importlib.util
+    path = (Path(__file__).resolve().parent / "src" / "repro_torch"
+            / "launch" / "roofline.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_roofline",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+roofline = _load_roofline()
+HBM_BYTES_PER_S = roofline.HBM_BW
+bound = roofline.bound
+fused_work, rank_work = roofline.fused_work, roofline.rank_work
 D, K_PRED, KNN_K, EPS = 20, 5, 10, 1e-4
 N_DB = 1_048_576
 BUCKET = dict(B=32, m1=1024, K=8, m2=64)
@@ -607,28 +644,6 @@ def device_split(fns, reps=5):
     return out
 
 
-def rank_work(B, m1, K, m2):
-    """(bytes, fp32 flops) of rank+audit: inputs read once, outputs
-    written once; the score axpy and the audit sums."""
-    read = 4 * (B * m1 + B * K * m1 + 2 * B * K + B * m2)
-    write = 4 * (2 * B * m2 + B + B * K + B)
-    return read + write, 2 * B * K * m1 + 2 * B * (K + 1) * m2
-
-
-def fused_work(B, m1, K, m2):
-    """(bytes, fp32 flops) of the top-m2 alone: u, a and lambda read
-    once, vals and idx written once; the score axpy."""
-    return 4 * (B * m1 + B * K * m1 + B * K) + 8 * B * m2, 2 * B * K * m1
-
-
-def topk_work(B, n_db, d, k=KNN_K):
-    """(bytes, fp32 flops) of the KNN top-k: the db and the queries read
-    once, (d2, idx) written; distances B * n_db * (2d+3) plus |x|^2 per
-    db row."""
-    return (4 * (n_db * d + B * d) + 8 * B * k,
-            B * n_db * (2 * d + 3) + 2 * n_db * d)
-
-
 def bag_work(table, idx, weighted=True):
     """(bytes, fp32 flops) of the bag on this run's indices: each distinct
     row a valid slot names read once, the indices and weights (where
@@ -698,60 +713,6 @@ def bag_table(big, dtype, view=None):
     return big[:V]
 
 
-def linear_work(B, m1, K, m2):
-    """rank+audit, with X, W and c read in place of lambda, lambda-hat
-    written, and the prologue's 2 B K d flops."""
-    rb, rf = rank_work(B, m1, K, m2)
-    return rb + 4 * (B * D + K * D + K), rf + 2 * B * K * D
-
-
-def sweep_work(B, n_db):
-    """(bytes, fp32 flops) of the KNN predictor: the db and queries read
-    once, the k winners' lambda rows, lambda-hat written; distances
-    B * n_db * (2d+3) plus |x|^2 per db row."""
-    nbytes = 4 * (n_db * D + B * D + B * KNN_K * K_PRED + B * K_PRED)
-    return nbytes, B * n_db * (2 * D + 3) + 2 * n_db * D
-
-
-def knn_work(B, n_db, m1, K, m2):
-    """The KNN stage: the sweep, then rank+audit (lambda-hat written at
-    the bucket's K)."""
-    rb, rf = rank_work(B, m1, K, m2)
-    sb, sf = sweep_work(B, n_db)
-    return rb + sb + 4 * B * (K - K_PRED), rf + sf
-
-
-def bound(nbytes, flops, dot_ops=0, mode="int8"):
-    """The least time in ms for the work and what bounds it: bytes at the
-    memory rate against operations, fp32 flops at the fp32 rate plus
-    `dot_ops` of a quantized dot at the tensor-core peak of `mode`."""
-    t_b = nbytes / HBM_BYTES_PER_S
-    t_f = flops / FP32_FLOP_PER_S + dot_ops / DOT_OP_PER_S[mode]
-    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
-
-
-def quant_sweep_work(B, n_db, mode):
-    """(bytes, fp32 flops, dot ops) of the quantized KNN predictor: the
-    pack (1 or 2 bytes a coordinate, 4 for each row's y2, 4 for each
-    slab's scale) and the queries read once, the k winners' lambda rows
-    read, lambda-hat and the guard written; the dot's 2d operations a
-    (query, row) pair, and its fp32 epilogue, 5 operations a pair in
-    int8 (scale product, scaling, subtract, add, clamp) and 4 in bf16."""
-    n_pad = -(-n_db // 512) * 512
-    width = 1 if mode == "int8" else 2
-    nbytes = (n_pad * D * width + 4 * n_pad + 4 * (n_pad // 512)
-              + 4 * (B * D + B * KNN_K * K_PRED + B * K_PRED + B))
-    return (nbytes, B * n_pad * (5 if mode == "int8" else 4),
-            2 * B * n_pad * D)
-
-
-def quant_knn_work(B, n_db, m1, K, m2, mode):
-    """The quantized KNN stage: the quantized sweep, then rank+audit."""
-    rb, rf = rank_work(B, m1, K, m2)
-    sb, sf, dot = quant_sweep_work(B, n_db, mode)
-    return rb + sb + 4 * B * (K - K_PRED), rf + sf, dot
-
-
 RANK_CASES = (
     ("fused_rank", "bucket", BUCKET), ("fused_rank", "retrieval", RETRIEVAL),
     ("rank_audited", "bucket", BUCKET),
@@ -804,7 +765,7 @@ def rank_timings(k, gen, dev, cases=RANK_CASES):
             lib = lambda: torch.topk(torch.baddbmm(  # noqa: E731
                 u[:, None], torch.addmm(c, X, W.T)[:, None], a,
                 alpha=c_eps)[:, 0], m2)
-            work = linear_work(B, m1, K, m2)
+            work = roofline.linear_work(B, m1, K, m2, D)
         else:
             X_db, lam_db = knn_db(gen, dev, sh["n_db"])
             xq = torch.randn((B, D), generator=gen, device=dev)
@@ -816,7 +777,8 @@ def rank_timings(k, gen, dev, cases=RANK_CASES):
             lib = lambda: (torch.topk(torch.addmm(  # noqa: E731
                 y2, xq, X_db.T, alpha=-2.0), KNN_K, largest=False),
                 lib_rank())
-            work = knn_work(B, sh["n_db"], m1, K, m2)
+            work = roofline.knn_work(B, sh["n_db"], m1, K, m2, D, KNN_K,
+                                     K_PRED)
             row.update(n_db=sh["n_db"], d=D, k=KNN_K)
         got, want = fn(), plain()
         torch.cuda.synchronize()
@@ -875,15 +837,18 @@ def knn_timings(k, gen, dev, X_db, lam_db, packs, plain=True):
                                             k=KNN_K, m2=m2, eps=EPS),
             lambda: k.ref.knn_rank_audited_ref(xq, X_db, lam_db, u, a, b, g,
                                                k=KNN_K, m2=m2, eps=EPS),
-            bound(*knn_work(Bt, n_db, m1, K, m2)), library_ms, reps, True)
+            bound(*roofline.knn_work(Bt, n_db, m1, K, m2, D, KNN_K, K_PRED)),
+            library_ms, reps, True)
         row(("knn_lambda", label), Bt,
             lambda: k.knn_lambda_cuda(xq, X_db, lam_db, k=KNN_K),
             lambda: k.ref.knn_lambda_ref(xq, X_db, lam_db, KNN_K),
-            bound(*sweep_work(Bt, n_db)), library_ms, reps, True)
+            bound(*roofline.sweep_work(Bt, n_db, D, KNN_K, K_PRED)),
+            library_ms, reps, True)
         row(("knn_topk", label), Bt,
             lambda: k.knn_topk_cuda(xq, X_db, k=KNN_K),
             lambda: k.ref.knn_topk_ref(xq, X_db, KNN_K),
-            bound(*topk_work(Bt, n_db, D)), library_ms, reps, True)
+            bound(*roofline.topk_work(Bt, n_db, D, KNN_K)), library_ms, reps,
+            True)
     for mode, pack in packs.items():
         n_pad = pack[0].shape[0]
         if mode == "int8":
@@ -924,14 +889,16 @@ def knn_timings(k, gen, dev, X_db, lam_db, packs, plain=True):
                 lambda: k.ref.knn_rank_audited_quant_ref(
                     xq, *pack, lam_db, u, a, b, g, k=KNN_K, mode=mode,
                     m2=m2, eps=EPS),
-                bound(*quant_knn_work(Bt, n_db, m1, K, m2, mode), mode=mode),
+                bound(*roofline.quant_knn_work(Bt, n_db, m1, K, m2, mode, D,
+                                               KNN_K, K_PRED), mode=mode),
                 library_ms, reps, False)
             row(("knn_lambda_quant", label, mode), Bt,
                 lambda: k.knn_lambda_quant_cuda(xq, *pack, lam_db, k=KNN_K,
                                                 mode=mode),
                 lambda: k.ref.knn_lambda_quant_ref(xq, *pack, lam_db, KNN_K,
                                                    mode=mode),
-                bound(*quant_sweep_work(Bt, n_db, mode), mode=mode),
+                bound(*roofline.quant_sweep_work(Bt, n_db, mode, D, KNN_K,
+                                                 K_PRED), mode=mode),
                 library_ms, reps, True)
         if mode == "int8":
             del db8
@@ -2603,6 +2570,20 @@ def serve_deployments(seed, dev, wrappers, route_wrapper, smi):
             row["train_device_ms_per_step"] = (
                 sum(split.values()) / len(batches)
                 if isinstance(split, dict) else split)
+            if cfg.kind == "deepfm":
+                from repro_torch.launch.graph_analysis import device_category
+                cats = {}
+                for kname, kms in (split.items()
+                                   if isinstance(split, dict) else ()):
+                    c = device_category(kname)
+                    cats[c] = cats.get(c, 0.0) + kms / len(batches)
+                cost_run(
+                    "deepfm train step",
+                    lambda params, opt, batch, cls=type(model), cfg=cfg:
+                    cls.bound(cfg, params).functional_step(
+                        params, opt, batch, lr=launch.TRAIN_LR),
+                    (model.params(), opt, batches[0]),
+                    time_ms(steps, 1, groups=1) / len(batches), cats)
             del opt, batches
             if cfg.kind == "deepfm":
                 ctx_ids = chunk[:, 1:].contiguous()
@@ -2796,6 +2777,10 @@ def serve_mesh(seed, dev, X_db, lam_db, predictors, wrappers, smi):
         for dist_, prog in progs.items():
             row["dist_ms" if dist_ else "dense_ms"] = time_ms(
                 lambda: prog.fn(*args[dist_]), 1, groups=TIMED_RUNS)
+        # the dense program for phase Y: its time, and one profiled run
+        cost_run(f"paper-ranking {cell.name} dense", progs[False].fn,
+                 args[False], row["dense_ms"],
+                 categories_of(lambda: progs[False].fn(*args[False])))
         report["cells"][cell.name] = row
         log(f"phase M {cell.name}: {json.dumps(row)} ({smi})")
         if cell.name == "serve_online":
@@ -3013,10 +2998,44 @@ LM_BF16_TOL = dict(max_abs=0.25, rel_l2=4e-2)
 ATTN_TOL = dict(rtol=2e-4, atol=1e-5)
 
 
+def by_category(prof):
+    """A profile's device ms by the dry run's op categories."""
+    from repro_torch.launch.graph_analysis import device_time_by_category
+    return device_time_by_category(prof)
+
+
+def categories_of(fn):
+    """fn()'s device ms by category, from one torch.profiler pass. The
+    profiler may drop kernel records (on the card it once reported 2 of
+    3 launches of one kernel), so phase Y checks CUDA-event times."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return by_category(prof)
+
+
+def cost_run(name, fn, args, device_ms, categories):
+    """Keep a program an earlier phase ran for phase Y: `fn` and the
+    shapes and dtypes of the arguments it ran on (no tensor is kept),
+    with its device ms (CUDA events) and that ms by category (the
+    profiler's)."""
+    from repro_torch.configs.registry import ArgSpec
+    from repro_torch.distributed.sharding import tree_map
+    specs = tuple(tree_map(
+        lambda x: ArgSpec(tuple(x.shape), x.dtype)
+        if isinstance(x, torch.Tensor) else x, a) for a in args)
+    COST_RUNS.append({"name": name, "fn": fn, "args": specs,
+                      "ms": device_ms, "by_category": categories})
+
+
 def lm_part(fn):
     """fn() once: (its output, {wall_ms (synchronised host clock),
     device_ms (torch.profiler: the sum of its kernels' device times),
-    peak_gib (the card's allocated peak)})."""
+    by_category (that device time by the dry run's op categories,
+    graph_analysis.device_time_by_category), peak_gib (the card's
+    allocated peak)})."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3027,6 +3046,7 @@ def lm_part(fn):
     wall = (time.perf_counter() - t0) * 1e3
     device = sum(ev.device_time_total for ev in prof.key_averages()) / 1e3
     return out, {"wall_ms": wall, "device_ms": device or "not measured",
+                 "by_category": by_category(prof),
                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
@@ -3077,6 +3097,15 @@ def serve_lm_zoo(seed, dev, smi):
     (cache, last), rep["prefill"] = lm_part(
         lambda: tt.lm_prefill(params, tok, cfg))
     del cache
+
+    # for phase Y: back-to-back calls between CUDA events, no profiler
+    def prefill(params, tok, cfg=cfg):
+        return tt.lm_prefill(params, tok, cfg)
+
+    rep["prefill"]["event_ms"] = time_ms(lambda: prefill(params, tok), 2,
+                                         groups=2)
+    cost_run(f"llama3.2-1b prefill {B} x {S}", prefill, (params, tok),
+             rep["prefill"]["event_ms"], rep["prefill"]["by_category"])
     # prefill's chunked attention against a forward with dense attention
     dense = dataclasses.replace(cfg, dense_attn_threshold=S)
     with torch.no_grad():
@@ -3121,6 +3150,17 @@ def serve_lm_zoo(seed, dev, smi):
 
     steps, rep["decode"] = lm_part(decode)
     rep["decode"]["ms_a_step"] = rep["decode"]["wall_ms"] / n_dec
+
+    # for phase Y: the first step again (it rewrites the cache at P with
+    # the same values), back-to-back between CUDA events, no profiler
+    def step(params, cache, token, pos=P, cfg=cfg):
+        return tt.lm_decode_step(params, cache, token, pos, cfg)
+
+    rep["decode"]["event_ms_a_step"] = time_ms(
+        lambda: step(params, full, tok[:, P]), 5, groups=3)
+    cost_run(f"llama3.2-1b decode step {B} x {max_seq}", step,
+             (params, full, tok[:, P]), rep["decode"]["event_ms_a_step"],
+             {k: v / n_dec for k, v in rep["decode"]["by_category"].items()})
     del full
     with torch.no_grad():
         fwd = tt.lm_forward(params, tok, cfg)[0][:, P - 1:]
@@ -3298,7 +3338,8 @@ def gnn_cell_graph(cell, gen, dev):
 def train_gnn_cells(seed, dev, wrappers, smi):
     """Phase G: 3 gnn_train_steps of MeshGraphNet FULL on each cell
     (GNN): each step's wall and device ms (torch.profiler) and peak
-    memory, then a fourth step's wall without the profiler, every loss
+    memory, then a fourth step's wall and CUDA-event ms without the
+    profiler, every loss
     finite; aggregate on the cell's encoded edges
     bitwise equal across two calls on the card (at full_graph_sm also
     its distance from the CPU's); at full_graph_sm the loss and every
@@ -3333,13 +3374,28 @@ def train_gnn_cells(seed, dev, wrappers, smi):
             rep["steps"].append(dict(t, loss=float(m["loss"]),
                                      grad_norm=float(m["grad_norm"])))
         # one more step without the profiler, whose per-op cost would
-        # inflate a host-bound step's wall time
+        # inflate a host-bound step's wall time and its device time
+        # between CUDA events (phase Y's)
         torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
+        start.record()
         params, opt, m = gnn.gnn_train_step(params, opt, graph, cfg)
+        end.record()
         loss = float(m["loss"])
+        end.synchronize()
         rep["unprofiled_step"] = {
-            "wall_ms": (time.perf_counter() - t0) * 1e3, "loss": loss}
+            "wall_ms": (time.perf_counter() - t0) * 1e3,
+            "event_ms": start.elapsed_time(end), "loss": loss}
+        if cell.name == "ogb_products":
+            cost_run(f"meshgraphnet ogb_products/{GNN['products_cut']} "
+                     f"train step",
+                     lambda p, o, g, cfg=cfg: gnn.gnn_train_step(p, o, g,
+                                                                 cfg),
+                     (params, opt, graph),
+                     rep["unprofiled_step"]["event_ms"],
+                     rep["steps"][-1]["by_category"])
         losses = [r["loss"] for r in rep["steps"]] + [loss]
         if not all(math.isfinite(x) for x in losses):
             fail(f"phase G {cell.name}: losses {losses} are not finite")
@@ -3667,6 +3723,8 @@ def serve_cell_programs(seed, dev, wrappers, ckpt_root, smi):
                              PROGRAMS["reps"]))
         report["retrieval_cand"][arch] = rep
         log(f"phase P retrieval_cand {arch} {json.dumps(rep)} ({smi})")
+        cost_run(f"{arch} retrieval_cand", prog.fn, args, rep["ms"],
+                 categories_of(lambda: prog.fn(*args)))     # for phase Y
         # serve_p99 on the same parameters
         prog = spec.build(cfg, spec.cell("serve_p99"), mesh)
         B = prog.args[1].shape[0]
@@ -3863,6 +3921,86 @@ def serve_cell_programs(seed, dev, wrappers, ckpt_root, smi):
     log(f"phase P restore {json.dumps(report['restore'])} ({smi})")
     report["seconds"] = time.perf_counter() - t_phase
     return launches, report
+
+
+# phase Y: the dry run's cost model against the card. Each program an
+# earlier phase ran (cost_run) is traced on a one-device mesh
+# (launch/graph_cost.py); its strict bound is its matmul flops at their
+# dtype's peak against the bytes it must move (every argument byte it
+# reads, once, and every output byte, once) at the memory rate. Where
+# those bytes come to at least COST_CHECK_BYTES (20 x the card's 50 MB
+# L2, so no cache can serve them) the device time the earlier phase
+# measured with CUDA events must reach COST_SHARE_MIN x the bound: a
+# cost model that promises less time than the card can take is wrong.
+COST_RUNS: list = []
+COST_PROGRAMS = (
+    "paper-ranking offline_dual dense", "paper-ranking serve_online dense",
+    "paper-ranking serve_retrieval dense", "deepfm retrieval_cand",
+    "sasrec retrieval_cand", "bert4rec retrieval_cand",
+    "mind retrieval_cand", "llama3.2-1b prefill 2 x 4096",
+    "llama3.2-1b decode step 16 x 32768",
+    "meshgraphnet ogb_products/16 train step", "deepfm train step")
+COST_CHECK_BYTES = 1e9
+COST_SHARE_MIN = 0.95
+
+
+def hold_cost_model(smi):
+    """Phase Y: every program of COST_RUNS traced on a one-device mesh
+    over the fake card, its strict bound against its measured device
+    time (checked where the bound's bytes reach COST_CHECK_BYTES), the
+    bound's share of the time and the term that bounds it, the
+    JAX-convention roofline terms and the measured time by category.
+    Launches nothing. Returns its report."""
+    from repro_torch.configs.registry import Program
+    from repro_torch.launch.graph_cost import (
+        FAKE_CARD,
+        fake_card,
+        graph_cost,
+        trace_program,
+    )
+    from repro_torch.launch.mesh import virtual_mesh
+
+    t_phase = time.perf_counter()
+    got = [r["name"] for r in COST_RUNS]
+    if sorted(got) != sorted(COST_PROGRAMS):
+        fail(f"phase Y: the earlier phases kept {got}, not "
+             f"{list(COST_PROGRAMS)}")
+    with fake_card():
+        mesh = virtual_mesh((1, 1), ("data", "model"), FAKE_CARD)
+    report = {"programs": {}}
+    for run in COST_RUNS:
+        t0 = time.perf_counter()
+        walk = trace_program(Program(fn=run["fn"], args=run["args"]), mesh)
+        gc_ = graph_cost(walk)
+        compute_s = roofline.compute_seconds(gc_["matmul_flops_by_dtype"])
+        nbytes = walk.min_bytes()
+        bytes_s = nbytes / roofline.HBM_BW
+        bound_ms = max(compute_s, bytes_s) * 1e3
+        checked = nbytes >= COST_CHECK_BYTES
+        terms = roofline.terms_from_artifact({
+            "mesh_devices": 1, "mesh_shape": [1, 1], "graph_cost": gc_,
+            "collective_bytes": {"total": 0.0, "seconds": 0.0}}).as_dict()
+        row = {"device_ms": run["ms"], "bound_ms": bound_ms,
+               "bound_by": "bytes" if bytes_s >= compute_s else "operations",
+               "share_of_bound": bound_ms / run["ms"],
+               "bound_bytes": nbytes,
+               "matmul_flops_by_dtype": gc_["matmul_flops_by_dtype"],
+               "checked": checked, "roofline": terms,
+               "device_ms_by_category": run["by_category"],
+               "profiler_ms": sum(run["by_category"].values()),
+               "ops": gc_["n_ops"], "kernel_ops": gc_["n_kernel_ops"],
+               "trace_s": time.perf_counter() - t0}
+        report["programs"][run["name"]] = row
+        log(f"phase Y {run['name']}: {json.dumps(row)} ({smi})")
+        if checked and run["ms"] < COST_SHARE_MIN * bound_ms:
+            fail(f"phase Y {run['name']}: {run['ms']:.4f} ms measured, "
+                 f"under {COST_SHARE_MIN} x the strict bound "
+                 f"{bound_ms:.4f} ms")
+    if not any(r["checked"] for r in report["programs"].values()):
+        fail("phase Y: no program's bound reached COST_CHECK_BYTES")
+    COST_RUNS.clear()
+    report["seconds"] = time.perf_counter() - t_phase
+    return report
 
 
 def table23(rows):
@@ -4843,6 +4981,13 @@ def main() -> int:
         shutil.rmtree(PHASE_T_CKPT, ignore_errors=True)
     log(f"phase P: {prog_report['seconds']:.1f} s, launches {prog_launches} "
         f"({smi})")
+
+    # -- phase Y: the dry run's cost model against the card -----------------
+    cost_report = hold_cost_model(smi)
+    log(f"phase Y: {cost_report['seconds']:.1f} s, "
+        f"{len(cost_report['programs'])} programs, "
+        f"{sum(r['checked'] for r in cost_report['programs'].values())} "
+        f"checked ({smi})")
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"rank_audited": (csrc + "rank_audited.cu",

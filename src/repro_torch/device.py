@@ -7,7 +7,18 @@ when a caller asks for it with `device="cpu"`, as the tests do.
 
 from __future__ import annotations
 
+import threading
+
 import torch
+
+# Cost traces running on this thread (launch/graph_cost.py), in
+# FAKE_CARD_TRACES.n: while one runs, `resolve_device` on its thread
+# takes the fake card, the meta device its shape-only tensors lie on, as
+# the card. Never a fallback: a traced program runs the card's route and
+# no op on the CPU; outside a trace, and on every other thread during
+# one (an engine's pipeline worker, say), the meta device is refused and
+# a missing card raises as always.
+FAKE_CARD_TRACES = threading.local()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -21,6 +32,7 @@ def resolve_device(device=None) -> torch.device:
                 "plain PyTorch path on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type != "cpu" and not (
+            dev.type == "meta" and getattr(FAKE_CARD_TRACES, "n", 0)):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -1,0 +1,265 @@
+"""The port's dry run (launch/dryrun.py, graph_analysis.py, roofline.py)
+held against JAX's: the argument bytes of every committed JAX dry-run
+record (experiments/dryrun/{single,multi}, 86 of them), model_flops on
+every LM arch x cell, the roofline terms of a JAX record, the matmul
+flops of three SMOKE programs against repro.launch.hlo_cost on a
+one-device CPU compile of JAX's program (built in a subprocess, as
+tests/test_torch_distributed.py builds its side), run_cell on one cell
+of each family, and the kernels' bounds at PERF.md's table shapes.
+
+Tolerances: argument bytes, flops and the kernels' (bytes, flops)
+exactly; the roofline terms of a JAX record rtol 1e-12 (a ratio of two
+peaks).
+
+The argument bytes: JAX's argument_size_in_bytes counts, per device, the
+blocks of the arguments jit keeps (keep_unused=False drops the leaves
+the program never reads). The port's are the FULL build's ArgSpec
+blocks over the leaves its program reads. Tracing every FULL cell takes
+minutes (the LM cells loop over attention chunks), so the read leaves
+come from the SMOKE program's walk where its leaves are the FULL
+build's (the same paths); where they differ (DeepFM's deep tower has
+more layers at FULL) the FULL program is traced, which takes well under
+a second for those cells.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+from repro_torch.checkpoint.store import flatten_with_paths
+from repro_torch.configs import get_arch
+from repro_torch.launch import roofline
+from repro_torch.launch.dryrun import (
+    _smoke_cell,
+    production_mesh,
+    run_cell,
+    smoke_mesh,
+)
+from repro_torch.launch.graph_analysis import block_bytes
+from repro_torch.launch.graph_cost import (
+    FAKE_CARD,
+    fake_card,
+    graph_cost,
+    trace_program,
+)
+from repro_torch.launch.mesh import make_smoke_mesh, virtual_mesh
+
+REPO = Path(__file__).resolve().parent.parent
+RECORDS = sorted((REPO / "experiments" / "dryrun").glob("*/*.json"))
+LM_ARCHS = ("kimi-k2-1t-a32b", "llama3.2-1b", "llama4-scout-17b-a16e",
+            "mistral-nemo-12b", "phi3-medium-14b")
+LM_CELLS = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+FLOP_CELLS = ("llama3.2-1b:train_4k", "sasrec:serve_p99",
+              "meshgraphnet:full_graph_sm")
+
+
+def test_every_committed_jax_record_is_here():
+    assert len(RECORDS) == 86
+    assert {p.parent.name for p in RECORDS} == {"single", "multi"}
+
+
+@pytest.fixture(scope="module")
+def meshes():
+    return {"single": production_mesh(), "multi":
+            production_mesh(multi_pod=True), "smoke": smoke_mesh()}
+
+
+_READ: dict = {}
+
+
+def _read_leaves(arch, cell, full_prog, mesh, smoke):
+    """The leaves (arg index, path) the cell's program reads."""
+    key = (arch, cell)
+    if key not in _READ:
+        spec = get_arch(arch)
+        prog = spec.build(spec.make_config(False), _smoke_cell(spec, cell),
+                          smoke)
+        paths = {(i, p) for i, a in enumerate(prog.args)
+                 for p in flatten_with_paths(a)}
+        full = {(i, p) for i, a in enumerate(full_prog.args)
+                for p in flatten_with_paths(a)}
+        _READ[key] = (trace_program(prog, smoke) if paths == full
+                      else trace_program(full_prog, mesh)).read_leaves()
+    return _READ[key]
+
+
+@pytest.mark.parametrize("path", RECORDS,
+                         ids=[f"{p.parent.name}-{p.stem}" for p in RECORDS])
+def test_argument_bytes_over_read_leaves_equal_jax(meshes, path):
+    rec = json.loads(path.read_text())
+    spec = get_arch(rec["arch"])
+    mesh = meshes[path.parent.name]
+    assert list(mesh.devices.shape) == rec["mesh_shape"]
+    prog = spec.build(spec.make_config(True), spec.cell(rec["cell"]), mesh)
+    read = _read_leaves(rec["arch"], rec["cell"], prog, mesh,
+                        meshes["smoke"])
+    got = sum(block_bytes(a) for i, arg in enumerate(prog.args)
+              for p, a in flatten_with_paths(arg).items() if (i, p) in read)
+    assert got == rec["memory_analysis"]["argument_size_in_bytes"]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("cell", LM_CELLS)
+def test_model_flops_equal_jax(arch, cell):
+    from repro.configs import get_arch as jax_arch
+    from repro.launch.roofline import model_flops as jax_model_flops
+    jspec, spec = jax_arch(arch), get_arch(arch)
+    want = jax_model_flops(arch, jspec.make_config(True), jspec.cell(cell))
+    got = roofline.model_flops(arch, spec.make_config(True), spec.cell(cell))
+    assert got == want and got is not None
+
+
+@pytest.mark.parametrize("mesh_tag", ["single", "multi"])
+def test_terms_of_a_jax_record_rescale_by_the_peaks(mesh_tag):
+    from repro.launch import roofline as jax_roofline
+    for path in RECORDS:
+        if path.parent.name != mesh_tag:
+            continue
+        rec = json.loads(path.read_text())
+        want = jax_roofline.terms_from_artifact(rec)
+        got = roofline.terms_from_artifact(rec)
+        assert math.isclose(got.compute_s, want.compute_s
+                            * jax_roofline.PEAK_FLOPS
+                            / roofline.PEAK_FLOPS["bf16"], rel_tol=1e-12)
+        assert math.isclose(got.memory_s, want.memory_s
+                            * jax_roofline.HBM_BW / roofline.HBM_BW,
+                            rel_tol=1e-12)
+        # every axis of a 256-chip mesh crosses nodes: the NIC's 50 GB/s,
+        # the rate JAX's terms take for a link
+        assert math.isclose(got.collective_s, want.collective_s
+                            * jax_roofline.LINK_BW / roofline.NIC_BW,
+                            rel_tol=1e-12, abs_tol=1e-300)
+        assert (got.flops, got.bytes_accessed, got.chips) == (
+            want.flops, want.bytes_accessed, want.chips)
+
+
+def test_link_rates_follow_the_node_rule():
+    assert roofline.link_rate({"data": 2, "model": 4}, "model") == \
+        roofline.NVLINK_BW
+    assert roofline.link_rate({"data": 2, "model": 4}, ("data", "model")) \
+        == roofline.NVLINK_BW
+    assert roofline.link_rate({"data": 4, "model": 4}, "data") == \
+        roofline.NIC_BW
+    assert roofline.link_rate({"data": 16, "model": 16}, "model") == \
+        roofline.NIC_BW
+
+
+@pytest.mark.parametrize("arch,cell", [
+    ("llama3.2-1b", "decode_32k"), ("sasrec", "retrieval_cand"),
+    ("meshgraphnet", "molecule"), ("paper-ranking", "serve_online")])
+def test_run_cell_on_a_smoke_mesh(arch, cell):
+    mesh = make_smoke_mesh(device="cpu")
+    rec = run_cell(arch, cell, mesh, "smoke_single", smoke=True)
+    assert rec["status"] == "ok" and rec["fits"] and rec["fits_arguments"]
+    # a global program's temp is an estimate, and so is its fit
+    assert rec["estimated"] == ["per_device_bytes", "fits"]
+    assert rec["trace_s"] >= 0 and rec["mesh_devices"] == 8
+    gc, ma = rec["graph_cost"], rec["memory_analysis"]
+    assert not gc["partitioned"] and gc["devices"] == 8
+    assert ma["argument_size_in_bytes"] > 0
+    assert rec["per_device_bytes"] == (
+        ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
+        + ma["output_size_in_bytes"] - ma["alias_size_in_bytes"])
+    assert rec["roofline"]["chips"] == 8
+    json.dumps(rec)
+    if cell in ("retrieval_cand", "serve_online"):
+        assert gc["n_kernel_ops"] >= 2
+
+
+# -- matmul flops against JAX's hlo_cost ------------------------------------
+
+_JAX_FLOPS = textwrap.dedent("""
+    import json, sys
+    import jax
+    import numpy as np
+    from repro.configs import get_arch
+    from repro.configs.gnn_family import GNN_SMOKE_CELLS
+    from repro.configs.lm_family import LM_SMOKE_CELLS
+    from repro.configs.recsys_family import RECSYS_SMOKE_CELLS
+    from repro.distributed.sharding import use_mesh_rules
+    from repro.launch.hlo_cost import hlo_cost
+
+    cells = {"lm": LM_SMOKE_CELLS, "gnn": GNN_SMOKE_CELLS,
+             "recsys": RECSYS_SMOKE_CELLS}
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                             ("data", "model"))
+    out = {}
+    for case in sys.argv[1:]:
+        arch, name = case.split(":")
+        spec = get_arch(arch)
+        cell = next(c for c in cells[spec.family] if c.name == name)
+        low = spec.build(spec.make_config(False), cell, mesh)
+        with use_mesh_rules(mesh, low.rules):
+            compiled = jax.jit(low.fn).lower(*low.args).compile()
+        out[case] = hlo_cost(compiled.as_text())["flops"]
+    print(json.dumps(out))
+""")
+
+
+@pytest.fixture(scope="module")
+def jax_flops():
+    env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", _JAX_FLOPS, *FLOP_CELLS],
+                       capture_output=True, text=True, env=env, cwd=REPO,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout + "\n" + r.stderr
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("case", FLOP_CELLS)
+def test_matmul_flops_equal_jax_hlo_cost(jax_flops, case):
+    arch, name = case.split(":")
+    spec = get_arch(arch)
+    with fake_card():
+        mesh = virtual_mesh((1, 1), ("data", "model"), FAKE_CARD)
+    prog = spec.build(spec.make_config(False), _smoke_cell(spec, name), mesh)
+    gc = graph_cost(trace_program(prog, mesh))
+    assert sum(gc["matmul_flops_by_dtype"].values()) == jax_flops[case]
+    assert jax_flops[case] > 0
+
+
+# -- the kernels' bounds at PERF.md's table shapes ----------------------------
+
+N_DB, D, KNN_K, K_PRED = 1_048_576, 20, 10, 5
+# (work formula, its arguments) -> (bytes, fp32 flops[, dot ops]) and the
+# bound in ms, as chip_smoke.py computed them before the formulas moved
+BOUNDS = [
+    ("fused_work", (32, 1024, 8, 64), (1197056, 524288), 0.000357),
+    ("fused_work", (64, 100_000, 5, 50), (153626880, 64000000), 0.045859),
+    ("rank_work", (32, 1024, 8, 64), (1207552, 561152), 0.000360),
+    ("rank_work", (256, 1_048_576, 5, 50), (6442621952, 2684508160),
+     1.923171),
+    ("linear_work", (32, 1024, 8, 64, D), (1210784, 571392), 0.000361),
+    ("topk_work", (32, N_DB, D, KNN_K), (83891200, 1484783616), 0.025042),
+    ("sweep_work", (32, N_DB, D, KNN_K, K_PRED), (83895680, 1484783616),
+     0.025043),
+    ("knn_work", (32, N_DB, 1024, 8, 64, D, KNN_K, K_PRED),
+     (85103616, 1485344768), 0.025404),
+    ("knn_work", (256, 65536, 1_048_576, 5, 50, D, KNN_K, K_PRED),
+     (6447941632, 3408549888), 1.924759),
+    ("quant_sweep_work", (32, N_DB, "int8", D, KNN_K, K_PRED),
+     (25183744, 167772160, 1342177280), 0.007518),
+    ("quant_sweep_work", (32, N_DB, "bf16", D, KNN_K, K_PRED),
+     (46155264, 134217728, 1342177280), 0.013778),
+    ("quant_knn_work", (32, N_DB, 1024, 8, 64, "int8", D, KNN_K, K_PRED),
+     (26391680, 168333312, 1342177280), 0.007878),
+    ("quant_knn_work", (32, N_DB, 1024, 8, 64, "bf16", D, KNN_K, K_PRED),
+     (47363200, 134778880, 1342177280), 0.014138),
+]
+
+
+@pytest.mark.parametrize("name,args,work,ms", BOUNDS,
+                         ids=[f"{b[0]}-{i}" for i, b in enumerate(BOUNDS)])
+def test_bounds_at_the_kernel_table_shapes_are_unchanged(name, args, work,
+                                                         ms):
+    got = getattr(roofline, name)(*args)
+    assert got == work
+    mode = "bf16" if "bf16" in args else "int8"
+    bms, by = roofline.bound(*got, mode=mode)
+    assert round(bms, 6) == ms and by == "bytes"

@@ -136,6 +136,34 @@ def test_port_files_cover_the_cell_programs_slice():
         assert port / rel in PORT_FILES
 
 
+def test_port_files_cover_the_dry_run_slice():
+    port = REPO / "src" / "repro_torch" / "launch"
+    for name in ("roofline", "graph_cost", "graph_analysis", "dryrun"):
+        assert port / f"{name}.py" in PORT_FILES
+
+
+# the port's files whose names differ from their JAX counterparts' (the
+# port has no HLO: its cost walk runs the program itself), and the one
+# JAX file with no counterpart (a JAX shim)
+RENAMED = {"launch/hlo_cost.py": "launch/graph_cost.py",
+           "launch/hlo_analysis.py": "launch/graph_analysis.py"}
+NO_COUNTERPART = {"distributed/compat.py"}
+
+
+def test_every_module_of_the_jax_package_has_its_counterpart():
+    jax_pkg, port = REPO / "src" / "repro", REPO / "src" / "repro_torch"
+    missing = []
+    for path in sorted(jax_pkg.rglob("*.py")):
+        rel = path.relative_to(jax_pkg).as_posix()
+        if rel in NO_COUNTERPART:
+            assert not (port / rel).exists()
+            continue
+        if not (port / RENAMED.get(rel, rel)).is_file():
+            missing.append(rel)
+    assert missing == []
+    assert all((port / p).is_file() for p in RENAMED.values())
+
+
 @pytest.mark.parametrize("package", ["distributed", "optim"])
 def test_package_exports_every_name_of_jax(package):
     """repro_torch.distributed and repro_torch.optim export every public
