@@ -262,7 +262,21 @@ Phases (any failure exits non-zero before a result is printed):
      over the cell's encoded edges is bitwise equal across two calls
      (at full_graph_sm its distance from the CPU's is logged) and, at
      full_graph_sm, the loss and every gradient with remat on equal
-     those with it off bitwise. Then the ranking head:
+     those with it off bitwise. After ogb_products' global steps, the
+     same step partitioned (PARTITIONED): build_gnn's program on a
+     virtual make_smoke_mesh() over the card, 2 'data' blocks on
+     (2, 4), shard bodies with an all-gather of the node latents and a
+     reduce-scatter of the partial aggregates each processor step and a
+     sum of the replicas' gradients, from a copy of the parameters, a
+     fresh Adam state and the graph padded by pad_graph; fails unless its
+     loss and grad_norm are within rtol 1e-5 of the global step's on
+     the same padded graph, its parameters within the tests'
+     tolerances (tests/test_torch_gnn_sharded.py: from a fresh state a
+     check of the gradients' signs), each leaf's clipped gradient
+     within PARTITIONED["leaf_rtol"] of the global step's in norm, and
+     two calls give the same bits; logs both steps' device ms (CUDA
+     events) and peaks and the moments' largest distances; out of
+     memory fails it. Then the ranking head:
      the 1024 seeds' node scores as one request's u (m1 = 1024, K = 8
      random a, m2 = 64) through ops.rank_audited, one rank_audited
      launch, bitwise its plain version;
@@ -288,7 +302,9 @@ Phases (any failure exits non-zero before a result is printed):
      the same program with the plain versions on the card; serve_p99
      (B = 512) for the four, and full_graph_sm and molecule through
      build_gnn at MeshGraphNet's published config on graphs padded by
-     pad_graph, every output finite (nothing cut); llama4-scout's "opt"
+     pad_graph, each step partitioned into shard bodies over the 2
+     'data' blocks (a block of graphs for molecule), every output finite
+     (nothing cut); llama4-scout's "opt"
      variant (moe_dispatch 'shmap') at its published width with its
      depth cut to 2 of 48 layers, under use_mesh_rules(mesh, LM_RULES):
      lm_forward through moe_apply_shmap against the global dispatch at
@@ -3263,6 +3279,11 @@ def serve_lm_zoo(seed, dev, smi):
 # the 1024 seeds' node_scores as one request
 GNN = dict(steps=3, products_cut=16, reddit_degree=492, head_K=8,
            head_m2=64)
+# phase G's partitioned step: ogb_products at the same cut through
+# build_gnn on a virtual make_smoke_mesh() (2 'data' blocks), against
+# the global step on the same padded graph; leaf_rtol bounds each
+# leaf's clipped gradient's distance from the global step's, in norm
+PARTITIONED = dict(calls=2, lr=1e-3, sure_grad=3e-6, leaf_rtol=2e-3)
 # phase T: launch.train's body, a failure injected at step 25 of 40
 TRAIN = dict(steps=40, ckpt_every=10, fail_at=25,
              runs=(("meshgraphnet", False), ("llama3.2-1b", True),
@@ -3335,6 +3356,120 @@ def gnn_cell_graph(cell, gen, dev):
     return g, info
 
 
+def event_step(fn):
+    """fn() once between CUDA events: (its output, {event_ms, peak_gib
+    (the card's allocated peak during the call), alloc_retries (the
+    caching allocator's frees of its cache to retry an allocation
+    during the call, each a synchronisation)})."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, {"event_ms": start.elapsed_time(end),
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "alloc_retries": torch.cuda.memory_stats().get(
+                     "num_alloc_retries", 0) - retries}
+
+
+def partitioned_products(cell, cfg, params, graph, dev, smi):
+    """Phase G's partitioned step: ogb_products at phase G's cut through
+    build_gnn on a virtual make_smoke_mesh() over the card (2 'data'
+    blocks on (2, 4)), from a copy of the parameters, a fresh Adam state
+    and the graph padded by pad_graph, against gnn_train_step's global
+    step from the same. Fails unless the loss and grad_norm are within
+    rtol 1e-5 of the global step's; each leaf's clipped gradient (Adam's
+    first moment after its first step, over 0.1) is within
+    PARTITIONED["leaf_rtol"] of the global step's in norm, which holds
+    the partition's per-leaf gradient magnitudes; the new parameters
+    are within rtol 1e-5, atol lr x 1e-3 where the gradient is above
+    3e-6 and within 2 x lr everywhere (from a fresh state Adam's first
+    step moves a weight by about lr x sign(g), so this is a check of
+    the gradients' signs); and two calls give the same bits. The Adam
+    state is fresh because the parameters' tolerance is Adam's first
+    step's (tests/test_torch_gnn_sharded.py). An out-of-memory error
+    fails the phase. Logs each step's device ms (CUDA events) and
+    peak, and the moments' largest distances."""
+    from repro_torch.checkpoint.store import flatten_with_paths
+    from repro_torch.configs.gnn_family import build_gnn, pad_graph
+    from repro_torch.configs.registry import Cell
+    from repro_torch.distributed.sharding import tree_map
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import gnn
+
+    mesh = make_smoke_mesh(device=dev)
+    lr, cut = PARTITIONED["lr"], GNN["products_cut"]
+    n = -(-cell["n_nodes"] // cut)
+    e = -(-cell["n_edges"] // cut)
+    cut_cell = Cell(cell.name, cell.kind, dict(cell.params, n_nodes=n,
+                                               n_edges=e))
+    # cfg is the cell's config already: build_gnn's cell_config of it is
+    # itself
+    prog = build_gnn(cfg, cut_cell, mesh)
+    want = prog.args[2]
+    padded = pad_graph({k: v for k, v in graph.items() if k in want},
+                       want["nodes"].shape[0], want["edges"].shape[0])
+    padded = {k: v.to(want[k].dtype) for k, v in padded.items()}
+    p0 = tree_map(lambda t: t.detach().clone(), params)
+    o0 = gnn.gnn_adam_init(p0)
+    rep = {"cut": cut, "nodes": n, "edges": e,
+           "padded": [want["nodes"].shape[0], want["edges"].shape[0]],
+           "blocks": 2, "mesh": list(mesh.devices.shape)}
+    ref, rep["global"] = event_step(
+        lambda: gnn.gnn_train_step(p0, o0, padded, cfg, lr=lr))
+    outs = []
+    for _ in range(PARTITIONED["calls"]):
+        out, t = event_step(lambda: prog.fn(p0, o0, padded))
+        outs.append(out)
+        rep.setdefault("partitioned", []).append(t)
+    got = outs[0]
+    for name in ("loss", "grad_norm"):
+        a, b = float(got[2][name]), float(ref[2][name])
+        rep[name] = {"partitioned": a, "global": b}
+        if not math.isfinite(a) or abs(a - b) > 1e-5 * abs(b):
+            fail(f"phase G partitioned: {name} {a!r} against the global "
+                 f"step's {b!r}")
+    gp, rp = flatten_with_paths(got[0]), flatten_with_paths(ref[0])
+    worst = {"params": 0.0, "mu": 0.0, "nu": 0.0, "leaf_grad_rel": 0.0}
+    for k, r in rp.items():
+        # the clipped gradient, Adam's first moment after its first step
+        g, g_got = ref[1].mu[k] / 0.1, got[1].mu[k] / 0.1
+        rel = float(torch.linalg.vector_norm(g_got - g)
+                    / torch.linalg.vector_norm(g).clamp_min(1e-30))
+        worst["leaf_grad_rel"] = max(worst["leaf_grad_rel"], rel)
+        if not rel <= PARTITIONED["leaf_rtol"]:
+            fail(f"phase G partitioned: leaf {k}'s gradient {rel} from the "
+                 f"global step's in norm")
+        sure = g.abs() > PARTITIONED["sure_grad"]
+        diff = (gp[k] - r).abs()
+        within = diff <= lr * 1e-3 + 1e-5 * r.abs()
+        worst["params"] = max(worst["params"], float(diff.max()))
+        if not bool(within[sure].all()) or float(diff.max()) > 2 * lr:
+            fail(f"phase G partitioned: parameter {k} "
+                 f"{float(diff[sure].max()) if sure.any() else 0.0} "
+                 f"(where the gradient is above "
+                 f"{PARTITIONED['sure_grad']}) / {float(diff.max())} from "
+                 f"the global step's")
+        for m in ("mu", "nu"):
+            worst[m] = max(worst[m], float((getattr(got[1], m)[k]
+                                            - getattr(ref[1], m)[k])
+                                           .abs().max()))
+    rep["max_abs_diff"] = worst
+    for a, b in zip(outs[0], outs[1]):
+        fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+        if not all(torch.equal(fa[k], fb[k]) for k in fa):
+            fail("phase G partitioned: two calls differ")
+    rep["bitwise_run_to_run"] = True
+    log(f"phase G partitioned ogb_products/{cut} {json.dumps(rep)} ({smi})")
+    del ref, outs, got, p0, o0, padded
+    torch.cuda.empty_cache()
+    return rep
+
+
 def train_gnn_cells(seed, dev, wrappers, smi):
     """Phase G: 3 gnn_train_steps of MeshGraphNet FULL on each cell
     (GNN): each step's wall and device ms (torch.profiler) and peak
@@ -3396,6 +3531,8 @@ def train_gnn_cells(seed, dev, wrappers, smi):
                      (params, opt, graph),
                      rep["unprofiled_step"]["event_ms"],
                      rep["steps"][-1]["by_category"])
+            rep["partitioned"] = partitioned_products(
+                cell, cfg, params, graph, dev, smi)
         losses = [r["loss"] for r in rep["steps"]] + [loss]
         if not all(math.isfinite(x) for x in losses):
             fail(f"phase G {cell.name}: losses {losses} are not finite")

@@ -19,7 +19,10 @@ and target dims (dataclasses.replace).
 on (params, AdamState, graph), the parameters replicated, the node and
 edge arrays over the batch axes ('nodes', 'edges'), node and edge
 counts padded to mesh-divisible sizes by pad_up (per graph for the
-batched molecule cell). `pad_graph` pads a graph the way the specs
+batched molecule cell). The program runs under its mesh and rules, so
+where ('pod', 'data') holds more than one block the step runs as shard
+bodies, one a block (models.gnn.graph_plan), as JAX's jit partitions
+the annotated step over the mesh it runs under. `pad_graph` pads a graph the way the specs
 expect: padding edges self-loop onto padding nodes whose features and
 targets are zero.
 """
@@ -43,6 +46,7 @@ from repro_torch.distributed.sharding import (
     NamedSharding,
     filter_rules,
     param_shardings,
+    use_mesh_rules,
 )
 from repro_torch.models.gnn import (
     GNNConfig,
@@ -169,7 +173,8 @@ def build_gnn(cfg: GNNConfig, cell: Cell, mesh) -> Program:
                          batched=(cell.kind == "train_batched"))
 
     def fn(params, opt, graph):
-        return gnn_train_step(params, opt, graph, ccfg)
+        with use_mesh_rules(mesh, rules):
+            return gnn_train_step(params, opt, graph, ccfg)
 
     return Program(fn=fn, args=(params, opt, graph), rules=rules)
 

@@ -19,6 +19,20 @@ outputs are gathered to the merging device with one
 `.to(device, non_blocking=True)`. `sharded_knn_topk`'s per-shard
 selection is the `knn_topk` kernel on the card (two launches a shard)
 and its plain version on the CPU.
+
+The mesh collectives of a partitioned program (models.gnn's step) are
+here too, as torch.autograd.Functions over the blocks of a mesh axis
+group: `all_gather_rows`, `reduce_scatter_rows` (a sum, or a max) and
+`psum`. Each takes one block a shard, in the shard order of
+`each_block` (block_coords' order along the axes), each on its shard's
+device, and returns one a shard, each on its shard's device. Every sum
+runs in shard order on the device that keeps it, and each backward is
+written by hand (an all-gather's is the reduce-scatter, a
+reduce-scatter's the all-gather, a psum's a psum), so a step's bits do
+not depend on the order in which several devices' gradients reach a
+tensor: a mesh across cards gives a virtual mesh's bits. `sum_to`
+sums the shards' tensors onto one device (a replicated step's
+gradients), with no backward.
 """
 
 from __future__ import annotations
@@ -108,11 +122,19 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     return torch.cuda.Stream(device=device)
 
 
-def run_on_shard(device: torch.device, merge_device: torch.device, body):
+def run_on_shard(device: torch.device, merge_device: torch.device | None,
+                 body):
     """body() on `device`, its outputs (tensors, tuples and dicts of
-    them) gathered to merge_device. On the card a device that is not
-    the merging one runs the body on its side stream, ordered after the
-    caller's stream and before the caller's next work."""
+    them) gathered to merge_device (None: left on `device`). On the
+    card a device that is not the merging one runs the body on its side
+    stream, ordered after the caller's stream and before the caller's
+    next work; with no merging device the body runs on `device`'s
+    current stream, which the copies between cards order."""
+    if merge_device is None:
+        if device.type != "cuda":
+            return body()
+        with torch.cuda.device(device):
+            return body()
     if device.type != "cuda" or device == merge_device:
         return _to(body(), merge_device)
     caller = (torch.cuda.current_stream(merge_device)
@@ -125,6 +147,226 @@ def run_on_shard(device: torch.device, merge_device: torch.device, body):
     if caller is not None:
         caller.wait_stream(stream)
     return out
+
+
+def each_block(mesh: Mesh, axes, body) -> list:
+    """body(i, device) for each block i of a dimension split over `axes`
+    (a name or a tuple of names; block_coords' order, the first axis
+    slowest), each on its block's device (run_on_shard), its outputs
+    left there. Returns the outputs in block order."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    out = []
+    for i in range(axis_size(mesh, axes)):
+        dev = shard_device(mesh, block_coords(mesh, axes, i))
+        out.append(run_on_shard(dev, None,
+                                lambda i=i, dev=dev: body(i, dev)))
+    return out
+
+
+def note_exchange(kind: str, nbytes: float, axes: tuple = ()):
+    """The bytes a collective over the mesh axes `axes` moves into the
+    shard whose body calls it (kind: 'all-gather', 'reduce-scatter' or
+    'all-reduce'). Nothing happens here; a cost trace
+    (launch/graph_cost.py) counts them by mesh position, since a
+    virtual mesh has one device."""
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _gather_rows(mesh: Mesh, axes, blocks) -> list:
+    """Each shard's copy of the row blocks joined in shard order."""
+    def body(i, dev):
+        note_exchange("all-gather", sum(_nbytes(b) for j, b in
+                                        enumerate(blocks) if j != i), axes)
+        return torch.cat([place(b, dev) for b in blocks])
+    return each_block(mesh, axes, body)
+
+
+def _scatter_rows(mesh: Mesh, axes, parts) -> list:
+    """Row block j of the shards' (N, ...) partials, summed in shard
+    order on block j's device."""
+    rows = split_dim(parts[0].shape[0], len(parts), "rows over the blocks")
+
+    def body(j, dev):
+        at = slice(j * rows, (j + 1) * rows)
+        note_exchange("reduce-scatter", sum(_nbytes(p[at]) for i, p in
+                                            enumerate(parts) if i != j),
+                      axes)
+        acc = place(parts[0][at], dev)
+        for p in parts[1:]:
+            acc = acc + place(p[at], dev)
+        return acc
+    return each_block(mesh, axes, body)
+
+
+def _psum(mesh: Mesh, axes, xs) -> list:
+    """The shards' sum, in shard order on the first shard's device, then
+    copied to every other shard (a copy of its own on a virtual mesh)."""
+    total = []
+
+    def body(i, dev):
+        note_exchange("all-reduce", 2 * _nbytes(xs[i]), axes)
+        if i == 0:
+            acc = xs[0]
+            for x in xs[1:]:
+                acc = acc + place(x, dev)
+            total.append(acc)
+            return acc
+        copy = place(total[0], dev)
+        return copy.clone() if copy is total[0] else copy
+    return each_block(mesh, axes, body)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, *blocks):
+        ctx.mesh, ctx.axes = mesh, axes
+        return tuple(_gather_rows(mesh, axes, blocks))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + tuple(_scatter_rows(ctx.mesh, ctx.axes, grads))
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, *parts):
+        ctx.mesh, ctx.axes = mesh, axes
+        return tuple(_scatter_rows(mesh, axes, parts))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + tuple(_gather_rows(ctx.mesh, ctx.axes, grads))
+
+
+class _ReduceScatterMax(torch.autograd.Function):
+    """Row block j of the shards' partial maxima, in shard order on
+    block j's device. The gradient of each element goes to the shards
+    that reach its maximum, in proportion to the ties each counted
+    there (its count: how many of its own elements reached its partial
+    maximum), so that with the local max's even split every tied
+    element of every shard takes an equal share. An element that no
+    shard reached (-inf, a count of 0 everywhere) takes none."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, *parts_and_counts):
+        n = len(parts_and_counts) // 2
+        parts, counts = parts_and_counts[:n], parts_and_counts[n:]
+        rows = split_dim(parts[0].shape[0], n, "rows over the blocks")
+
+        def body(j, dev):
+            at = slice(j * rows, (j + 1) * rows)
+            note_exchange("reduce-scatter", sum(
+                _nbytes(p[at]) + _nbytes(c[at]) for i, (p, c) in
+                enumerate(zip(parts, counts)) if i != j), axes)
+            ps = [place(p[at], dev) for p in parts]
+            acc = ps[0]
+            for p in ps[1:]:
+                acc = torch.maximum(acc, p)
+            tied = [(p == acc).to(acc.dtype) * place(c[at], dev)
+                    for p, c in zip(ps, counts)]
+            total = tied[0]
+            for t in tied[1:]:
+                total = total + t
+            some = total > 0
+            safe = torch.where(some, total, torch.ones_like(total))
+            return acc, [torch.where(some, t / safe, torch.zeros_like(t))
+                         for t in tied]
+        outs = each_block(mesh, axes, body)
+        ctx.mesh, ctx.axes, ctx.shares = mesh, axes, [o[1] for o in outs]
+        return tuple(o[0] for o in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        shares = ctx.shares
+        pieces = each_block(ctx.mesh, ctx.axes, lambda j, dev: [
+            grads[j] * w for w in shares[j]])
+
+        def gather(i, dev):
+            note_exchange("all-gather", sum(_nbytes(p[i]) for j, p in
+                                            enumerate(pieces) if j != i),
+                          ctx.axes)
+            return torch.cat([place(p[i], dev) for p in pieces])
+        return ((None, None) + tuple(each_block(ctx.mesh, ctx.axes, gather))
+                + (None,) * len(grads))
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, *xs):
+        ctx.mesh, ctx.axes = mesh, axes
+        return tuple(_psum(mesh, axes, xs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + tuple(_psum(ctx.mesh, ctx.axes, grads))
+
+
+def _axes_of(mesh: Mesh, axes, n: int) -> tuple[str, ...]:
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if n != axis_size(mesh, axes):
+        raise ValueError(f"{n} blocks for the {axis_size(mesh, axes)} "
+                         f"shards of {axes}")
+    return axes
+
+
+def all_gather_rows(mesh: Mesh, axes, blocks) -> list:
+    """Each shard's (N / S, ...) row block -> every shard's (N, ...)
+    whole, the blocks joined in shard order. Its backward is
+    reduce_scatter_rows. One block (any mesh, or none) is the
+    identity, as are the other collectives'."""
+    if len(blocks) == 1:
+        return list(blocks)
+    return list(_AllGather.apply(mesh, _axes_of(mesh, axes, len(blocks)),
+                                 *blocks))
+
+
+def reduce_scatter_rows(mesh: Mesh, axes, parts, reduce: str = "sum",
+                        counts=None) -> list:
+    """Each shard's (N, ...) partial -> row block j of their sum (or
+    elementwise max) on shard j, reduced in shard order there. Its
+    backward is all_gather_rows; a max's splits each element's gradient
+    over the shards that reach it by their `counts` (one (N, ...)
+    tensor a shard: its elements that reached its partial maximum)."""
+    if len(parts) == 1:
+        return list(parts)
+    axes = _axes_of(mesh, axes, len(parts))
+    if reduce == "sum":
+        return list(_ReduceScatter.apply(mesh, axes, *parts))
+    if reduce != "max":
+        raise ValueError(reduce)
+    if counts is None or len(counts) != len(parts):
+        raise ValueError("a max needs each shard's tie counts")
+    return list(_ReduceScatterMax.apply(mesh, axes, *parts, *counts))
+
+
+def psum(mesh: Mesh, axes, xs) -> list:
+    """The sum of the shards' tensors (one a shard, of one shape) on
+    every shard: summed in shard order on the first shard's device,
+    then copied to the others. Its backward is a psum of the
+    gradients."""
+    if len(xs) == 1:
+        return list(xs)
+    return list(_Psum.apply(mesh, _axes_of(mesh, axes, len(xs)), *xs))
+
+
+def sum_to(mesh: Mesh, axes, xs, device: torch.device) -> torch.Tensor:
+    """The shards' tensors (one a shard, of one shape) summed in shard
+    order on `device` alone: the gradients of a replicated step, which
+    is taken once there and read back by every replica. Not
+    differentiable. Each shard is counted as an all-reduce of its
+    tensor: it sends its gradient and reads back the stepped leaf."""
+    if len(xs) == 1:
+        return place(xs[0], device)
+    axes = _axes_of(mesh, axes, len(xs))
+    each_block(mesh, axes, lambda i, dev: note_exchange(
+        "all-reduce", 2 * _nbytes(xs[i]), axes))
+    acc = place(xs[0], device)
+    for x in xs[1:]:
+        acc = acc + place(x, device)
+    return acc
 
 
 def batch_axes_of(mesh: Mesh, batch_axes) -> tuple[str, ...]:

@@ -12,26 +12,34 @@ Memory, per device:
             block, every other output over the device count;
   alias     the outputs that are arguments updated in place;
   temp      the walk's peak of live bytes, over the device count where
-            the program is global.
-Where the program is global (the port has no SPMD partitioner) the
-output and temp bytes are estimates of a partitioned program's, and the
-record lists them under "estimated".
+            the program is global; where it runs shard bodies, the
+            largest mesh position's peak of the storages its bodies
+            made (the global part's go to the first position).
+Where the program is global (the LM and recsys builds: the port
+partitions only the GNN's) the output and temp bytes are estimates of
+a partitioned program's, and the record lists them under "estimated".
 
 Collectives, per device, each part marked:
   counted   the bytes each shard body hands to the merging device
             (map_shards: the dist-topk paper cells, the shmap MoE's
-            exchanges, the compressed psum), by mesh position;
-  modeled   for train cells, from the argument specs (ZeRO-3 / FSDP as
-            GSPMD partitions it): a parameter leaf sharded over batch
-            axes ('pod', 'data') is all-gathered over them once forward
-            and once backward (remat) and its gradient reduce-scattered;
-            a leaf replicated over the batch axes has its gradient
-            all-reduced over them; each part at its axes' link rate
-            (roofline.link_rate);
+            exchanges, the compressed psum), by mesh position; and the
+            bytes the mesh collectives (distributed.topk's
+            all_gather_rows, reduce_scatter_rows, psum: the partitioned
+            GNN step) move into the busiest position: (S - 1) / S of
+            the gathered rows for an all-gather or a reduce-scatter,
+            twice the leaf for a psum;
+  modeled   for train cells that count no collective of their own, from
+            the argument specs (ZeRO-3 / FSDP as GSPMD partitions it):
+            a parameter leaf sharded over batch axes ('pod', 'data') is
+            all-gathered over them once forward and once backward
+            (remat) and its gradient reduce-scattered; a leaf replicated
+            over the batch axes has its gradient all-reduced over them;
+            each part at its axes' link rate (roofline.link_rate);
   absent    tensor parallelism's activation collectives (the 'model'
             axis): nothing counts them without a partitioner.
-Bytes are result-buffer bytes, JAX's convention: an all-gather's
-gathered leaf, a reduce-scatter's shard, an all-reduce's whole block.
+Bytes modeled are result-buffer bytes, JAX's convention: an
+all-gather's gathered leaf, a reduce-scatter's shard, an all-reduce's
+whole block.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from repro_torch.launch.graph_cost import KERNELS, Walk
 CENSUS = ("matmul",) + KERNELS + ("index", "scatter", "sort", "topk",
                                   "copy", "collective")
 BATCH_AXES = ("pod", "data")
+EXCHANGES = ("all-gather", "reduce-scatter", "all-reduce")
 
 
 def op_census(walk: Walk) -> dict:
@@ -92,7 +101,9 @@ def memory_analysis(walk: Walk) -> dict:
         "argument_size_in_bytes": sum(block_bytes(walk.arg_specs[k])
                                       for k in walk.read_leaves()),
         "output_size_in_bytes": int(out),
-        "temp_size_in_bytes": int(-(-walk.peak_live_bytes() // n)),
+        "temp_size_in_bytes": int(walk.peak_live_bytes(per_position=True)
+                                  if walk.partitioned else
+                                  -(-walk.peak_live_bytes() // n)),
         "alias_size_in_bytes": int(alias),
         "generated_code_size_in_bytes": 0,
     }
@@ -108,11 +119,25 @@ def collective_bytes(walk: Walk, cell_kind: str) -> dict:
     shape = walk.mesh_shape
     batch = tuple(a for a in BATCH_AXES if shape.get(a, 1) > 1)
     parts = {}
-    handed = sum(op.handed for op in walk.ops)
+    handed = sum(op.handed for op in walk.ops if op.name == "shard_gather")
     if handed:
         parts["shard_gather"] = {"how": "counted", "bytes": handed,
                                  "axes": list(shape)}
-    if cell_kind.startswith("train"):
+    moved: dict = defaultdict(lambda: defaultdict(float))
+    axes_of: dict = defaultdict(set)
+    for op in walk.ops:
+        if op.name in EXCHANGES and op.region:
+            moved[op.region[1]][op.name] += op.handed
+            axes_of[op.name] |= set(op.axes)
+    if moved:
+        busiest = max(moved, key=lambda pos: sum(moved[pos].values()))
+        for kind in EXCHANGES:
+            if moved[busiest].get(kind):
+                parts[kind] = {"how": "counted",
+                               "bytes": moved[busiest][kind],
+                               "axes": sorted(axes_of[kind],
+                                              key=list(shape).index)}
+    if cell_kind.startswith("train") and not moved:
         ag = rs = ar = 0
         ag_axes, ar_axes = set(), set()
         read = walk.read_leaves()
@@ -143,7 +168,7 @@ def collective_bytes(walk: Walk, cell_kind: str) -> dict:
                   for p in parts.values() if p["bytes"])
     kinds = {"shard_gather": "all-gather", "param_all_gather": "all-gather",
              "grad_reduce_scatter": "reduce-scatter",
-             "grad_all_reduce": "all-reduce"}
+             "grad_all_reduce": "all-reduce", **{k: k for k in EXCHANGES}}
     out: dict = defaultdict(float)
     for name, p in parts.items():
         if p["bytes"]:

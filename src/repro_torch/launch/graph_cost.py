@@ -49,15 +49,20 @@ Conventions kept from hlo_cost, carried over to aten ops:
           walk's temp bytes.
 
 Per device. A program that runs shard bodies (distributed.topk's
-map_shards: the dist-topk paper cells, moe_apply_shmap,
-compressed_psum) is costed as one body (the largest mesh position's)
-plus the merge (gather_merge_top_k, on the merging device) plus the
-rest of the program over the device count; the bytes each body hands to
-the merging device are counted by mesh position, since a virtual mesh
-has one device. A global program (every default build: the port has no
-SPMD partitioner) is costed as the whole walk over the mesh's device
-count, JAX's own fallback (roofline.py's docstring), and says
-"partitioned": false.
+map_shards and each_block: the dist-topk paper cells, moe_apply_shmap,
+compressed_psum, the partitioned GNN step) is costed as one body (the
+largest mesh position's) plus the merge (gather_merge_top_k, on the
+merging device) plus the rest of the program over the device count; the
+bytes each body hands to the merging device, and the bytes each of the
+mesh collectives (distributed.topk's all_gather_rows,
+reduce_scatter_rows, psum) moves into a shard, are counted by mesh
+position, since a virtual mesh has one device. A body's backward is the
+body's: each autograd node a body makes is tagged with its region, and
+the ops autograd runs for a node (a checkpoint's recomputation
+included) are costed in that region. A global program (the LM and
+recsys builds: the port partitions only the GNN's) is costed as the
+whole walk over the mesh's device count, JAX's own fallback
+(roofline.py's docstring), and says "partitioned": false.
 """
 
 from __future__ import annotations
@@ -142,7 +147,8 @@ class Op:
     nbytes: float
     flops: dict | None = None
     region: tuple | None = None
-    handed: float = 0.0        # bytes a shard body hands to the merge
+    handed: float = 0.0        # bytes a shard body hands to the merge,
+    axes: tuple = ()           # or a collective moves over these axes
 
 
 @dataclass
@@ -212,10 +218,13 @@ class Walk:
         written once."""
         return sum(self.read_bytes().values()) + self.written_bytes()
 
-    def peak_live_bytes(self) -> int:
+    def peak_live_bytes(self, *, per_position: bool = False) -> int:
         """The peak, over the log, of the storages the program made
         (neither arguments nor outputs) that are live: from the op that
-        makes one to its last use."""
+        makes one to its last use. With `per_position`, each storage
+        belongs to the mesh position whose body made it (the global
+        part's and the merge's to the first position), and the peak is
+        the largest position's."""
         internal = set(self.made_at) - set(self.arg_sids.values()) \
             - set(self.out_sids)
         last = {}
@@ -223,14 +232,22 @@ class Walk:
             for s in op.ins + op.outs:
                 if s in internal:
                     last[s] = i
-        delta = [0] * (len(self.ops) + 1)
+        events: dict = {}
         for s in internal:
-            delta[self.made_at[s]] += self.storage_bytes[s]
-            delta[last.get(s, self.made_at[s]) + 1] -= self.storage_bytes[s]
-        peak = live = 0
-        for d in delta:
-            live += d
-            peak = max(peak, live)
+            at = self.made_at[s]
+            owner = None
+            if per_position and at < len(self.ops):
+                r = self.ops[at].region
+                owner = r[1] if r and r[0] == "body" and any(r[1]) else None
+            ev = events.setdefault(owner, [])
+            ev.append((at, self.storage_bytes[s]))
+            ev.append((last.get(s, at) + 1, -self.storage_bytes[s]))
+        peak = 0
+        for ev in events.values():
+            live = 0
+            for _, d in sorted(ev, key=lambda x: (x[0], x[1])):
+                live += d
+                peak = max(peak, live)
         return peak
 
 
@@ -261,6 +278,7 @@ class _CostMode(TorchDispatchMode):
 
     def log(self, cat, name, ins, outs, nbytes, flops=None, touched=None):
         walk = self.walk
+        region = self.region if self.region is not None else _node_region()
         with self.lock:
             in_ids = [self.sid(t) for t in ins]
             out_ids = [self.sid(t) for t in outs]
@@ -271,7 +289,7 @@ class _CostMode(TorchDispatchMode):
             walk.written.update(s for s in out_ids if s in in_ids
                                 and cat != "view")
             walk.ops.append(Op(cat, name, in_ids, out_ids, float(nbytes),
-                               flops, self.region))
+                               flops, region))
 
     def _arg_ranges(self, name, ins, in_ids, outs, out_ids, touched):
         """Note the byte ranges an op reads and writes of argument
@@ -312,6 +330,35 @@ class _CostMode(TorchDispatchMode):
             # the value steers the host: whatever follows depends on it
             self.walk.host_read.update(self.sid(t) for t in ins)
         return out
+
+
+def _node_region():
+    """The region of the autograd node whose backward is running (None
+    outside a backward, or for a node no shard body made)."""
+    node = torch._C._current_autograd_node()
+    return None if node is None else node.metadata.get("region")
+
+
+def _next_sequence_nr() -> int:
+    """The sequence number autograd gives the next node made on this
+    thread (nodes are numbered in the order they are made)."""
+    return torch._C._autograd._get_sequence_nr()
+
+
+def _tag_nodes(out, region, made: range):
+    """Tag with `region` the autograd nodes that made `out` and whose
+    sequence numbers lie in `made`: the nodes a body made, reached back
+    from its outputs. The walk stops at a node made before the body
+    (global work, another body, a collective, a leaf's
+    AccumulateGrad), whose backward is not the body's."""
+    todo = [t.grad_fn for t in _tensors(out) if t.grad_fn is not None]
+    while todo:
+        node = todo.pop()
+        if (node is None or "region" in node.metadata
+                or node._sequence_nr() not in made):
+            continue
+        node.metadata["region"] = region
+        todo.extend(fn for fn, _ in node.next_functions)
 
 
 def _flat_tensors(obj) -> list:
@@ -727,13 +774,22 @@ def _swapped(pairs: dict):
 def _region_twins(cm: _CostMode) -> dict:
     """Trace twins of distributed.topk's shard plumbing: shard_device
     notes the body's mesh position, run_on_shard runs the body in that
-    region and counts what it hands to the merging device, and
-    gather_merge_top_k runs in the merge region."""
+    region, tags the autograd nodes it made with it and counts what it
+    hands to the merging device, note_exchange counts a collective's
+    bytes in the region it runs in, gather_merge_top_k runs in the
+    merge region, and place leaves a shape-only tensor on the fake card
+    whatever device the mesh names (a program built over a mesh of real
+    devices is traced on the fake card)."""
     from repro_torch.distributed import topk
+    from repro_torch.launch import mesh
 
-    real_dev, real_run, real_merge = (topk.shard_device, topk.run_on_shard,
-                                      topk.gather_merge_top_k)
+    real_dev, real_run, real_merge, real_note, real_place = (
+        topk.shard_device, topk.run_on_shard, topk.gather_merge_top_k,
+        topk.note_exchange, mesh.place)
     pending = []
+
+    def place(x, device):
+        return x if x.is_meta else real_place(x, device)
 
     def shard_device(mesh, coords):
         pending.append(tuple(int(coords.get(a, 0))
@@ -744,14 +800,20 @@ def _region_twins(cm: _CostMode) -> dict:
         pos = pending.pop() if pending else (-1,)
         prev, cm.region = cm.region, ("body", pos)
         try:
+            first = _next_sequence_nr()
             out = real_run(device, merge_device, body)
+            _tag_nodes(out, ("body", pos), range(first, _next_sequence_nr()))
         finally:
             cm.region = prev
-        if any(pos):
+        if any(pos) and merge_device is not None:
             handed = sum(_nbytes(t) for t in _tensors(out))
             cm.walk.ops.append(Op("collective", "shard_gather", (), (),
                                   0.0, None, ("body", pos), handed))
         return out
+
+    def note_exchange(kind, nbytes, axes=()):
+        cm.walk.ops.append(Op("collective", kind, (), (), 0.0, None,
+                              cm.region, float(nbytes), tuple(axes)))
 
     def gather_merge_top_k(*args, **kw):
         prev, cm.region = cm.region, ("merge",)
@@ -761,7 +823,8 @@ def _region_twins(cm: _CostMode) -> dict:
             cm.region = prev
 
     return {real_dev: shard_device, real_run: run_on_shard,
-            real_merge: gather_merge_top_k}
+            real_merge: gather_merge_top_k, real_note: note_exchange,
+            real_place: place}
 
 
 def _tensors(obj):

@@ -35,6 +35,23 @@ deterministic body, which JAX's own uniforms drive in the tests.
 tree with per-dim logical axis names: the weights replicate, the
 processor's stacked leaves lead with 'layers'; the node and edge
 states carry JAX's logical_shard annotations ('nodes', 'edges').
+
+Under a mesh context whose rules split the nodes and edges over more
+than one block (GNN_RULES: ('pod', 'data')), gnn_forward, gnn_loss,
+gnn_grads and so gnn_train_step run partitioned, as JAX's jit
+partitions the annotated step over the mesh it runs under
+(graph_plan): one shard body a block, each on its block's device with
+its node rows, its edge rows (global sender and receiver ids) and its
+own replica of the weights. A processor step all-gathers the node
+latents, builds its edges' messages, aggregates them into a zero
+(N, D) partial by the same sorted index_put and reduce-scatters the
+partials to the node blocks (mean with its counts, max with its ties)
+before its node MLP; the loss is the psum of each block's squared
+error over the count; the replicas' gradients are summed in shard
+order onto the parameters' device, then clipped and stepped once. The
+collectives are distributed.topk's. A batch of graphs splits by whole
+graphs, whose blocks exchange nothing. The global step is the same
+code over one block, whose collectives are the identity.
 """
 
 from __future__ import annotations
@@ -49,7 +66,19 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.store import flatten_with_paths, unflatten_like
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import logical_shard
+from repro_torch.distributed.sharding import (
+    current_mesh,
+    current_rules,
+    logical_shard,
+)
+from repro_torch.distributed.topk import (
+    all_gather_rows,
+    each_block,
+    psum,
+    reduce_scatter_rows,
+    sum_to,
+)
+from repro_torch.launch.mesh import axis_size, place
 from repro_torch.models.layers import dense_init
 from repro_torch.models.recsys import _register, _tree_of
 from repro_torch.models.transformer import _device_of
@@ -248,46 +277,231 @@ def _param_device(params: dict) -> torch.device:
     return params["decoder"]["w0"].device
 
 
-def _layer(params: dict, i: int) -> dict:
-    """Processor step i's parameters out of the stacked tree."""
-    proc = params["processor"]
-    flat = flatten_with_paths(proc)
-    return unflatten_like(proc, {k: v[i] for k, v in flat.items()})
+def _step_mlp(params: dict, name: str, step: int) -> dict:
+    """Processor step `step`'s edge_mlp or node_mlp out of the stacked
+    tree."""
+    return {k: w[step] for k, w in params["processor"][name].items()}
 
 
-def _proc_step(v, e, p_layer, senders, receivers, n_nodes, cfg):
-    msg_in = torch.cat([e, v[senders], v[receivers]], dim=-1)
-    e = e + _mlp_apply(p_layer["edge_mlp"], msg_in, cfg)
-    agg = aggregate(e, receivers, n_nodes, cfg.aggregator)
-    v = v + _mlp_apply(p_layer["node_mlp"], torch.cat([v, agg], dim=-1),
-                       cfg)
-    return logical_shard(v, "nodes", None), logical_shard(e, "edges", None)
+_NODE_KEYS = ("nodes", "targets", "node_mask")
+_EDGE_KEYS = ("edges", "senders", "receivers")
+
+
+@dataclass(frozen=True)
+class GraphPlan:
+    """How the step splits a graph: `n` blocks over the mesh axes
+    `axes`, a block of nodes and one of edges (or, for a batch of
+    graphs, a block of whole graphs) on each. The global step is the
+    plan of one block with no mesh, whose collectives are the
+    identity."""
+    mesh: Any
+    axes: tuple
+    n: int
+    batched: bool
+
+
+def graph_plan(graph: dict) -> GraphPlan | None:
+    """The active mesh context's split of `graph`: the rules' 'nodes'
+    and 'edges' entries (one entry, ('pod', 'data') in GNN_RULES), or
+    for a batch of graphs its 'batch' entry. None, and the global step
+    runs, when no context is active, the entry is missing or gives one
+    block, or the blocks do not divide the nodes and edges (or the
+    graphs), where JAX's drop_nondivisible would replicate them."""
+    mesh, rules = current_mesh(), current_rules()
+    if mesh is None or rules is None:
+        return None
+    batched = len(graph["nodes"].shape) == 3
+    names = ("batch",) if batched else ("nodes", "edges")
+    entries = {rules.rules.get(k) for k in names}
+    entry = entries.pop() if len(entries) == 1 else None
+    if entry is None:
+        return None
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    n = axis_size(mesh, axes)
+    dims = (graph["nodes"].shape[0],) if batched else (
+        graph["nodes"].shape[0], graph["senders"].shape[0])
+    if n <= 1 or any(d % n for d in dims):
+        return None
+    return GraphPlan(mesh, axes, n, batched)
+
+
+def _plan(graph: dict) -> GraphPlan:
+    return graph_plan(graph) or GraphPlan(
+        None, (), 1, len(graph["nodes"].shape) == 3)
+
+
+def _each(plan: GraphPlan, dev: torch.device, body) -> list:
+    """body(i, device) for each block i on its shard's device (one
+    block: on `dev`), the outputs in block order."""
+    if plan.mesh is None:
+        return [body(0, dev)]
+    return each_block(plan.mesh, plan.axes, body)
+
+
+def _annotate(xs: list, name: str, plan: GraphPlan) -> list:
+    """JAX's logical_shard of the global node or edge state (a block is
+    a shard already)."""
+    return [logical_shard(xs[0], name, None)] if plan.mesh is None else xs
+
+
+def _replicas(params: dict, plan: GraphPlan, dev, *,
+              detach: bool = False) -> list:
+    """Each block's replica of the parameter tree on its device: the
+    parameters themselves (a copy on another card), or with `detach`
+    leaves of their own, whose gradients come out apart."""
+    flat = flatten_with_paths(params)
+
+    def body(i, d):
+        if detach:
+            return {k: place(v.detach(), d).requires_grad_(True)
+                    for k, v in flat.items()}
+        return {k: place(v, d) for k, v in flat.items()}
+    return [unflatten_like(params, r) for r in _each(plan, dev, body)]
+
+
+def _graph_blocks(graph: dict, cfg: GNNConfig, plan: GraphPlan,
+                  dev) -> list:
+    """Each block of the graph on its device: node rows i N / S onwards
+    and edge rows i E / S onwards (senders and receivers keep their
+    global node ids), features in cfg.dtype and ids in int64; or the
+    graphs i B / S onwards as they are."""
+    g = {k: _as_tensor(graph[k], None) for k in _NODE_KEYS + _EDGE_KEYS
+         if k in graph}
+
+    def body(i, d):
+        out = {}
+        for k, x in g.items():
+            rows = x.shape[0] // plan.n
+            blk = place(x if plan.n == 1 else x[i * rows:(i + 1) * rows], d)
+            if plan.batched:
+                out[k] = blk
+            elif k in ("nodes", "edges"):
+                out[k] = blk.to(cfg.dtype)
+            elif k in ("senders", "receivers"):
+                out[k] = blk.long()
+            else:
+                out[k] = blk
+        return out
+    return _each(plan, dev, body)
+
+
+def _partial(e, receivers, n_nodes: int, mode: str) -> tuple:
+    """A block's partial aggregate of its own edges into all n_nodes
+    (and for mean its counts, for max its ties: how many of its edges
+    reach each element's partial maximum)."""
+    if mode == "sum":
+        return (_segment_sum(e, receivers, n_nodes),)
+    if mode == "mean":
+        return (_segment_sum(e, receivers, n_nodes), _segment_sum(
+            torch.ones((e.shape[0],), dtype=e.dtype, device=e.device),
+            receivers, n_nodes))
+    if mode == "max":
+        part = aggregate(e, receivers, n_nodes, "max")
+        with torch.no_grad():
+            ties = _segment_sum((e == part[receivers]).to(e.dtype),
+                                receivers, n_nodes)
+        return part, ties
+    raise ValueError(mode)
+
+
+def _reduced(parts: list, mode: str, plan: GraphPlan) -> list:
+    """The partials reduce-scattered to the node blocks: each block of
+    the aggregate."""
+    mesh, axes = plan.mesh, plan.axes
+    if mode == "sum":
+        return reduce_scatter_rows(mesh, axes, [p[0] for p in parts])
+    if mode == "max":
+        return reduce_scatter_rows(mesh, axes, [p[0] for p in parts], "max",
+                                   counts=[p[1] for p in parts])
+    sums = reduce_scatter_rows(mesh, axes, [p[0] for p in parts])
+    counts = reduce_scatter_rows(mesh, axes, [p[1] for p in parts])
+    return each_block(mesh, axes, lambda i, dev: sums[i] / torch.clamp_min(
+        counts[i], 1.0)[:, None])
+
+
+def _aggregate(e: list, blocks: list, n_nodes: int, mode: str,
+               plan: GraphPlan) -> list:
+    """Each node block's aggregate of every edge: `aggregate` on one
+    block, else each block's partial over its own edges
+    reduce-scattered to the node blocks."""
+    if plan.mesh is None:
+        return [aggregate(e[0], blocks[0]["receivers"], n_nodes, mode)]
+    parts = each_block(plan.mesh, plan.axes, lambda i, dev: _partial(
+        e[i], blocks[i]["receivers"], n_nodes, mode))
+    return _reduced(parts, mode, plan)
+
+
+def _proc_step(v, e, reps, step, blocks, n_nodes, cfg, plan):
+    """Processor step `step` over the blocks (lists, one entry a block,
+    each with its replica of the weights): all-gather the node latents,
+    each block's edges' messages, their aggregate reduce-scattered to
+    the node blocks, each block's node MLP on its own rows. A block's
+    weights are selected inside its body, so their backward is the
+    body's."""
+    full = all_gather_rows(plan.mesh, plan.axes, v)
+    rows, dev = v[0].shape[0], v[0].device
+
+    def edges(i, d):
+        b = blocks[i]
+        msg_in = torch.cat([e[i], full[i][b["senders"]],
+                            full[i][b["receivers"]]], dim=-1)
+        return e[i] + _mlp_apply(_step_mlp(reps[i], "edge_mlp", step),
+                                 msg_in, cfg)
+    e = _each(plan, dev, edges)
+    agg = _aggregate(e, blocks, n_nodes, cfg.aggregator, plan)
+
+    def nodes(i, d):
+        # on a mesh, the block's own rows of its gathered copy: the
+        # block's only reader is the all-gather, so its gradient has
+        # one source
+        v_i = v[0] if plan.mesh is None else full[i][i * rows:(i + 1)
+                                                     * rows]
+        return v_i + _mlp_apply(_step_mlp(reps[i], "node_mlp", step),
+                                torch.cat([v_i, agg[i]], dim=-1), cfg)
+    v = _each(plan, dev, nodes)
+    return _annotate(v, "nodes", plan), _annotate(e, "edges", plan)
+
+
+def _predict(reps: list, blocks: list, cfg: GNNConfig, plan: GraphPlan,
+             dev) -> list:
+    """Each block's predictions: (N / S, d_out), or (B / S, N, d_out)
+    for a batch of graphs, each block of which runs as one graph of
+    B / S x N nodes and exchanges nothing."""
+    if plan.batched:
+        def graphs(i, d):
+            b = blocks[i]
+            B, N = b["nodes"].shape[:2]
+            one = GraphPlan(None, (), 1, False)
+            flat = _graph_blocks(flatten_batch(b), cfg, one, d)
+            return _predict([reps[i]], flat, cfg, one, d)[0].reshape(
+                B, N, -1)
+        return _each(plan, dev, graphs)
+    n_nodes = blocks[0]["nodes"].shape[0] * plan.n
+    v = _annotate(_each(plan, dev, lambda i, d: _mlp_apply(
+        reps[i]["node_encoder"], blocks[i]["nodes"], cfg)), "nodes", plan)
+    e = _annotate(_each(plan, dev, lambda i, d: _mlp_apply(
+        reps[i]["edge_encoder"], blocks[i]["edges"], cfg)), "edges", plan)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for step in range(cfg.n_layers):
+        if remat:
+            v, e = checkpoint(_proc_step, v, e, reps, step, blocks, n_nodes,
+                              cfg, plan, use_reentrant=False)
+        else:
+            v, e = _proc_step(v, e, reps, step, blocks, n_nodes, cfg, plan)
+    return _each(plan, dev, lambda i, d: _mlp_apply(reps[i]["decoder"],
+                                                    v[i], cfg))
 
 
 def gnn_forward(params: dict, graph: dict, cfg: GNNConfig) -> torch.Tensor:
     """One graph {nodes (N, d_node_in), edges (E, d_edge_in), senders,
     receivers (E,)} -> (N, d_out) per-node predictions, on the
-    parameters' device."""
-    dev = _param_device(params)
-    nodes = _as_tensor(graph["nodes"], dev, cfg.dtype)
-    edges = _as_tensor(graph["edges"], dev, cfg.dtype)
-    senders = _as_tensor(graph["senders"], dev, torch.long)
-    receivers = _as_tensor(graph["receivers"], dev, torch.long)
-    N = nodes.shape[0]
-
-    v = logical_shard(_mlp_apply(params["node_encoder"], nodes, cfg),
-                      "nodes", None)
-    e = logical_shard(_mlp_apply(params["edge_encoder"], edges, cfg),
-                      "edges", None)
-    remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(cfg.n_layers):
-        p_layer = _layer(params, i)
-        if remat:
-            v, e = checkpoint(_proc_step, v, e, p_layer, senders, receivers,
-                              N, cfg, use_reentrant=False)
-        else:
-            v, e = _proc_step(v, e, p_layer, senders, receivers, N, cfg)
-    return _mlp_apply(params["decoder"], v, cfg)
+    parameters' device. Under a mesh context that splits the graph
+    (graph_plan) the blocks' predictions are joined there."""
+    plan, dev = _plan(graph), _param_device(params)
+    preds = _predict(_replicas(params, plan, dev),
+                     _graph_blocks(graph, cfg, plan, dev), cfg, plan, dev)
+    return preds[0] if plan.mesh is None else torch.cat(
+        [place(p, dev) for p in preds])
 
 
 def flatten_batch(graph: dict) -> dict:
@@ -307,30 +521,41 @@ def gnn_forward_batched(params: dict, graph: dict,
                         cfg: GNNConfig) -> torch.Tensor:
     """The molecule cell: every leaf has a leading batch dim; -> (B, N,
     d_out), JAX's vmap of forward over the batch."""
-    dev = _param_device(params)
-    g = {k: _as_tensor(graph[k], dev)
-         for k in ("nodes", "edges", "senders", "receivers")}
-    B, N = g["nodes"].shape[:2]
-    return gnn_forward(params, flatten_batch(g), cfg).reshape(B, N, -1)
+    return gnn_forward(params, graph, cfg)
+
+
+def _loss(reps: list, blocks: list, cfg: GNNConfig, plan: GraphPlan,
+          dev) -> torch.Tensor:
+    """gnn_loss over the blocks, on the first block's device: each sums
+    its own squared error (masked by node_mask where there is one); the
+    psum of the sums over the count (with a mask the psum of its sums x
+    d_out + 1e-9)."""
+    preds = _predict(reps, blocks, cfg, plan, dev)
+    masked = "node_mask" in blocks[0]
+
+    def body(i, d):
+        pred, b = preds[i], blocks[i]
+        err = (pred - b["targets"].to(pred.dtype)) ** 2
+        if not masked:
+            return (torch.sum(err),)
+        m = b["node_mask"].to(pred.dtype)
+        return torch.sum(err * m[..., None]), torch.sum(m)
+    parts = _each(plan, dev, body)
+    total = psum(plan.mesh, plan.axes, [p[0] for p in parts])[0]
+    if not masked:
+        return total / (preds[0].numel() * plan.n)
+    count = psum(plan.mesh, plan.axes, [p[1] for p in parts])[0]
+    return total / (count * preds[0].shape[-1] + 1e-9)
 
 
 def gnn_loss(params: dict, graph: dict, cfg: GNNConfig):
     """Squared error -> (loss, {"loss": loss}): the mean over every
     prediction, or with a node_mask the masked sum over
-    sum(mask) x d_out + 1e-9."""
-    dev = _param_device(params)
-    batched = len(graph["nodes"].shape) == 3
-    pred = (gnn_forward_batched if batched else gnn_forward)(
-        params, graph, cfg)
-    err = (pred - _as_tensor(graph["targets"], dev, pred.dtype)) ** 2
-    mask = graph.get("node_mask")
-    if mask is not None:
-        mask = _as_tensor(mask, dev, pred.dtype)
-        err = err * mask[..., None]
-        denom = torch.sum(mask) * pred.shape[-1] + 1e-9
-        loss = torch.sum(err) / denom
-    else:
-        loss = torch.mean(err)
+    sum(mask) x d_out + 1e-9. Under a mesh context that splits the
+    graph, the blocks' sums and counts are psum'd."""
+    plan, dev = _plan(graph), _param_device(params)
+    loss = _loss(_replicas(params, plan, dev),
+                 _graph_blocks(graph, cfg, plan, dev), cfg, plan, dev)
     return loss, {"loss": loss}
 
 
@@ -346,17 +571,26 @@ def gnn_adam_init(params: dict):
 
 
 def gnn_grads(params: dict, graph: dict, cfg: GNNConfig):
-    """(loss, metrics, gradient tree), as jax.value_and_grad gives them."""
-    flat = flatten_with_paths(params)
-    leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
+    """(loss, metrics, gradient tree), as jax.value_and_grad gives them.
+    Under a mesh context that splits the graph, each block reads its
+    own replica of the parameters and the replicas' gradients are
+    summed in shard order onto the parameters' device."""
+    plan, dev = _plan(graph), _param_device(params)
+    reps = _replicas(params, plan, dev, detach=True)
+    leaves = [flatten_with_paths(r) for r in reps]
     with torch.enable_grad():
-        loss, _ = gnn_loss(unflatten_like(params, leaves), graph, cfg)
-        g = torch.autograd.grad(loss, list(leaves.values()),
+        loss = _loss(reps, _graph_blocks(graph, cfg, plan, dev), cfg, plan,
+                     dev)
+        g = torch.autograd.grad(loss, [t for f in leaves for t in f.values()],
                                 allow_unused=True)
-    g = {k: torch.zeros_like(v) if gk is None else gk
-         for (k, v), gk in zip(leaves.items(), g)}
-    loss = loss.detach()
-    return loss, {"loss": loss}, unflatten_like(params, g)
+    keys = list(leaves[0])
+    per = [[torch.zeros_like(f[k]) if gk is None else gk
+            for k, gk in zip(keys, g[i * len(keys):(i + 1) * len(keys)])]
+           for i, f in enumerate(leaves)]
+    grads = {k: sum_to(plan.mesh, plan.axes, [p[j] for p in per], dev)
+             for j, k in enumerate(keys)}
+    loss = place(loss.detach(), dev)
+    return loss, {"loss": loss}, unflatten_like(params, grads)
 
 
 def gnn_train_step(params: dict, opt_state, graph: dict, cfg: GNNConfig, *,
@@ -478,8 +712,11 @@ def sample_from_uniforms(indptr, indices, seeds, uniforms) -> dict:
     int32(u x max(deg, 1)) of each frontier node from the CSR rows
     (with replacement: duplicates keep the shapes static), a node of
     degree 0 picks itself; edges run child (new layer) -> parent.
-    Indexes in int64. Returns {node_ids (T,), senders, receivers
-    (E,) int32 indices into node_ids, n_seeds}."""
+    Indexes in int64; the gather index is clamped into the CSR's
+    columns, as XLA's gather clamps it, so a node of degree 0 whose row
+    is the last reads a column (which the self loop then replaces) and
+    not past the end. Returns {node_ids (T,), senders, receivers (E,)
+    int32 indices into node_ids, n_seeds}."""
     indptr = _as_tensor(indptr, None)
     dev = indptr.device
     indptr = indptr.long()
@@ -499,7 +736,9 @@ def sample_from_uniforms(indptr, indices, seeds, uniforms) -> dict:
         start = indptr[frontier]
         deg = (indptr[frontier + 1] - start).to(torch.int32)
         pick = (u * torch.clamp_min(deg, 1)[:, None]).to(torch.int32)
-        nbr = indices[start[:, None] + pick.long()]            # (F, f)
+        at = torch.clamp(start[:, None] + pick.long(), 0,
+                         max(indices.shape[0] - 1, 0))
+        nbr = indices[at]                                      # (F, f)
         nbr = torch.where(deg[:, None] > 0, nbr, frontier[:, None])
         child_off = offset + n_par
         edge_src.append(child_off + torch.arange(n_par * f, device=dev))

@@ -157,11 +157,18 @@ def test_run_cell_on_a_smoke_mesh(arch, cell):
     mesh = make_smoke_mesh(device="cpu")
     rec = run_cell(arch, cell, mesh, "smoke_single", smoke=True)
     assert rec["status"] == "ok" and rec["fits"] and rec["fits_arguments"]
-    # a global program's temp is an estimate, and so is its fit
-    assert rec["estimated"] == ["per_device_bytes", "fits"]
     assert rec["trace_s"] >= 0 and rec["mesh_devices"] == 8
     gc, ma = rec["graph_cost"], rec["memory_analysis"]
-    assert not gc["partitioned"] and gc["devices"] == 8
+    assert gc["devices"] == 8
+    if arch == "meshgraphnet":
+        # build_gnn's step runs as shard bodies over the 2 'data'
+        # blocks: its temp is a body's own, no estimate
+        assert gc["partitioned"] and "estimated" not in rec
+        assert rec["collective_bytes"]["all-reduce"] > 0
+    else:
+        # a global program's temp is an estimate, and so is its fit
+        assert not gc["partitioned"]
+        assert rec["estimated"] == ["per_device_bytes", "fits"]
     assert ma["argument_size_in_bytes"] > 0
     assert rec["per_device_bytes"] == (
         ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
@@ -170,6 +177,61 @@ def test_run_cell_on_a_smoke_mesh(arch, cell):
     json.dumps(rec)
     if cell in ("retrieval_cand", "serve_online"):
         assert gc["n_kernel_ops"] >= 2
+
+
+# -- the partitioned GNN step ------------------------------------------------
+
+GNN_CELLS = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+GNN_RECORDS = sorted((REPO / "experiments" / "dryrun_torch").glob(
+    "*/meshgraphnet__*.json"))
+
+
+@pytest.mark.parametrize("cell", GNN_CELLS)
+def test_partitioned_gnn_flops_are_a_block_of_the_global_walk(cell):
+    """A SMOKE GNN cell's per-device flops on the (2, 4) mesh, whose
+    step runs one body a 'data' block, are the global walk's (the same
+    program on a one-device mesh) over the 2 blocks, within 5%: a
+    body's backward and recomputation are counted as the body's."""
+    spec = get_arch("meshgraphnet")
+    with fake_card():
+        one = virtual_mesh((1, 1), ("data", "model"), FAKE_CARD)
+    mesh = smoke_mesh()
+    c = _smoke_cell(spec, cell)
+    glob = graph_cost(trace_program(spec.build(spec.make_config(False), c,
+                                               one), one))
+    part = graph_cost(trace_program(spec.build(spec.make_config(False), c,
+                                               mesh), mesh))
+    assert part["partitioned"] and not glob["partitioned"]
+    assert part["flops"] == pytest.approx(glob["flops"] / 2, rel=0.05)
+    assert part["global_flops"] < 0.05 * part["flops"]
+
+
+def test_the_committed_gnn_records_are_partitioned():
+    assert len(GNN_RECORDS) == 8
+    assert {p.parent.name for p in GNN_RECORDS} == {"single", "multi"}
+
+
+@pytest.mark.parametrize("path", GNN_RECORDS,
+                         ids=[f"{p.parent.name}-{p.stem}"
+                              for p in GNN_RECORDS])
+def test_partitioned_gnn_records_match_jax_flops(path):
+    """Each committed meshgraphnet record says "partitioned": true, its
+    per-device flops are within [0.95, 1.05] of JAX's hlo_cost flops for
+    the same cell and mesh, and it counts the collectives it runs."""
+    rec = json.loads(path.read_text())
+    want = json.loads((REPO / "experiments" / "dryrun" / path.parent.name
+                       / path.name).read_text())
+    gc = rec["graph_cost"]
+    assert rec["status"] == "ok" and gc["partitioned"]
+    assert 0.95 <= gc["flops"] / want["hlo_cost"]["flops"] <= 1.05
+    parts = rec["collective_bytes"]["parts"]
+    assert parts["all-reduce"]["how"] == "counted"
+    assert rec["collective_bytes"]["total"] > 0
+    assert all(p["bytes"] > 0 for k, p in parts.items()
+               if p["how"] == "counted")
+    if rec["cell"] != "molecule":       # whole graphs a block: no exchange
+        assert parts["all-gather"]["bytes"] > 0
+        assert parts["reduce-scatter"]["bytes"] > 0
 
 
 # -- matmul flops against JAX's hlo_cost ------------------------------------

@@ -406,6 +406,30 @@ def test_zero_degree_seed_self_loops_as_jax():
     assert np.all(ids[4:7] == 1) and np.all(ids[7:10] == 3)
 
 
+@pytest.mark.parametrize("indptr,indices,seeds,want_ids", [
+    # node 2, the last row, has no neighbours: its index runs past the
+    # CSR's columns, which XLA's gather clamps
+    ([0, 2, 3, 3], [1, 2, 0], [2, 0], [2, 0, 2, 2, 2, 1]),
+    # the same CSR with the zero-degree row in the middle
+    ([0, 2, 2, 3], [1, 2, 0], [1, 0], None),
+], ids=["last-row", "middle-row"])
+def test_zero_degree_row_of_the_csr_self_loops_as_jax(indptr, indices,
+                                                      seeds, want_ids):
+    indptr, indices, seeds = (np.array(a, np.int32)
+                              for a in (indptr, indices, seeds))
+    key = jax.random.key(0)
+    want = jax_neighbor_sample(key, jnp.asarray(indptr), jnp.asarray(indices),
+                               jnp.asarray(seeds), fanouts=(2,))
+    got = sample_from_uniforms(indptr, indices, seeds,
+                               _jax_uniforms(key, 2, (2,)))
+    for k in ("node_ids", "senders", "receivers"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    if want_ids is not None:
+        np.testing.assert_array_equal(got["node_ids"].numpy(), want_ids)
+    # the zero-degree seed's children are itself
+    assert np.all(got["node_ids"].numpy()[2:4] == seeds[0])
+
+
 def test_neighbor_sample_static_shapes():
     """Twin of JAX's sampler test on the port's own draws."""
     gen = torch.Generator()

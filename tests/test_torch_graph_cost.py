@@ -408,6 +408,32 @@ def test_shard_bodies_are_costed_one_body_and_their_handoff_counted(mesh24):
     assert gc["bytes"] == one + merge + rest / 8
 
 
+def test_a_body_after_global_work_costs_its_own_backward_alone(mesh24):
+    """A train step whose map_shards bodies read a global layer's
+    output: the global layer's backward stays in the global part (over
+    the 8 devices), and a body's region holds its own product and the
+    two of its backward, not the work before it."""
+    from repro_torch.distributed.topk import map_shards
+
+    def fn(w1, w2, x):
+        w1, w2 = (w.detach().requires_grad_(True) for w in (w1, w2))
+        with torch.enable_grad():
+            h = x @ w1
+            out = map_shards(mesh24, "model", ("data",), 8,
+                             lambda rows, si, dev: h[rows] @ w2[
+                                 :, 4 * si:4 * (si + 1)], x.device)
+            loss = sum(torch.sum(p) for _, parts in out for p in parts)
+            return torch.autograd.grad(loss, (w1, w2))
+
+    walk = _walk(fn, mesh24, ((16, 16), F32), ((16, 16), F32),
+                 ((8, 16), F32))
+    assert walk.partitioned
+    mm = graph_cost(walk)["matmul_flops_by_dtype"]
+    # global: x @ w1 and x^T @ dh (x takes no gradient) over 8 devices;
+    # one body: (4, 16) @ (16, 4), and do @ w2^T and h^T @ do
+    assert sum(mm.values()) == 2 * (2 * 8 * 16 * 16) / 8 + 3 * (2 * 4 * 16 * 4)
+
+
 def test_train_collectives_are_modeled_from_the_specs(mesh24):
     from repro_torch.distributed.sharding import NamedSharding
     from repro_torch.launch.graph_analysis import collective_bytes
