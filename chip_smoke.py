@@ -236,7 +236,13 @@ Phases (any failure exits non-zero before a result is printed):
      each decode step's against lm_forward's at those positions, within
      LM_BF16_TOL, chunked against dense attention on layer 0's q, k, v
      in f32 at S=2048 within ATTN_TOL, the loss finite and falling;
-     then llama4-scout at its published width with its depth cut to 2
+     then the same prefill, decode steps (the cache laid over 'data' x
+     'model') and one train step (from a fresh Adam state) partitioned
+     through build_lm on a virtual (2, 4) mesh over the card, one shard
+     body a mesh position, against the global programs: logits within
+     LM_BF16_TOL, the loss, grad_norm and each leaf's clipped gradient
+     within PARTITIONED_LM, bitwise run to run, no FSDP leaf gathered
+     whole; then llama4-scout at its published width with its depth cut to 2
      of 48 layers: prefill at B=1, S=2048 and 4 decode steps (finite),
      the assignments dropped over capacity (lm_prefill's and
      lm_decode_step's stats) and the aux loss logged; then decode
@@ -3199,9 +3205,13 @@ def serve_lm_zoo(seed, dev, smi):
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         fail(f"phase Z: llama3.2-1b losses {losses} do not fall")
+    del opt, m
+    torch.cuda.empty_cache()
+    rep["partitioned"] = partitioned_llama(seed, dev, params, cfg, tokens,
+                                           smi)
     report["llama3.2-1b"] = rep
     log(f"phase Z llama3.2-1b {json.dumps(rep)} ({smi})")
-    del params, opt, batch, m
+    del params, batch
     torch.cuda.empty_cache()
 
     # -- llama4-scout at FULL width, depth cut to 2 layers ------------------
@@ -3268,6 +3278,190 @@ def serve_lm_zoo(seed, dev, smi):
     log(f"phase Z llama4-scout {json.dumps(rep)} ({smi})")
     report["seconds"] = time.perf_counter() - t_phase
     return report
+
+
+# phase Z's partitioned part: llama3.2-1b's prefill, decode and train
+# step through build_lm on a virtual make_smoke_mesh() (2, 4) over the
+# card (the batch over 'data', FSDP over 'data', tensor parallelism and
+# the cache's sequence over 'model'), at phase Z's shapes, against the
+# global programs on the same inputs. Bounds, set before the first run
+# from a CPU run of the same layout at d_model 256, 4 layers, S 256 in
+# bf16 (loss 9e-6 apart, grad_norm 4e-4, each leaf's gradient 0.022 in
+# norm, prefill logits' rel_l2 0.016): the loss within loss_rtol, the
+# grad_norm within grad_norm_rtol, each leaf's clipped gradient (Adam's
+# first moment after its first step, over 0.1) within leaf_rtol of the
+# global step's in norm; the logits within LM_BF16_TOL
+PARTITIONED_LM = dict(loss_rtol=2e-3, grad_norm_rtol=2e-2, leaf_rtol=0.1)
+
+
+def partitioned_llama(seed, dev, params, cfg, tokens, smi):
+    """Phase Z's partitioned part (PARTITIONED_LM): build_lm's prefill at
+    ZOO["prefill"], 8 decode steps at ZOO["decode"]'s batch against its
+    32,768-token cache laid over 'data' x 'model', and one train step at
+    ZOO["train"]'s shape from the parameters as the global steps left
+    them (the step leaves its inputs as they are) and a fresh Adam
+    state, on a virtual (2, 4) mesh over the card, each against the
+    global program on the same inputs. Fails unless the logits are
+    within LM_BF16_TOL of the global ones, the loss, grad_norm and each
+    leaf's clipped gradient within PARTITIONED_LM, and two calls give
+    the same bits; an out-of-memory error fails the phase. Logs both
+    sides' device ms (CUDA events) and peaks, and how many FSDP leaves
+    the step ever gathered whole on one device."""
+    from repro_torch.checkpoint.store import flatten_with_paths
+    from repro_torch.configs.lm_family import build_lm
+    from repro_torch.configs.registry import Cell
+    from repro_torch.data.batches import make_lm_batch
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import transformer as tt
+
+    mesh = make_smoke_mesh(device=dev)
+    rep = {"mesh": list(mesh.devices.shape)}
+
+    def same(a, b, label):
+        fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+        for k in fa:
+            x, y = fa[k], fb[k]
+            if hasattr(x, "blocks"):
+                ok = all(torch.equal(x.blocks[i][d], y.blocks[i][d])
+                         for i in x.blocks for d in x.blocks[i])
+            else:
+                ok = torch.equal(x, y)
+            if not ok:
+                fail(f"phase Z partitioned {label}: two calls differ at {k}")
+
+    # -- prefill -----------------------------------------------------------
+    B, S = ZOO["prefill"]
+    tok = tokens(B, S, cfg.vocab, 1)
+    prog = build_lm(cfg, Cell("prefill_32k", "prefill",
+                              {"seq_len": S, "global_batch": B}), mesh)
+    (cache, last), t = event_step(lambda: tt.lm_prefill(params, tok, cfg))
+    rep["prefill"] = {"global": t}
+    del cache
+    outs = []
+    for _ in range(2):
+        out, t = event_step(lambda: prog.fn(params, tok))
+        outs.append(out)
+        rep["prefill"].setdefault("partitioned", []).append(t)
+    rep["prefill"]["vs_global"] = bf16_close(
+        "phase Z partitioned prefill", outs[0][1].gather(), last)
+    same(outs[0], outs[1], "prefill")
+    del outs, out, last
+    torch.cuda.empty_cache()
+
+    # -- decode: 8 steps against a 32,768-token cache -----------------------
+    B, P, n_dec, max_seq = ZOO["decode"]
+    tok = tokens(B, P + n_dec, cfg.vocab, 3)
+    cache, _ = tt.lm_prefill(params, tok[:, :P], cfg)
+
+    def fresh():
+        full = tt.make_decode_cache(cfg, B, max_seq, device=dev)
+        for n in ("k", "v"):
+            full[n][:, :, :P] = cache[n]
+        return full
+
+    def decode(step, full):
+        return [step(full, tok[:, pos], pos) for pos in range(P, P + n_dec)]
+
+    full = fresh()
+    want, t = event_step(lambda: decode(
+        lambda c, x, p: tt.lm_decode_step(params, c, x, p, cfg)[0], full))
+    rep["decode"] = {"global": t}
+    del full
+    torch.cuda.empty_cache()
+    prog = build_lm(cfg, Cell("decode_32k", "decode",
+                              {"seq_len": max_seq, "global_batch": B}), mesh)
+    full = fresh()
+    del cache
+    runs = []
+    for _ in range(2):
+        # the second call rewrites rows P.. with the same values before
+        # any step reads them
+        got, t = event_step(lambda: decode(
+            lambda c, x, p: prog.fn(params, c, x, p)[0], full))
+        runs.append([g.gather() for g in got])
+        rep["decode"].setdefault("partitioned", []).append(t)
+    rep["decode"]["vs_global"] = [
+        bf16_close(f"phase Z partitioned decode step {j}", g, w)
+        for j, (g, w) in enumerate(zip(runs[0], want))]
+    for j, (a, b) in enumerate(zip(*runs)):
+        if not torch.equal(a, b):
+            fail(f"phase Z partitioned decode step {j}: two calls differ")
+    del full, runs, got, want
+    torch.cuda.empty_cache()
+
+    # -- one train step from a fresh Adam state ------------------------------
+    B, S, _ = ZOO["train"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 5)
+    batch = make_lm_batch(g, batch=B, seq=S, vocab=cfg.vocab, device=dev)
+    opt = tt.lm_adam_init(params, cfg)
+    ref, t = event_step(lambda: tt.lm_train_step(params, opt, batch, cfg))
+    rep["train"] = {"global": t}
+    ref_mu = ref[1].mu
+    ref_m = {k: float(ref[2][k]) for k in ("loss", "grad_norm")}
+    del ref
+    torch.cuda.empty_cache()
+    prog = build_lm(cfg, Cell("train_4k", "train",
+                              {"seq_len": S, "global_batch": B}), mesh)
+    # FSDP leaves a device ever held whole during the step: an FSDP
+    # gather's output of a leaf's whole (layer) shape, or one gathered
+    # over 'model' after it
+    shapes = {k: tuple(v.shape) for k, v in flatten_with_paths(
+        tt.lm_init(None, cfg, device="meta")).items()}
+    whole, made = set(), {}
+    fsdp, gather_model = tt._fsdp, tt._gather_model
+
+    def noting_fsdp(plan, xs, path):
+        out = fsdp(plan, xs, path)
+        if "data" in {a for e in plan.specs[path] if e
+                      for a in ((e,) if isinstance(e, str) else e)}:
+            made[id(out[0])] = path
+            if tuple(out[0].shape) in (shapes[path], shapes[path][1:]):
+                whole.add(path)
+        return out
+
+    def noting_model(plan, xs, dim):
+        if id(xs[0]) in made:
+            whole.add(made[id(xs[0])])
+        return gather_model(plan, xs, dim)
+    tt._fsdp, tt._gather_model = noting_fsdp, noting_model
+    try:
+        out1, t = event_step(lambda: prog.fn(params, opt, batch))
+        rep["train"]["partitioned"] = [t]
+        worst = 0.0
+        for k, mu in ref_mu.items():
+            got_mu = out1[1].mu[k].gather()
+            rel = float(torch.linalg.vector_norm(got_mu.float() - mu.float())
+                        / torch.linalg.vector_norm(mu.float()).clamp_min(
+                            1e-30))
+            worst = max(worst, rel)
+            if not rel <= PARTITIONED_LM["leaf_rtol"]:
+                fail(f"phase Z partitioned: leaf {k}'s gradient {rel} from "
+                     f"the global step's in norm")
+            del got_mu
+        rep["train"]["leaf_grad_rel"] = worst
+        del ref_mu
+        for k, bound in (("loss", "loss_rtol"),
+                         ("grad_norm", "grad_norm_rtol")):
+            a = float(out1[2][k])
+            rep["train"][k] = {"partitioned": a, "global": ref_m[k]}
+            if not math.isfinite(a) or abs(a - ref_m[k]) > \
+                    PARTITIONED_LM[bound] * abs(ref_m[k]):
+                fail(f"phase Z partitioned: {k} {a!r} against the global "
+                     f"step's {ref_m[k]!r}")
+        torch.cuda.empty_cache()
+        out2, t = event_step(lambda: prog.fn(params, opt, batch))
+        rep["train"]["partitioned"].append(t)
+        same(out1, out2, "train step")
+    finally:
+        tt._fsdp, tt._gather_model = fsdp, gather_model
+    rep["train"]["fsdp_leaves_gathered_whole"] = len(whole)
+    if whole:
+        fail(f"phase Z partitioned: FSDP leaves gathered whole: {whole}")
+    del out1, out2, opt, batch
+    torch.cuda.empty_cache()
+    log(f"phase Z partitioned llama3.2-1b {json.dumps(rep)} ({smi})")
+    return rep
 
 
 # phase G: MeshGraphNet's FULL config (15 layers, d_hidden 128) on the

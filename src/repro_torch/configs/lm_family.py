@@ -13,7 +13,15 @@ decode_32k and long_500k, all four on one parameterization
 `build_lm(cfg, cell, mesh)` gives the cell's Program: its arguments as
 ArgSpec trees with JAX's shardings (parameters FSDP/TP by
 lm_logical_axes, Adam's moments likewise, the batch over the batch
-axes), shapes from the meta device, nothing materialised.
+axes), shapes from the meta device, nothing materialised. Its `fn`
+enters the mesh and the cell's rules, so a dense config's program runs
+partitioned (models.transformer.lm_plan: one shard body a mesh
+position, FSDP over 'data', tensor parallelism over 'model', the batch
+and the cache by their specs), as JAX's jit partitions the annotated
+program; an argument may be a tensor (laid by its spec at entry) or a
+launch.mesh.Sharded laid so, and the parameters, moments, caches and
+logits come back Sharded. An MoE config's program runs global (its
+'shmap' dispatch in shard bodies of its own).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from repro_torch.distributed.sharding import (
     NamedSharding,
     filter_rules,
     param_shardings,
+    use_mesh_rules,
 )
 from repro_torch.models.transformer import (
     LMConfig,
@@ -92,7 +101,8 @@ def build_lm(cfg: LMConfig, cell: Cell, mesh) -> Program:
                  "labels": sds((B, S), torch.int32, batch_sh)}
 
         def fn(params, opt, batch):
-            return lm_train_step(params, opt, batch, cfg)
+            with use_mesh_rules(mesh, rules):
+                return lm_train_step(params, opt, batch, cfg)
 
         return Program(fn=fn, args=(params, opt, batch), rules=rules)
 
@@ -100,7 +110,8 @@ def build_lm(cfg: LMConfig, cell: Cell, mesh) -> Program:
         tokens = sds((B, S), torch.int32, batch_sh)
 
         def fn(params, tokens):
-            return lm_prefill(params, tokens, cfg)
+            with use_mesh_rules(mesh, rules):
+                return lm_prefill(params, tokens, cfg)
 
         return Program(fn=fn, args=(params, tokens), rules=rules)
 
@@ -113,7 +124,8 @@ def build_lm(cfg: LMConfig, cell: Cell, mesh) -> Program:
         pos = sds((), torch.int32, NamedSharding(mesh, ()))
 
         def fn(params, cache, token, pos):
-            return lm_decode_step(params, cache, token, pos, cfg)
+            with use_mesh_rules(mesh, rules):
+                return lm_decode_step(params, cache, token, pos, cfg)
 
         return Program(fn=fn, args=(params, cache, token, pos), rules=rules)
 

@@ -12,8 +12,8 @@ it) and the rules it was built under. Nothing is materialised: a
 build's parameter shapes come from the meta device. The program runs
 on global tensors on one device; a caller that enters
 `use_mesh_rules(mesh, program.rules)` gets the mesh-aware paths (the
-'shmap' MoE); build_gnn's program enters its own and runs
-partitioned. Donation (JAX's donate_argnums) has no meaning in eager
+'shmap' MoE); build_gnn's and build_lm's programs enter their own, and
+the GNN's and the dense LMs' run partitioned. Donation (JAX's donate_argnums) has no meaning in eager
 PyTorch and is left out.
 """
 

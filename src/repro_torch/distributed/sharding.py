@@ -13,8 +13,9 @@ so ('pod', 'data') also serves the single-pod mesh.
 The port has no SPMD partitioner: one process drives the mesh
 (launch/mesh.py). Where JAX writes a shard body with shard_map
 (layers.moe_apply_shmap, optim.compression), the port writes it over
-distributed.topk.map_shards. The GNN's step, which JAX only annotates,
-the port partitions by hand (models.gnn.graph_plan: shard bodies and
+distributed.topk.map_shards. The GNN's step and the dense LM programs,
+which JAX only annotates, the port partitions by hand
+(models.gnn.graph_plan, models.transformer.lm_plan: shard bodies and
 distributed.topk's collectives). Elsewhere, where JAX only annotates
 and leaves the rest to GSPMD, the port resolves the same specs but runs
 the program on global tensors: `logical_shard` under an active context checks the

@@ -33,12 +33,38 @@ not depend on the order in which several devices' gradients reach a
 tensor: a mesh across cards gives a virtual mesh's bits. `sum_to`
 sums the shards' tensors onto one device (a replicated step's
 gradients), with no backward.
+
+The partitioned LM (models.transformer.lm_plan) runs one body a mesh
+position, and its collectives take a list of one tensor a position
+(row-major over the mesh's axes, `positions`) and act within each
+position's group over `axes` (the positions that share every other
+coordinate), in block order: `all_gather_dim` and
+`reduce_scatter_dim` along any dimension (FSDP's gathers: an
+all-gather's backward reduce-scatters where the work below it is split
+over `axes`, and takes the position's own slice where the work is
+replicated there), Megatron's pair `reduce_from_shards` (a sum, whose
+backward is the identity: after a row-parallel product) and
+`copy_to_shards` (the identity, whose backward is a sum: before a
+column-parallel one), and `max_over_shards`, with no gradient. Every
+position sums its group's tensors itself, stacked in block order and
+reduced by one op, so replicas hold the same bits.
+
+`one_body()` is the cost walk's mode (launch/graph_cost.py): each_block
+runs the body of its first block only and hands its outputs out for
+every block, the collectives take the first block's tensor for all of
+theirs, and each op is counted for the blocks it stands for. It holds
+where every block's body runs the same ops on the same shapes: a
+program's inputs split evenly (models.transformer._blocks cuts them by
+split_dim, graph_plan refuses a graph its blocks do not divide).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -149,14 +175,51 @@ def run_on_shard(device: torch.device, merge_device: torch.device | None,
     return out
 
 
+_ONE = threading.local()
+
+
+@contextlib.contextmanager
+def one_body():
+    """Within the block, on this thread, each_block runs its first
+    block's body alone and the collectives take the first block's
+    tensor for every block (the cost walk's mode; see the module's
+    docstring)."""
+    prev = getattr(_ONE, "on", False)
+    _ONE.on = True
+    try:
+        yield
+    finally:
+        _ONE.on = prev
+
+
+def one_body_active() -> bool:
+    return getattr(_ONE, "on", False)
+
+
+def body_copies() -> int:
+    """The blocks the body running now stands for: 1, or under
+    one_body() the blocks of its each_block."""
+    return getattr(_ONE, "copies", 1)
+
+
 def each_block(mesh: Mesh, axes, body) -> list:
     """body(i, device) for each block i of a dimension split over `axes`
     (a name or a tuple of names; block_coords' order, the first axis
     slowest), each on its block's device (run_on_shard), its outputs
-    left there. Returns the outputs in block order."""
+    left there. Returns the outputs in block order; under one_body() the
+    first block's outputs stand for every block's."""
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    n = axis_size(mesh, axes)
+    if one_body_active():
+        dev = shard_device(mesh, block_coords(mesh, axes, 0))
+        prev, _ONE.copies = body_copies(), n
+        try:
+            out = run_on_shard(dev, None, lambda: body(0, dev))
+        finally:
+            _ONE.copies = prev
+        return [out] * n
     out = []
-    for i in range(axis_size(mesh, axes)):
+    for i in range(n):
         dev = shard_device(mesh, block_coords(mesh, axes, i))
         out.append(run_on_shard(dev, None,
                                 lambda i=i, dev=dev: body(i, dev)))
@@ -202,43 +265,61 @@ def _scatter_rows(mesh: Mesh, axes, parts) -> list:
 
 
 def _psum(mesh: Mesh, axes, xs) -> list:
-    """The shards' sum, in shard order on the first shard's device, then
-    copied to every other shard (a copy of its own on a virtual mesh)."""
-    total = []
-
+    """The shards' sum on every shard, each summing them in shard order
+    on its own device: the same bits on every shard, and the same ops in
+    every block's body."""
     def body(i, dev):
         note_exchange("all-reduce", 2 * _nbytes(xs[i]), axes)
-        if i == 0:
-            acc = xs[0]
-            for x in xs[1:]:
-                acc = acc + place(x, dev)
-            total.append(acc)
-            return acc
-        copy = place(total[0], dev)
-        return copy.clone() if copy is total[0] else copy
+        acc = place(xs[0], dev)
+        for x in xs[1:]:
+            acc = acc + place(x, dev)
+        return acc
     return each_block(mesh, axes, body)
+
+
+def _expand(xs, n: int) -> list:
+    """A collective's inputs as n blocks: under one_body() the first
+    block's tensor stands for all n."""
+    xs = list(xs)
+    return xs * n if len(xs) == 1 and n > 1 else xs
+
+
+def _ins(xs) -> list:
+    """The tensors a collective hands to autograd: under one_body() the
+    first block's alone, so its backward runs once, for that block."""
+    return list(xs[:1]) if one_body_active() else list(xs)
+
+
+def _outs(out, n: int) -> list:
+    return list(out) * n if len(out) == 1 and n > 1 else list(out)
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mesh, axes, *blocks):
-        ctx.mesh, ctx.axes = mesh, axes
-        return tuple(_gather_rows(mesh, axes, blocks))
+        ctx.mesh, ctx.axes, ctx.k = mesh, axes, len(blocks)
+        n = axis_size(mesh, axes)
+        return tuple(_gather_rows(mesh, axes, _expand(blocks, n))[:ctx.k])
 
     @staticmethod
     def backward(ctx, *grads):
-        return (None, None) + tuple(_scatter_rows(ctx.mesh, ctx.axes, grads))
+        n = axis_size(ctx.mesh, ctx.axes)
+        return (None, None) + tuple(_scatter_rows(
+            ctx.mesh, ctx.axes, _expand(grads, n))[:ctx.k])
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mesh, axes, *parts):
-        ctx.mesh, ctx.axes = mesh, axes
-        return tuple(_scatter_rows(mesh, axes, parts))
+        ctx.mesh, ctx.axes, ctx.k = mesh, axes, len(parts)
+        n = axis_size(mesh, axes)
+        return tuple(_scatter_rows(mesh, axes, _expand(parts, n))[:ctx.k])
 
     @staticmethod
     def backward(ctx, *grads):
-        return (None, None) + tuple(_gather_rows(ctx.mesh, ctx.axes, grads))
+        n = axis_size(ctx.mesh, ctx.axes)
+        return (None, None) + tuple(_gather_rows(
+            ctx.mesh, ctx.axes, _expand(grads, n))[:ctx.k])
 
 
 class _ReduceScatterMax(torch.autograd.Function):
@@ -252,8 +333,10 @@ class _ReduceScatterMax(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mesh, axes, *parts_and_counts):
-        n = len(parts_and_counts) // 2
-        parts, counts = parts_and_counts[:n], parts_and_counts[n:]
+        k = len(parts_and_counts) // 2
+        n = axis_size(mesh, axes)
+        parts = _expand(parts_and_counts[:k], n)
+        counts = _expand(parts_and_counts[k:], n)
         rows = split_dim(parts[0].shape[0], n, "rows over the blocks")
 
         def body(j, dev):
@@ -276,11 +359,13 @@ class _ReduceScatterMax(torch.autograd.Function):
                          for t in tied]
         outs = each_block(mesh, axes, body)
         ctx.mesh, ctx.axes, ctx.shares = mesh, axes, [o[1] for o in outs]
-        return tuple(o[0] for o in outs)
+        ctx.k = k
+        return tuple(o[0] for o in outs[:k])
 
     @staticmethod
     def backward(ctx, *grads):
         shares = ctx.shares
+        grads = _expand(grads, len(shares))
         pieces = each_block(ctx.mesh, ctx.axes, lambda j, dev: [
             grads[j] * w for w in shares[j]])
 
@@ -289,19 +374,26 @@ class _ReduceScatterMax(torch.autograd.Function):
                                             enumerate(pieces) if j != i),
                           ctx.axes)
             return torch.cat([place(p[i], dev) for p in pieces])
-        return ((None, None) + tuple(each_block(ctx.mesh, ctx.axes, gather))
-                + (None,) * len(grads))
+        return ((None, None)
+                + tuple(each_block(ctx.mesh, ctx.axes, gather)[:ctx.k])
+                + (None,) * ctx.k)
 
 
 class _Psum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mesh, axes, *xs):
-        ctx.mesh, ctx.axes = mesh, axes
-        return tuple(_psum(mesh, axes, xs))
+    def forward(ctx, mesh, axes, identity, *xs):
+        ctx.mesh, ctx.axes, ctx.k = mesh, axes, len(xs)
+        ctx.identity = identity
+        n = axis_size(mesh, axes)
+        return tuple(_psum(mesh, axes, _expand(xs, n))[:ctx.k])
 
     @staticmethod
     def backward(ctx, *grads):
-        return (None, None) + tuple(_psum(ctx.mesh, ctx.axes, grads))
+        if ctx.identity:
+            return (None, None, None) + tuple(g.view_as(g) for g in grads)
+        n = axis_size(ctx.mesh, ctx.axes)
+        return (None, None, None) + tuple(_psum(ctx.mesh, ctx.axes,
+                                                _expand(grads, n))[:ctx.k])
 
 
 def _axes_of(mesh: Mesh, axes, n: int) -> tuple[str, ...]:
@@ -319,8 +411,8 @@ def all_gather_rows(mesh: Mesh, axes, blocks) -> list:
     identity, as are the other collectives'."""
     if len(blocks) == 1:
         return list(blocks)
-    return list(_AllGather.apply(mesh, _axes_of(mesh, axes, len(blocks)),
-                                 *blocks))
+    axes = _axes_of(mesh, axes, len(blocks))
+    return _outs(_AllGather.apply(mesh, axes, *_ins(blocks)), len(blocks))
 
 
 def reduce_scatter_rows(mesh: Mesh, axes, parts, reduce: str = "sum",
@@ -333,23 +425,30 @@ def reduce_scatter_rows(mesh: Mesh, axes, parts, reduce: str = "sum",
     if len(parts) == 1:
         return list(parts)
     axes = _axes_of(mesh, axes, len(parts))
+    n = len(parts)
     if reduce == "sum":
-        return list(_ReduceScatter.apply(mesh, axes, *parts))
+        return _outs(_ReduceScatter.apply(mesh, axes, *_ins(parts)), n)
     if reduce != "max":
         raise ValueError(reduce)
     if counts is None or len(counts) != len(parts):
         raise ValueError("a max needs each shard's tie counts")
-    return list(_ReduceScatterMax.apply(mesh, axes, *parts, *counts))
+    return _outs(_ReduceScatterMax.apply(mesh, axes, *_ins(parts),
+                                         *_ins(counts)), n)
 
 
-def psum(mesh: Mesh, axes, xs) -> list:
+def psum(mesh: Mesh, axes, xs, grad: str = "sum") -> list:
     """The sum of the shards' tensors (one a shard, of one shape) on
-    every shard: summed in shard order on the first shard's device,
-    then copied to the others. Its backward is a psum of the
-    gradients."""
+    every shard, each summing them in shard order on its own device.
+    Its backward is a psum of the gradients, or with grad="identity"
+    each shard's own gradient (where every shard's copy of the sum
+    seeds its own backward, as the partitioned GNN's loss does)."""
+    if grad not in ("sum", "identity"):
+        raise ValueError(grad)
     if len(xs) == 1:
         return list(xs)
-    return list(_Psum.apply(mesh, _axes_of(mesh, axes, len(xs)), *xs))
+    axes = _axes_of(mesh, axes, len(xs))
+    return _outs(_Psum.apply(mesh, axes, grad == "identity", *_ins(xs)),
+                 len(xs))
 
 
 def sum_to(mesh: Mesh, axes, xs, device: torch.device) -> torch.Tensor:
@@ -367,6 +466,216 @@ def sum_to(mesh: Mesh, axes, xs, device: torch.device) -> torch.Tensor:
     for x in xs[1:]:
         acc = acc + place(x, device)
     return acc
+
+
+# -- collectives over each position's group (the partitioned LM) -------------
+
+def positions(mesh: Mesh) -> list[tuple]:
+    """The mesh's positions, row-major over its axes (the first axis
+    slowest): the order of a list of one tensor a position."""
+    return [tuple(int(c) for c in p) for p in np.ndindex(*mesh.devices.shape)]
+
+
+def each_position(mesh: Mesh, body) -> list:
+    """body(i, device) for every mesh position i (positions' order), each
+    on its device: each_block over all of the mesh's axes."""
+    return each_block(mesh, mesh.axis_names, body)
+
+
+@functools.cache
+def _groups(mesh: Mesh, axes: tuple) -> tuple:
+    """For each position, (its group over `axes`: the positions that
+    share its other coordinates, in block order; its block index)."""
+    names = mesh.axis_names
+    rest = [names.index(a) for a in names if a not in axes]
+    order = rest + [names.index(a) for a in axes]
+    flat = np.arange(mesh.devices.size).reshape(mesh.devices.shape)
+    rows = flat.transpose(order).reshape(-1, axis_size(mesh, axes))
+    out = [None] * mesh.devices.size
+    for row in rows:
+        members = tuple(int(q) for q in row)
+        for r, q in enumerate(members):
+            out[q] = (members, r)
+    return tuple(out)
+
+
+def _group_axes(mesh: Mesh, axes) -> tuple[str, ...]:
+    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    return tuple(a for a in axes if a in mesh.axis_names)
+
+
+def _gather_dim(mesh, axes, dim, xs) -> list:
+    groups = _groups(mesh, axes)
+
+    def body(i, dev):
+        members, _ = groups[i]
+        note_exchange("all-gather", sum(_nbytes(xs[q]) for q in members
+                                        if q != i), axes)
+        return torch.cat([place(xs[q], dev) for q in members], dim)
+    return each_position(mesh, body)
+
+
+def _stacked_sum(ts: list) -> torch.Tensor:
+    """The tensors stacked in block order and summed by one reduction
+    (in f32 for a narrower type, rounded once): the same op, and so the
+    same bits, on every position that sums them."""
+    return torch.stack(ts).sum(0)
+
+
+def _scatter_dim(mesh, axes, dim, xs) -> list:
+    groups = _groups(mesh, axes)
+    size = split_dim(xs[0].shape[dim], axis_size(mesh, axes),
+                     f"dim {dim} over {axes}")
+
+    def body(i, dev):
+        members, r = groups[i]
+        note_exchange("reduce-scatter", sum(
+            _nbytes(xs[q]) // len(members) for q in members if q != i), axes)
+        return _stacked_sum([place(xs[q].narrow(dim, r * size, size), dev)
+                             for q in members])
+    return each_position(mesh, body)
+
+
+def _own_dim(mesh, axes, dim, xs) -> list:
+    """Each position's own slice of its own tensor, copied in its body
+    (a slice's view would be copied again outside it, where a gradient
+    accumulates)."""
+    groups = _groups(mesh, axes)
+    size = split_dim(xs[0].shape[dim], axis_size(mesh, axes),
+                     f"dim {dim} over {axes}")
+    return each_position(mesh, lambda i, dev: xs[i].narrow(
+        dim, groups[i][1] * size, size).clone())
+
+
+def _sum_group(mesh, axes, xs) -> list:
+    groups = _groups(mesh, axes)
+
+    def body(i, dev):
+        members, _ = groups[i]
+        note_exchange("all-reduce", 2 * _nbytes(xs[i]), axes)
+        return _stacked_sum([place(xs[q], dev) for q in members])
+    return each_position(mesh, body)
+
+
+def _max_group(mesh, axes, xs) -> list:
+    groups = _groups(mesh, axes)
+
+    def body(i, dev):
+        members, _ = groups[i]
+        note_exchange("all-reduce", 2 * _nbytes(xs[i]), axes)
+        return torch.stack([place(xs[q], dev) for q in members]).amax(0)
+    return each_position(mesh, body)
+
+
+# (forward, backward) of each collective over position lists; Megatron's
+# pair's identity halves return views of the tensors they are given
+_OVER = {
+    "gather_sum": (_gather_dim, _scatter_dim),
+    "gather_own": (_gather_dim, _own_dim),
+    "scatter": (_scatter_dim, _gather_dim),
+    "reduce": (lambda m, a, d, xs: _sum_group(m, a, xs), None),
+    "copy": (None, lambda m, a, d, gs: _sum_group(m, a, gs)),
+}
+
+
+class _OverShards(torch.autograd.Function):
+    """One collective over every position's group: its inputs one tensor
+    a position (under one_body() the first position's alone)."""
+
+    @staticmethod
+    def forward(ctx, kind, mesh, axes, dim, *xs):
+        ctx.kind, ctx.mesh, ctx.axes, ctx.dim = kind, mesh, axes, dim
+        ctx.k = len(xs)
+        fwd = _OVER[kind][0]
+        if fwd is None:
+            return tuple(x.view_as(x) for x in xs)
+        return tuple(fwd(mesh, axes, dim, _expand(xs, mesh.devices.size))[
+            :ctx.k])
+
+    @staticmethod
+    def backward(ctx, *gs):
+        back = _OVER[ctx.kind][1]
+        if back is None:
+            return (None,) * 4 + tuple(g.view_as(g) for g in gs)
+        return (None,) * 4 + tuple(back(ctx.mesh, ctx.axes, ctx.dim,
+                                        _expand(gs, ctx.mesh.devices.size))[
+            :ctx.k])
+
+
+def _over(kind: str, mesh: Mesh, axes, xs, dim: int = 0) -> list:
+    axes = _group_axes(mesh, axes)
+    n = mesh.devices.size
+    if len(xs) != n:
+        raise ValueError(f"{len(xs)} tensors for the {n} positions")
+    if axis_size(mesh, axes) == 1:
+        return list(xs)
+    ins = _ins(xs)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in ins):
+        return _outs(_OverShards.apply(kind, mesh, axes, dim, *ins), n)
+    fwd = _OVER[kind][0]
+    if fwd is None:
+        return list(xs)
+    return _outs(fwd(mesh, axes, dim, _expand(ins, n))[:len(ins)], n)
+
+
+def all_gather_dim(mesh: Mesh, axes, xs, dim: int = 0,
+                   grad: str = "sum") -> list:
+    """Each position's block -> its group's blocks over `axes` joined
+    along `dim` in block order. The backward sums each block's gradient
+    over the group (grad="sum": a reduce-scatter, where the positions'
+    work below is split over `axes`) or takes the position's own slice
+    of its own gradient (grad="own": where that work is replicated over
+    `axes` and each copy's gradient whole). Every sum here is
+    _stacked_sum's."""
+    if grad not in ("sum", "own"):
+        raise ValueError(grad)
+    return _over(f"gather_{grad}", mesh, axes, xs, dim)
+
+
+def reduce_scatter_dim(mesh: Mesh, axes, xs, dim: int = 0) -> list:
+    """Each position's partial -> block r (its block index over `axes`)
+    of the group's sum along `dim`. Its backward is all_gather_dim's
+    forward."""
+    return _over("scatter", mesh, axes, xs, dim)
+
+
+def reduce_from_shards(mesh: Mesh, axes, xs) -> list:
+    """The group's sum over `axes` on each position; the backward is the
+    identity (Megatron's operator after a row-parallel product: the
+    work after it is replicated over `axes`, and each copy seeds its
+    own gradient)."""
+    return _over("reduce", mesh, axes, xs)
+
+
+def copy_to_shards(mesh: Mesh, axes, xs) -> list:
+    """The identity; the backward sums the group's gradients over `axes`
+    (Megatron's operator before a column-parallel product: each
+    position's gradient is its part of the whole)."""
+    return _over("copy", mesh, axes, xs)
+
+
+@torch.no_grad()
+def max_over_shards(mesh: Mesh, axes, xs) -> list:
+    """The group's elementwise max over `axes` on each position; no
+    gradient (a log-sum-exp's shift, a softmax merge's)."""
+    axes = _group_axes(mesh, axes)
+    if axis_size(mesh, axes) == 1:
+        return list(xs)
+    if one_body_active():
+        return _max_group(mesh, axes, _expand(xs[:1], len(xs)))
+    return _max_group(mesh, axes, list(xs))
+
+
+@torch.no_grad()
+def sum_over_shards(mesh: Mesh, axes, xs) -> list:
+    """The group's sum over `axes` on each position, with no gradient (a
+    train step's gradients over the batch axes that its parameter is not
+    split over; the clip's squares)."""
+    axes = _group_axes(mesh, axes)
+    if axis_size(mesh, axes) == 1:
+        return list(xs)
+    return _sum_group(mesh, axes, _expand(xs[:1], len(xs))
+                      if one_body_active() else list(xs))
 
 
 def batch_axes_of(mesh: Mesh, batch_axes) -> tuple[str, ...]:

@@ -15,11 +15,14 @@ experiments/dryrun_torch/<mesh>/<arch>__<cell>.json. It keeps JAX's keys
 where they mean the same thing, with `trace_s` (the walk's seconds)
 where JAX has lower_s / compile_s, `graph_cost` where JAX has hlo_cost,
 `fits` (per_device_bytes within the card's 80 GB) and `fits_arguments`
-(the arguments' blocks alone within it). A global program (every
-default build: the port has no SPMD partitioner) is costed as its whole
-walk over the device count and says "partitioned": false; its temp
-bytes, and so per_device_bytes and `fits`, are estimates, which the
-record lists under "estimated". `fits_arguments` is exact: a cell
+(the arguments' blocks alone within it). A partitioned program (the
+GNN's and the dense LMs' builds: shard bodies, one a block or a mesh
+position) is traced one body for all (graph_cost.trace_program's
+one_body) and costed per device. A global program (the recsys builds
+and the MoE LMs: the port has no SPMD partitioner) is costed as its
+whole walk over the device count and says "partitioned": false; its
+temp bytes, and so per_device_bytes and `fits`, are estimates, which
+the record lists under "estimated". `fits_arguments` is exact: a cell
 whose arguments do not fit cannot fit, whatever its temp.
 Failures are recorded (and are bugs to fix), counted, and make the run
 exit 1.
@@ -87,7 +90,11 @@ def _smoke_cell(spec, cell_name):
 
 
 def run_cell(arch_name: str, cell_name: str, mesh, mesh_tag: str,
-             *, smoke: bool = False, variant: str | None = None) -> dict:
+             *, smoke: bool = False, variant: str | None = None,
+             one_body: bool = True) -> dict:
+    """The cell's record; `one_body` as trace_program's (a partitioned
+    program's first body stands for every body's: the same record in
+    about one body's time)."""
     spec = get_arch(arch_name)
     cell = _smoke_cell(spec, cell_name) if smoke else spec.cell(cell_name)
     cfg = spec.variants[variant]() if variant else spec.make_config(
@@ -103,7 +110,7 @@ def run_cell(arch_name: str, cell_name: str, mesh, mesh_tag: str,
     }
     program = spec.build(cfg, cell, mesh)
     t0 = time.perf_counter()
-    walk = trace_program(program, mesh)
+    walk = trace_program(program, mesh, one_body=one_body)
     record["trace_s"] = round(time.perf_counter() - t0, 2)
 
     record["memory_analysis"] = ma = memory_analysis(walk)

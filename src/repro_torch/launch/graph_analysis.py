@@ -9,15 +9,18 @@ Memory, per device:
             argument_size_in_bytes counts them after jit's
             keep_unused=False drops the rest;
   output    an output that is an argument's storage at that argument's
-            block, every other output over the device count;
+            block, every other output over the device count (where the
+            program runs shard bodies, the outputs the first position's
+            bodies or the global part made);
   alias     the outputs that are arguments updated in place;
   temp      the walk's peak of live bytes, over the device count where
             the program is global; where it runs shard bodies, the
             largest mesh position's peak of the storages its bodies
             made (the global part's go to the first position).
-Where the program is global (the LM and recsys builds: the port
-partitions only the GNN's) the output and temp bytes are estimates of
-a partitioned program's, and the record lists them under "estimated".
+Where the program is global (the recsys builds and the MoE LMs: the
+port partitions the GNN's and the dense LMs') the output and temp bytes
+are estimates of a partitioned program's, and the record lists them
+under "estimated".
 
 Collectives, per device, each part marked:
   counted   the bytes each shard body hands to the merging device
@@ -35,8 +38,12 @@ Collectives, per device, each part marked:
             (remat) and its gradient reduce-scattered; a leaf replicated
             over the batch axes has its gradient all-reduced over them;
             each part at its axes' link rate (roofline.link_rate);
-  absent    tensor parallelism's activation collectives (the 'model'
-            axis): nothing counts them without a partitioner.
+  tp_activations  the exchanges over 'model' (tensor parallelism's:
+            the partitioned LM's row-parallel sums, its vocab-parallel
+            loss, decode's merge over the cache's blocks, the gathers of
+            weights its heads need), counted by kind under "kinds" and
+            left out of the parts above; "absent" where the mesh has a
+            'model' axis and nothing counts them (a global program).
 Bytes modeled are result-buffer bytes, JAX's convention: an
 all-gather's gathered leaf, a reduce-scatter's shard, an all-reduce's
 whole block.
@@ -48,7 +55,12 @@ import math
 from collections import defaultdict
 
 from repro_torch.launch import roofline
-from repro_torch.launch.graph_cost import KERNELS, Walk
+from repro_torch.launch.graph_cost import (  # noqa: F401 (block_bytes)
+    KERNELS,
+    Walk,
+    _made_elsewhere,
+    block_bytes,
+)
 
 CENSUS = ("matmul",) + KERNELS + ("index", "scatter", "sort", "topk",
                                   "copy", "collective")
@@ -63,22 +75,8 @@ def op_census(walk: Walk) -> dict:
     for op in walk.ops:
         cat = "topk" if op.name == "topk" else op.cat
         if cat in CENSUS:
-            census[cat] += 1
+            census[cat] += op.weight
     return dict(census)
-
-
-def block_bytes(spec) -> int:
-    """One device's block of an ArgSpec: its shape over the mesh axes of
-    its sharding (none: the whole leaf)."""
-    from repro_torch.launch.mesh import axis_size, spec_entries
-
-    item = spec.dtype.itemsize
-    sh = spec.sharding
-    if sh is None:
-        return math.prod(spec.shape) * item
-    entries = spec_entries(sh.spec, len(spec.shape))
-    return math.prod(-(-n // axis_size(sh.mesh, axes))
-                     for n, axes in zip(spec.shape, entries)) * item
 
 
 def memory_analysis(walk: Walk) -> dict:
@@ -90,6 +88,8 @@ def memory_analysis(walk: Walk) -> dict:
         arg_of.setdefault(sid, key)
     out = alias = 0
     for sid in set(walk.out_sids):
+        if walk.partitioned and _made_elsewhere(walk, sid):
+            continue
         if sid in arg_of:
             b = block_bytes(walk.arg_specs[arg_of[sid]])
             out += b
@@ -127,8 +127,10 @@ def collective_bytes(walk: Walk, cell_kind: str) -> dict:
     axes_of: dict = defaultdict(set)
     for op in walk.ops:
         if op.name in EXCHANGES and op.region:
-            moved[op.region[1]][op.name] += op.handed
-            axes_of[op.name] |= set(op.axes)
+            # an exchange over 'model' is tensor parallelism's
+            key = ("tp", op.name) if "model" in op.axes else op.name
+            moved[op.region[1]][key] += op.handed
+            axes_of[key] |= set(op.axes)
     if moved:
         busiest = max(moved, key=lambda pos: sum(moved[pos].values()))
         for kind in EXCHANGES:
@@ -137,6 +139,13 @@ def collective_bytes(walk: Walk, cell_kind: str) -> dict:
                                "bytes": moved[busiest][kind],
                                "axes": sorted(axes_of[kind],
                                               key=list(shape).index)}
+        tp = {kind: moved[busiest][("tp", kind)] for kind in EXCHANGES
+              if moved[busiest].get(("tp", kind))}
+        if tp:
+            axes = set().union(*(axes_of[("tp", k)] for k in tp))
+            parts["tp_activations"] = {
+                "how": "counted", "bytes": sum(tp.values()),
+                "axes": sorted(axes, key=list(shape).index), "kinds": tp}
     if cell_kind.startswith("train") and not moved:
         ag = rs = ar = 0
         ag_axes, ar_axes = set(), set()
@@ -160,7 +169,7 @@ def collective_bytes(walk: Walk, cell_kind: str) -> dict:
             if b:
                 parts[name] = {"how": "modeled", "bytes": b,
                                "axes": sorted(axes, key=list(shape).index)}
-    if shape.get("model", 1) > 1:
+    if shape.get("model", 1) > 1 and "tp_activations" not in parts:
         parts["tp_activations"] = {"how": "absent", "bytes": None,
                                    "axes": ["model"]}
     total = sum(p["bytes"] or 0 for p in parts.values())
@@ -171,8 +180,10 @@ def collective_bytes(walk: Walk, cell_kind: str) -> dict:
              "grad_all_reduce": "all-reduce", **{k: k for k in EXCHANGES}}
     out: dict = defaultdict(float)
     for name, p in parts.items():
-        if p["bytes"]:
-            out[kinds[name]] += p["bytes"]
+        for kind, b in (p.get("kinds") or {kinds.get(name): p["bytes"]}
+                        ).items():
+            if b:
+                out[kind] += b
     return {**out, "total": total, "seconds": seconds, "parts": parts}
 
 

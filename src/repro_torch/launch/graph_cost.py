@@ -50,7 +50,8 @@ Conventions kept from hlo_cost, carried over to aten ops:
 
 Per device. A program that runs shard bodies (distributed.topk's
 map_shards and each_block: the dist-topk paper cells, moe_apply_shmap,
-compressed_psum, the partitioned GNN step) is costed as one body (the
+compressed_psum, the partitioned GNN step and dense LM programs) is
+costed as one body (the
 largest mesh position's) plus the merge (gather_merge_top_k, on the
 merging device) plus the rest of the program over the device count; the
 bytes each body hands to the merging device, and the bytes each of the
@@ -59,9 +60,9 @@ reduce_scatter_rows, psum) moves into a shard, are counted by mesh
 position, since a virtual mesh has one device. A body's backward is the
 body's: each autograd node a body makes is tagged with its region, and
 the ops autograd runs for a node (a checkpoint's recomputation
-included) are costed in that region. A global program (the LM and
-recsys builds: the port partitions only the GNN's) is costed as the
-whole walk over the mesh's device count, JAX's own fallback
+included) are costed in that region. A global program (the recsys
+builds and the MoE LMs) is costed as the whole walk over the mesh's
+device count, JAX's own fallback
 (roofline.py's docstring), and says "partitioned": false.
 """
 
@@ -150,6 +151,13 @@ class Op:
     handed: float = 0.0        # bytes a shard body hands to the merge,
     axes: tuple = ()           # or a collective moves over these axes
 
+    @property
+    def weight(self) -> int:
+        """The mesh positions whose bodies ran this op: 1, or under a
+        one-body walk the blocks its body stood for."""
+        r = self.region
+        return r[2] if r is not None and len(r) > 2 else 1
+
 
 @dataclass
 class Walk:
@@ -218,28 +226,47 @@ class Walk:
         written once."""
         return sum(self.read_bytes().values()) + self.written_bytes()
 
+    def min_block_bytes(self) -> int:
+        """The bytes a partitioned program's first position must move at
+        least: the blocks of the argument leaves it reads (each read
+        once) and the outputs its bodies or the global part make (each
+        written once); an argument written in place adds nothing to
+        its read block."""
+        args = set(self.arg_sids.values())
+        return sum(block_bytes(self.arg_specs[k])
+                   for k in self.read_leaves()) + sum(
+            self.storage_bytes[s] for s in set(self.out_sids)
+            if s not in args and not _made_elsewhere(self, s))
+
     def peak_live_bytes(self, *, per_position: bool = False) -> int:
         """The peak, over the log, of the storages the program made
         (neither arguments nor outputs) that are live: from the op that
         makes one to its last use. With `per_position`, each storage
         belongs to the mesh position whose body made it (the global
-        part's and the merge's to the first position), and the peak is
+        part's and the merge's to the first position), its last use is
+        its own position's (another body's read of it is that body's
+        collective, which a virtual mesh runs later), and the peak is
         the largest position's."""
         internal = set(self.made_at) - set(self.arg_sids.values()) \
             - set(self.out_sids)
+
+        def owner_of(r):
+            if not per_position:
+                return None
+            return r[1] if r and r[0] == "body" and any(r[1]) else None
+        owner = {s: owner_of(self.ops[self.made_at[s]].region)
+                 if self.made_at[s] < len(self.ops) else None
+                 for s in internal}
         last = {}
         for i, op in enumerate(self.ops):
+            here = owner_of(op.region)
             for s in op.ins + op.outs:
-                if s in internal:
+                if s in internal and owner[s] == here:
                     last[s] = i
         events: dict = {}
         for s in internal:
             at = self.made_at[s]
-            owner = None
-            if per_position and at < len(self.ops):
-                r = self.ops[at].region
-                owner = r[1] if r and r[0] == "body" and any(r[1]) else None
-            ev = events.setdefault(owner, [])
+            ev = events.setdefault(owner[s], [])
             ev.append((at, self.storage_bytes[s]))
             ev.append((last.get(s, at) + 1, -self.storage_bytes[s]))
         peak = 0
@@ -249,6 +276,31 @@ class Walk:
                 live += d
                 peak = max(peak, live)
         return peak
+
+
+def block_bytes(spec) -> int:
+    """One device's block of an ArgSpec: its shape over the mesh axes of
+    its sharding (none: the whole leaf)."""
+    from repro_torch.launch.mesh import axis_size, spec_entries
+
+    item = spec.dtype.itemsize
+    sh = spec.sharding
+    if sh is None:
+        return math.prod(spec.shape) * item
+    entries = spec_entries(sh.spec, len(spec.shape))
+    return math.prod(-(-n // axis_size(sh.mesh, axes))
+                     for n, axes in zip(spec.shape, entries)) * item
+
+
+def _made_elsewhere(walk: Walk, sid: int) -> bool:
+    """Whether a storage was made in the body of a mesh position other
+    than the first (a block of a partitioned output that another device
+    holds)."""
+    at = walk.made_at.get(sid)
+    if at is None or at >= len(walk.ops):
+        return False
+    r = walk.ops[at].region
+    return bool(r and r[0] == "body" and any(r[1]))
 
 
 class _CostMode(TorchDispatchMode):
@@ -798,11 +850,13 @@ def _region_twins(cm: _CostMode) -> dict:
 
     def run_on_shard(device, merge_device, body):
         pos = pending.pop() if pending else (-1,)
-        prev, cm.region = cm.region, ("body", pos)
+        copies = topk.body_copies()
+        region = ("body", pos) if copies == 1 else ("body", pos, copies)
+        prev, cm.region = cm.region, region
         try:
             first = _next_sequence_nr()
             out = real_run(device, merge_device, body)
-            _tag_nodes(out, ("body", pos), range(first, _next_sequence_nr()))
+            _tag_nodes(out, region, range(first, _next_sequence_nr()))
         finally:
             cm.region = prev
         if any(pos) and merge_device is not None:
@@ -852,14 +906,23 @@ def fake_args(program):
         else s, a) for a in program.args)
 
 
-def trace_program(program, mesh) -> Walk:
+def trace_program(program, mesh, *, one_body: bool = True) -> Walk:
     """Run `program.fn` once on fake tensors on the fake card under
     use_mesh_rules(mesh, program.rules) and return its Walk. The trace
     is this thread's: the kernel wrappers' twins, the shard plumbing's
     and the fake card are seen by this thread alone, and any other
     thread (an engine's pipeline worker, a fleet replica, a refresh
-    lane) that calls a wrapper meanwhile launches the real kernel."""
+    lane) that calls a wrapper meanwhile launches the real kernel.
+
+    With `one_body` (distributed.topk.one_body) a partitioned program's
+    each_block runs its first block's body alone and counts each of its
+    ops once a block (Op.weight): its bodies run the same ops on the
+    same shapes (a program's inputs split evenly), so the walk's record
+    is the all-bodies walk's (tests/test_torch_dryrun.py holds them
+    equal), in about the time of one body, where a 256-position LM
+    program's bodies would take hours."""
     from repro_torch.checkpoint.store import flatten_with_paths
+    from repro_torch.distributed import topk
     from repro_torch.distributed.sharding import use_mesh_rules
     from repro_torch.kernels import build
 
@@ -876,7 +939,8 @@ def trace_program(program, mesh) -> Walk:
                     walk.arg_sids[(i, path)] = cm.sid(t)
                     walk.arg_specs[(i, path)] = specs[path]
         cm.args = set(walk.arg_sids.values())
-        with cm, use_mesh_rules(mesh, program.rules):
+        mode = topk.one_body() if one_body else contextlib.nullcontext()
+        with cm, use_mesh_rules(mesh, program.rules), mode:
             out = program.fn(*args)
         walk.out_sids = tuple(dict.fromkeys(cm.sid(t)
                                             for t in _tensors(out)))
@@ -936,11 +1000,13 @@ def graph_cost(walk: Walk) -> dict:
         "flops_by_dtype": flops,
         "matmul_flops_by_dtype": mm,
         "bytes": nbytes,
-        "min_bytes": walk.min_bytes() / n,
+        "min_bytes": (walk.min_block_bytes() if walk.partitioned
+                      else walk.min_bytes() / n),
         "global_flops": sum(glob["flops"].values()),
         "global_bytes": glob["bytes"],
         "partitioned": walk.partitioned,
-        "n_ops": len(walk.ops),
-        "n_kernel_ops": sum(op.cat in KERNELS for op in walk.ops),
+        "n_ops": sum(op.weight for op in walk.ops),
+        "n_kernel_ops": sum(op.weight for op in walk.ops
+                            if op.cat in KERNELS),
         "devices": n,
     }

@@ -47,8 +47,9 @@ latents, builds its edges' messages, aggregates them into a zero
 (N, D) partial by the same sorted index_put and reduce-scatters the
 partials to the node blocks (mean with its counts, max with its ties)
 before its node MLP; the loss is the psum of each block's squared
-error over the count; the replicas' gradients are summed in shard
-order onto the parameters' device, then clipped and stepped once. The
+error over the count, each block's copy seeding its own backward; the
+replicas' gradients are summed in shard order onto the parameters'
+device, then clipped and stepped once. The
 collectives are distributed.topk's. A batch of graphs splits by whole
 graphs, whose blocks exchange nothing. The global step is the same
 code over one block, whose collectives are the identity.
@@ -525,11 +526,12 @@ def gnn_forward_batched(params: dict, graph: dict,
 
 
 def _loss(reps: list, blocks: list, cfg: GNNConfig, plan: GraphPlan,
-          dev) -> torch.Tensor:
-    """gnn_loss over the blocks, on the first block's device: each sums
+          dev) -> list:
+    """gnn_loss over the blocks, a copy on each block's device: each sums
     its own squared error (masked by node_mask where there is one); the
     psum of the sums over the count (with a mask the psum of its sums x
-    d_out + 1e-9)."""
+    d_out + 1e-9). Each copy seeds its own backward (the psum's backward
+    is the identity), so every block's body runs the same ops."""
     preds = _predict(reps, blocks, cfg, plan, dev)
     masked = "node_mask" in blocks[0]
 
@@ -541,11 +543,13 @@ def _loss(reps: list, blocks: list, cfg: GNNConfig, plan: GraphPlan,
         m = b["node_mask"].to(pred.dtype)
         return torch.sum(err * m[..., None]), torch.sum(m)
     parts = _each(plan, dev, body)
-    total = psum(plan.mesh, plan.axes, [p[0] for p in parts])[0]
+    total = psum(plan.mesh, plan.axes, [p[0] for p in parts], "identity")
     if not masked:
-        return total / (preds[0].numel() * plan.n)
-    count = psum(plan.mesh, plan.axes, [p[1] for p in parts])[0]
-    return total / (count * preds[0].shape[-1] + 1e-9)
+        n = preds[0].numel() * plan.n
+        return _each(plan, dev, lambda i, d: total[i] / n)
+    count = psum(plan.mesh, plan.axes, [p[1] for p in parts], "identity")
+    return _each(plan, dev, lambda i, d: total[i] / (
+        count[i] * preds[0].shape[-1] + 1e-9))
 
 
 def gnn_loss(params: dict, graph: dict, cfg: GNNConfig):
@@ -554,8 +558,9 @@ def gnn_loss(params: dict, graph: dict, cfg: GNNConfig):
     sum(mask) x d_out + 1e-9. Under a mesh context that splits the
     graph, the blocks' sums and counts are psum'd."""
     plan, dev = _plan(graph), _param_device(params)
-    loss = _loss(_replicas(params, plan, dev),
-                 _graph_blocks(graph, cfg, plan, dev), cfg, plan, dev)
+    loss = place(_loss(_replicas(params, plan, dev),
+                       _graph_blocks(graph, cfg, plan, dev), cfg, plan,
+                       dev)[0], dev)
     return loss, {"loss": loss}
 
 
@@ -579,17 +584,20 @@ def gnn_grads(params: dict, graph: dict, cfg: GNNConfig):
     reps = _replicas(params, plan, dev, detach=True)
     leaves = [flatten_with_paths(r) for r in reps]
     with torch.enable_grad():
-        loss = _loss(reps, _graph_blocks(graph, cfg, plan, dev), cfg, plan,
-                     dev)
-        g = torch.autograd.grad(loss, [t for f in leaves for t in f.values()],
-                                allow_unused=True)
+        losses = _loss(reps, _graph_blocks(graph, cfg, plan, dev), cfg,
+                       plan, dev)
+        seeds = _each(plan, dev, lambda i, d: torch.ones_like(losses[i]))
+        outs = list({id(x): (x, s) for x, s in zip(losses, seeds)}.values())
+        g = torch.autograd.grad([o[0] for o in outs],
+                                [t for f in leaves for t in f.values()],
+                                [o[1] for o in outs], allow_unused=True)
     keys = list(leaves[0])
     per = [[torch.zeros_like(f[k]) if gk is None else gk
             for k, gk in zip(keys, g[i * len(keys):(i + 1) * len(keys)])]
            for i, f in enumerate(leaves)]
     grads = {k: sum_to(plan.mesh, plan.axes, [p[j] for p in per], dev)
              for j, k in enumerate(keys)}
-    loss = place(loss.detach(), dev)
+    loss = place(losses[0].detach(), dev)
     return loss, {"loss": loss}, unflatten_like(params, grads)
 
 

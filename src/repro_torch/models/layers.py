@@ -157,12 +157,16 @@ def _gqa_combine(probs: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, KV * G, v.shape[-1])
 
 
-def dense_causal_attention(q, k, v) -> torch.Tensor:
+def dense_causal_attention(q, k, v, *, q_offset: int | None = None
+                           ) -> torch.Tensor:
     """Causal attention over the whole (Sq, Sk) score matrix; query i
-    attends to keys <= i + Sk - Sq (masked with -inf)."""
+    attends to keys <= i + q_offset (default Sk - Sq; masked with -inf).
+    A block of query rows r0 onwards against every key takes
+    q_offset=r0."""
     Sq, Sk = q.shape[1], k.shape[1]
     logits = _gqa_logits(q, k)
-    qi = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    off = Sk - Sq if q_offset is None else q_offset
+    qi = torch.arange(Sq, device=q.device)[:, None] + off
     ki = torch.arange(Sk, device=q.device)[None, :]
     logits = logits.masked_fill(~(qi >= ki), float("-inf"))
     probs = torch.softmax(logits, dim=-1)
@@ -236,6 +240,25 @@ def decode_attention(q, k_cache, v_cache, pos: int) -> torch.Tensor:
     p = torch.exp(logits - m)
     probs = p / p.sum(dim=-1, keepdim=True)
     return _gqa_combine(probs, v_cache, q.dtype)
+
+
+def decode_attention_partial(q, k_block, v_block, pos: int, start: int):
+    """decode_attention's statistics over one block of the cache, its
+    keys at positions start onwards (entries past pos masked with
+    MASK_LOGIT): (m_b, l_b, acc_b), the block's f32 max (B, KV, G, 1,
+    1), its sum of exp(logit - m_b) (same shape) and the sum of
+    exp(logit - m_b) v (B, KV, G, 1, Dh) in f32. A block wholly past pos
+    has every logit at MASK_LOGIT: m_b is MASK_LOGIT and l_b the block's
+    length, and the merge over the blocks, against their max m, weighs
+    it exp(m_b - m) = 0."""
+    S = k_block.shape[1]
+    logits = _gqa_logits(q, k_block)                # (B, KV, G, 1, S)
+    valid = start + torch.arange(S, device=q.device) <= pos
+    logits = torch.where(valid, logits, torch.full_like(logits, MASK_LOGIT))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    acc = torch.einsum("bkgqs,bskd->bkgqd", p, v_block.to(torch.float32))
+    return m, p.sum(dim=-1, keepdim=True), acc
 
 
 # --------------------------------------------------------------------------
@@ -523,3 +546,16 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Rows of `table` by `ids` (indexing: its backward on the card is a
     sorted, deterministic index_put_)."""
     return table[ids.long()]
+
+
+def vocab_block_lookup(block: torch.Tensor, ids: torch.Tensor,
+                       start: int) -> torch.Tensor:
+    """A vocab-parallel embedding's part: the rows of `block` (the
+    table's rows start onwards) for the ids that fall in it, zeros for
+    the rest; the parts' sum over the blocks is embed_lookup's."""
+    local = ids.long() - start
+    inside = (local >= 0) & (local < block.shape[0])
+    rows = embed_lookup(block, torch.where(inside, local,
+                                           torch.zeros_like(local)))
+    return torch.where(inside[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))

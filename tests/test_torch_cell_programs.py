@@ -65,7 +65,7 @@ from repro_torch.configs.recsys_family import (
 )
 from repro_torch.configs.registry import ArgSpec, args_from_numpy
 from repro_torch.distributed import sharding
-from repro_torch.launch.mesh import make_smoke_mesh, spec_entries
+from repro_torch.launch.mesh import Sharded, make_smoke_mesh, spec_entries
 from repro_torch.models.gnn import gnn_logical_axes
 from repro_torch.models.recsys import RECSYS_REGISTRY, recsys_logical_axes
 from repro_torch.models.transformer import lm_init, lm_logical_axes
@@ -464,6 +464,13 @@ def _port_args(arch, cell, prog, inputs, want):
                        for i, arg in enumerate(prog.args[1:], 1)]
 
 
+def _whole(tree):
+    """A program's outputs with each Sharded leaf (a partitioned LM
+    program's parameters, moments, cache and logits) gathered whole."""
+    return sharding.tree_map(
+        lambda v: v.gather() if isinstance(v, Sharded) else v, tree)
+
+
 def _close(got, want, tol, msg):
     np.testing.assert_allclose(np.asarray(got.detach().to(torch.float32)),
                                np.asarray(want, np.float32), **tol,
@@ -505,7 +512,7 @@ def test_smoke_program_matches_jax(jax_ref, arch, cell):
     family = get_arch(arch).family
     args = _port_args(arch, cell, prog, inputs, want)
     with sharding.use_mesh_rules(_mesh("2x4"), prog.rules):
-        out = prog.fn(*args)
+        out = _whole(prog.fn(*args))
     prefix = _key(arch, cell, "out") + "|"
     keys = {k[len(prefix):] for k in want if k.startswith(prefix)}
     if c.kind.startswith("train"):

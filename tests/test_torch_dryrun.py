@@ -5,7 +5,9 @@ every LM arch x cell, the roofline terms of a JAX record, the matmul
 flops of three SMOKE programs against repro.launch.hlo_cost on a
 one-device CPU compile of JAX's program (built in a subprocess, as
 tests/test_torch_distributed.py builds its side), run_cell on one cell
-of each family, and the kernels' bounds at PERF.md's table shapes.
+of each family, a one-body walk against the all-bodies walk, the
+committed partitioned GNN and dense LM records against JAX's flops,
+and the kernels' bounds at PERF.md's table shapes.
 
 Tolerances: argument bytes, flops and the kernels' (bytes, flops)
 exactly; the roofline terms of a JAX record rtol 1e-12 (a ratio of two
@@ -160,9 +162,10 @@ def test_run_cell_on_a_smoke_mesh(arch, cell):
     assert rec["trace_s"] >= 0 and rec["mesh_devices"] == 8
     gc, ma = rec["graph_cost"], rec["memory_analysis"]
     assert gc["devices"] == 8
-    if arch == "meshgraphnet":
+    if arch in ("meshgraphnet", "llama3.2-1b"):
         # build_gnn's step runs as shard bodies over the 2 'data'
-        # blocks: its temp is a body's own, no estimate
+        # blocks, build_lm's decode one a mesh position: the temp is a
+        # body's own, no estimate
         assert gc["partitioned"] and "estimated" not in rec
         assert rec["collective_bytes"]["all-reduce"] > 0
     else:
@@ -177,6 +180,23 @@ def test_run_cell_on_a_smoke_mesh(arch, cell):
     json.dumps(rec)
     if cell in ("retrieval_cand", "serve_online"):
         assert gc["n_kernel_ops"] >= 2
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch,cell", [("llama3.2-1b", "train_4k"),
+                                       ("meshgraphnet", "minibatch_lg")])
+def test_one_body_walk_equals_the_all_bodies_walk(arch, cell, multi_pod):
+    """A partitioned SMOKE program on the (2, 4) or (2, 2, 2) mesh traced
+    one body for all (each op counted for the blocks its body stands
+    for) gives the record of the walk that runs every body, field for
+    field but the walk's seconds."""
+    mesh = smoke_mesh(multi_pod=multi_pod)
+    one = run_cell(arch, cell, mesh, "smoke_single", smoke=True)
+    every = run_cell(arch, cell, mesh, "smoke_single", smoke=True,
+                     one_body=False)
+    assert one.pop("trace_s") >= 0 and every.pop("trace_s") >= 0
+    assert one["graph_cost"]["partitioned"]
+    assert one == every
 
 
 # -- the partitioned GNN step ------------------------------------------------
@@ -232,6 +252,41 @@ def test_partitioned_gnn_records_match_jax_flops(path):
     if rec["cell"] != "molecule":       # whole graphs a block: no exchange
         assert parts["all-gather"]["bytes"] > 0
         assert parts["reduce-scatter"]["bytes"] > 0
+
+
+# -- the partitioned dense LM programs -----------------------------------------
+
+DENSE_LMS = ("llama3.2-1b", "mistral-nemo-12b", "phi3-medium-14b")
+LM_RECORDS = sorted(p for p in (REPO / "experiments" / "dryrun_torch").glob(
+    "*/*.json") if p.stem.split("__")[0] in DENSE_LMS)
+
+
+def test_the_committed_dense_lm_records_are_here():
+    assert len(LM_RECORDS) == 24
+    assert {p.parent.name for p in LM_RECORDS} == {"single", "multi"}
+
+
+@pytest.mark.parametrize("path", LM_RECORDS,
+                         ids=[f"{p.parent.name}-{p.stem}"
+                              for p in LM_RECORDS])
+def test_partitioned_lm_records_count_their_collectives(path):
+    """Each committed dense LM record says "partitioned": true with no
+    estimate, counts its FSDP all-gathers and its exchanges over 'model'
+    (tp_activations), and its per-device flops are within [0.5, 3] of
+    JAX's hlo_cost flops for the same cell and mesh (PERF.md §6 names
+    the cause of each ratio away from 1)."""
+    rec = json.loads(path.read_text())
+    want = json.loads((REPO / "experiments" / "dryrun" / path.parent.name
+                       / path.name).read_text())
+    gc, parts = rec["graph_cost"], rec["collective_bytes"]["parts"]
+    assert rec["status"] == "ok" and gc["partitioned"]
+    assert "estimated" not in rec and "estimated" not in \
+        rec["memory_analysis"]
+    assert parts["tp_activations"]["how"] == "counted"
+    assert parts["tp_activations"]["bytes"] > 0
+    assert parts["all-gather"]["how"] == "counted"
+    assert parts["all-gather"]["bytes"] > 0
+    assert 0.5 <= gc["flops"] / want["hlo_cost"]["flops"] <= 3.0
 
 
 # -- matmul flops against JAX's hlo_cost ------------------------------------

@@ -24,6 +24,7 @@ from repro_torch.launch.graph_analysis import (
 from repro_torch.launch.graph_cost import (
     FAKE_CARD,
     KERNELS,
+    _tensors,
     fake_card,
     graph_cost,
     trace_program,
@@ -315,8 +316,10 @@ def _fx_read_leaves(prog):
         by: dict = {}
         for (i, p, _), x in zip(flat, xs):
             by.setdefault(i, {})[p] = x
-        return prog.fn(*(unflatten_like(a, by.get(i, {}))
-                         for i, a in enumerate(prog.args)))
+        # the outputs' tensors, a partitioned program's Sharded blocks
+        # among them
+        return list(_tensors(prog.fn(*(unflatten_like(a, by.get(i, {}))
+                                       for i, a in enumerate(prog.args)))))
 
     with use_mesh_rules(None, None):
         gm = make_fx(fn)(*leaves)

@@ -142,6 +142,23 @@ def test_port_files_cover_the_dry_run_slice():
         assert port / f"{name}.py" in PORT_FILES
 
 
+def test_port_files_cover_the_lm_partition_slice():
+    port = REPO / "src" / "repro_torch"
+    for rel in ("models/transformer.py", "models/layers.py",
+                "distributed/topk.py", "configs/lm_family.py",
+                "launch/graph_cost.py", "launch/graph_analysis.py",
+                "launch/dryrun.py", "launch/mesh.py"):
+        assert port / rel in PORT_FILES
+    from repro_torch.distributed import topk
+    from repro_torch.models import transformer
+    for name in ("all_gather_dim", "reduce_scatter_dim",
+                 "reduce_from_shards", "copy_to_shards", "max_over_shards",
+                 "one_body"):
+        assert callable(getattr(topk, name))
+    assert callable(transformer.lm_plan)
+    assert (REPO / "tests" / "test_torch_lm_sharded.py").is_file()
+
+
 # the port's files whose names differ from their JAX counterparts' (the
 # port has no HLO: its cost walk runs the program itself), and the one
 # JAX file with no counterpart (a JAX shim)
