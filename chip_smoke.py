@@ -197,16 +197,24 @@ Phases (any failure exits non-zero before a result is printed):
      training step's wall and device ms, scoring ms a chunk of 64,
      embedding_bag's device ms, latency, fill rate, compliance, peak
      memory and launches, beside the card's name and power limit;
-  M. the paper's dist-topk serving on a virtual make_smoke_mesh()
+  M. the paper's cells partitioned on a virtual make_smoke_mesh()
      ((2, 4) ('data', 'model'), every shard on the card): build_paper
      for each cell of configs/paper.py's PAPER_CELLS at full width
      (offline_dual 8192 x 1024, K = 5, m2 = 50, 300 iterations;
      serve_online B = 8192, m1 = 1024, d = 20, n_db = 1,048,576, k = 10;
-     serve_retrieval B = 256, m1 = 1,048,576, n_db = 65,536) with
-     PaperConfig() and PaperConfig(distributed=True) on the same seeded
-     arrays: the two variants' perm and compliant equal, utility and
-     exposure within TOL, lambda-hat within LAM_TOL (each logged with
-     whether it held bitwise), the offline programs equal; the merged
+     serve_retrieval B = 256, m1 = 1,048,576, n_db = 65,536), three
+     programs a cell on the same seeded arrays: the global one
+     (PaperConfig() on a one-device mesh over the card), the default
+     variant partitioned over the mesh, and PaperConfig(distributed=True)
+     (dist-topk); offline_dual's partitioned lam, dual_value,
+     primal_value, exposure and compliant bitwise the global solve's;
+     a serve cell's partitioned perm
+     and compliant equal the global program's, utility and exposure
+     within TOL, lambda-hat within LAM_TOL (each logged with whether it
+     held bitwise); the partitioned default bitwise the dist-topk
+     program on every field; every position's copy of each output block
+     bitwise the block's first copy; each program's ms (CUDA events,
+     median of 3) and allocated peak; the merged
      sharded_knn_topk over the 1,048,576 rows against one knn_topk
      launch (idx equal, d2 bitwise or within rtol 1e-6);
      knn_predict_quant_distributed over the int8 pack (slab 512) against
@@ -218,9 +226,9 @@ Phases (any failure exits non-zero before a result is printed):
      row's perm and compliant equal and its floats within TOL,
      compiles_post_warmup 0, the distributed paths' launch counters
      equal to the programs' and the flushed batches' dist route counts
-     (core.serving_dist.dist_kernel_launches); logs each program's ms
-     (CUDA events, median of 3), dist beside dense, and both engines'
-     wall, latency and launches;
+     (core.serving_dist.dist_kernel_launches): 2 x 8 knn_topk and 8
+     fused_rank launches for each partitioned and each dist-topk serve
+     program; logs both engines' wall, latency and launches;
   L. the kernel library path: the entry points of repro_torch.kernels
      (ops.fused_rank, ops.knn_topk, ops.knn_predict_kernel,
      ops.embedding_bag) on phase 2's inputs, each output equal to phase
@@ -324,7 +332,7 @@ Phases (any failure exits non-zero before a result is printed):
      leaf's slice;
   Y. the dry run's cost model against the card (launch/graph_cost.py,
      after phase P): the programs the earlier phases ran, at the shapes
-     they ran (COST_PROGRAMS: phase M's three paper cells, dense; phase
+     they ran (COST_PROGRAMS: phase M's three paper cells, global; phase
      P's four retrieval_cand programs; phase Z's llama3.2-1b prefill
      2 x 4096 and a decode step at 16 x 32,768; phase G's ogb_products
      /16 train step; phase D's DeepFM train step), each traced on a
@@ -528,7 +536,10 @@ SERVE_MIX = {("knn", 50): 192, ("knn_int8", 50): 64, ("knn_bf16", 50): 32,
 
 
 def fail(msg: str):
+    """Stop the run: the reason on standard output, where the phases log,
+    and on standard error, whose end a caller may be the only one to see."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -2637,11 +2648,79 @@ MESH_MIX = {("knn", 50): 192, ("knn_int8", 50): 96, ("_lam", 50): 96,
 MESH_QUANT_B = 8192           # queries of the quantized distributed check
 
 
+OFFLINE_FIELDS = ("lam", "dual_value", "primal_value", "exposure",
+                  "compliant")
+RANKED_FIELDS = ("perm", "utility", "exposure", "compliant", "lam")
+
+
+def whole_fields(out, names):
+    """An output's fields as whole tensors (a partitioned program's are
+    launch.mesh.Sharded, gathered on the mesh's first device)."""
+    from repro_torch.launch.mesh import Sharded
+    return {f: (v.gather() if isinstance(v := getattr(out, f), Sharded)
+                else v) for f in names}
+
+
+class replicas_recorded:
+    """Within the block, every position's block of each output a
+    partitioned paper program assembles (distributed.topk.assemble, as
+    core.dual_solver and core.serving_dist call it) is kept in a list,
+    before the Sharded keeps one copy a device."""
+
+    def __enter__(self):
+        from repro_torch.core import serving_dist
+        from repro_torch.distributed import topk
+        self.mods, self.real, seen = (topk, serving_dist), topk.assemble, []
+
+        def recording(mesh, xs, spec, shape):
+            seen.append((mesh, list(xs), spec, shape))
+            return self.real(mesh, xs, spec, shape)
+        for mod in self.mods:
+            mod.assemble = recording
+        return seen
+
+    def __exit__(self, *exc):
+        for mod in self.mods:
+            mod.assemble = self.real
+
+
+def held_replicas(label, seen):
+    """Fails unless every position's copy of each output block equals
+    the first position's copy of that block, bit for bit. Returns the
+    copies compared."""
+    from repro_torch.distributed.topk import positions
+    from repro_torch.launch.mesh import block_of, spec_entries
+    copies = 0
+    for mesh, xs, spec, shape in seen:
+        entries = spec_entries(spec, len(shape))
+        first = {}
+        for i, pos in enumerate(positions(mesh)):
+            blk = block_of(mesh, entries, pos)
+            if blk in first:
+                copies += 1
+                if not torch.equal(first[blk], xs[i]):
+                    fail(f"{label}: position {pos}'s copy of block {blk} "
+                         f"differs from its first copy")
+            first.setdefault(blk, xs[i])
+    return copies
+
+
+def peak_gib(fn):
+    """The card's allocated peak (GiB, the phase's resident tensors
+    included) over one call of fn."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
 def serve_mesh(seed, dev, X_db, lam_db, predictors, wrappers, smi):
-    """Phase M: build_paper's programs for every cell of PAPER_CELLS with
-    PaperConfig() and PaperConfig(distributed=True) on a virtual
-    make_smoke_mesh() over the card, on the same seeded arrays, each
-    serve cell's dist program also against the plain versions (one shard
+    """Phase M: build_paper's programs for every cell of PAPER_CELLS, the
+    global one on a one-device mesh and PaperConfig() and
+    PaperConfig(distributed=True) on a virtual make_smoke_mesh() over
+    the card, on the same seeded arrays, each serve cell's dist program
+    also against the plain versions (one shard
     body's knn_topk and fused_rank launches at this cell's shard shapes,
     and the whole cell's lambda-hat and ranking); the merged
     sharded_knn_topk over the 1,048,576 rows against one knn_topk launch
@@ -2665,7 +2744,11 @@ def serve_mesh(seed, dev, X_db, lam_db, predictors, wrappers, smi):
         knn_lambda_quant_cuda,
         knn_topk_cuda,
     )
-    from repro_torch.launch.mesh import make_smoke_mesh, shard_rows
+    from repro_torch.launch.mesh import (
+        make_smoke_mesh,
+        shard_rows,
+        virtual_mesh,
+    )
     from repro_torch.serving.engine import RankRequest, ServingEngine
 
     t_phase = time.perf_counter()
@@ -2744,6 +2827,7 @@ def serve_mesh(seed, dev, X_db, lam_db, predictors, wrappers, smi):
         return d2, idx
 
     bodies = mesh.shape["model"] * mesh.shape["data"]
+    one = virtual_mesh((1, 1), ("data", "model"), dev)
     db = shard_rows(mesh, X_db)          # placed once: views on the card
     for cell in PAPER_CELLS:
         B, m1, K, m2 = cell["batch"], cell["m1"], cell["K"], cell["m2"]
@@ -2751,63 +2835,82 @@ def serve_mesh(seed, dev, X_db, lam_db, predictors, wrappers, smi):
         a = (torch.rand((K, m1), generator=gen, device=dev) < 0.15).float()
         b = torch.full((K,), 0.05, device=dev)
         a_b = a.expand(B, K, m1).contiguous()
-        progs = {dist: build_paper(PaperConfig(distributed=dist), cell, mesh)
-                 for dist in (False, True)}
+        # the global program (one device), the default variant partitioned
+        # over the mesh, and the dist-topk variant
+        progs = {"global": build_paper(cfg, cell, one),
+                 "partitioned": build_paper(cfg, cell, mesh),
+                 "dist": build_paper(PaperConfig(distributed=True), cell,
+                                     mesh)}
         if cell.kind == "offline":
-            args = {False: (u, a_b, b), True: (u, a_b, b)}
+            args = dict.fromkeys(progs, (u, a_b, b))
+            names = OFFLINE_FIELDS
         else:
             n_db = cell["n_db"]
             X = torch.randn((B, D), generator=gen, device=dev)
-            args = {False: (X, u, a_b, b, X_db[:n_db], lam_db[:n_db]),
-                    True: (X, u, a, b, db if n_db == X_db.shape[0]
-                           else X_db[:n_db], lam_db[:n_db])}
-        for dist, prog in progs.items():
-            for arg, spec in zip(args[dist], prog.args):
+            dense = (X, u, a_b, b, X_db[:n_db], lam_db[:n_db])
+            args = {"global": dense, "partitioned": dense,
+                    "dist": (X, u, a, b, db if n_db == X_db.shape[0]
+                             else X_db[:n_db], lam_db[:n_db])}
+            names = RANKED_FIELDS
+        for label, prog in progs.items():
+            for arg, spec in zip(args[label], prog.args):
                 if tuple(arg.shape) != spec.shape or arg.dtype != spec.dtype:
                     fail(f"phase M {cell.name}: an argument {tuple(arg.shape)}"
                          f" {arg.dtype} is not {spec}")
-        dense = counted(lambda: progs[False].fn(*args[False]))
+        glob = counted(lambda: progs["global"].fn(*args["global"]))
         launches = ({} if cell.kind == "offline" else
                     {"knn_topk": 2 * bodies, "fused_rank": bodies})
-        dist = counted(lambda: progs[True].fn(*args[True]), launches)
-        row = {}
+        with replicas_recorded() as seen:
+            part = counted(lambda: progs["partitioned"].fn(
+                *args["partitioned"]), launches)
+        row = {"replica_blocks": held_replicas(f"phase M {cell.name}",
+                                               seen)}
+        dist = counted(lambda: progs["dist"].fn(*args["dist"]), launches)
+        part, whole_dist = (whole_fields(o, names) for o in (part, dist))
+        for f in names:
+            if not torch.equal(part[f], whole_dist[f]):
+                fail(f"phase M {cell.name}: {f} of the partitioned default "
+                     f"differs from the dist-topk program's")
         if cell.kind == "offline":
-            for f in ("lam", "dual_value", "primal_value", "exposure",
-                      "compliant"):
-                if not torch.equal(getattr(dist, f), getattr(dense, f)):
-                    fail(f"phase M offline_dual: {f} differs between the "
-                         f"two configs' programs")
-            if not bool(torch.isfinite(dense.lam).all()):
+            differ = [f for f in names
+                      if not torch.equal(part[f], getattr(glob, f))]
+            if differ:
+                fail(f"phase M offline_dual: {differ} of the partitioned "
+                     f"solve differ from the global solve's")
+            if not bool(torch.isfinite(glob.lam).all()):
                 fail("phase M offline_dual: non-finite prices")
-            row["compliance"] = float(dense.compliant.float().mean())
         else:
-            if not torch.equal(dist.perm, dense.perm):
-                fail(f"phase M {cell.name}: perm differs in "
-                     f"{int((dist.perm != dense.perm).sum())} slots")
-            if not torch.equal(dist.compliant, dense.compliant):
-                fail(f"phase M {cell.name}: compliant differs")
+            if not torch.equal(part["perm"], glob.perm):
+                fail(f"phase M {cell.name}: perm differs from the global "
+                     f"program's in "
+                     f"{int((part['perm'] != glob.perm).sum())} slots")
+            if not torch.equal(part["compliant"], glob.compliant):
+                fail(f"phase M {cell.name}: compliant differs from the "
+                     f"global program's")
             for f, tol in (("utility", TOL), ("exposure", TOL),
                            ("lam", LAM_TOL)):
-                g, w = getattr(dist, f), getattr(dense, f)
+                g, w = part[f], getattr(glob, f)
                 if not torch.allclose(g, w, **tol):
-                    fail(f"phase M {cell.name}: {f} outside {tol}")
+                    fail(f"phase M {cell.name}: {f} outside {tol} of the "
+                         f"global program's")
                 row[f"{f}_max_abs_err"] = float((g - w).abs().max())
                 row[f"{f}_bitwise"] = torch.equal(g, w)
-            row["compliance"] = float(dense.compliant.float().mean())
             plain_sel = hold_plain(cell, X, u, a, b, X_db[:n_db],
                                    lam_db[:n_db], dist, row)
-        for dist_, prog in progs.items():
-            row["dist_ms" if dist_ else "dense_ms"] = time_ms(
-                lambda: prog.fn(*args[dist_]), 1, groups=TIMED_RUNS)
-        # the dense program for phase Y: its time, and one profiled run
-        cost_run(f"paper-ranking {cell.name} dense", progs[False].fn,
-                 args[False], row["dense_ms"],
-                 categories_of(lambda: progs[False].fn(*args[False])))
+        row["compliance"] = float(glob.compliant.float().mean())
+        for label, prog in progs.items():
+            row[f"{label}_ms"] = time_ms(lambda: prog.fn(*args[label]), 1,
+                                         groups=TIMED_RUNS)
+            row[f"{label}_peak_gib"] = peak_gib(lambda: prog.fn(*args[label]))
+        # the global program for phase Y: its time, and one profiled run
+        cost_run(f"paper-ranking {cell.name} dense", progs["global"].fn,
+                 args["global"], row["global_ms"],
+                 categories_of(lambda: progs["global"].fn(*args["global"])))
         report["cells"][cell.name] = row
         log(f"phase M {cell.name}: {json.dumps(row)} ({smi})")
         if cell.name == "serve_online":
             Xq, Xq_sel = X, plain_sel
-        del u, a, b, a_b, args, dense, dist
+        del u, a, b, a_b, args, glob, part, dist, whole_dist, seen
         gc.collect()
         torch.cuda.empty_cache()
 

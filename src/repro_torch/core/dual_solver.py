@@ -197,6 +197,68 @@ def solve_dual_batch(u_batch, a_batch, b_batch, gamma, *, m2: int,
                         iters=num_iters)
 
 
+@torch.no_grad()
+def solve_dual_partitioned(mesh, rules, u, a, b, gamma, *, m2: int,
+                           num_iters: int = 300) -> DualSolution:
+    """solve_dual_batch over `mesh`, the arguments laid as the paper's
+    offline_dual cell lays them by `rules` (PAPER_RULES): u (B, m1) by
+    ('batch', 'items'), a (B, K, m1) by ('batch', None, 'items'), b (K,)
+    replicated, each spec relaxed as drop_nondivisible relaxes it; each
+    a tensor (laid by its spec here) or a launch.mesh.Sharded laid so.
+
+    Every user's solve is independent and needs all of its m1 items (the
+    min-max normalisation, 300 top-m2 sorts, 44 rounding sorts), so each
+    position's blocks are resharded once: an all-to-all over the items'
+    axes turns (users over the batch axes) x (items over 'model') into
+    (users over the batch axes and 'model') x (all items), and
+    solve_dual_batch runs unchanged on each position's rows, with no
+    collective in its loops. Where the batch block does not divide over
+    the items' axes, the users stay over the batch axes, the items are
+    all-gathered, and every position of an items group solves its whole
+    block (replicas of the same bits); no user is padded in. Returns a
+    DualSolution whose per-user fields are Sharded over the users."""
+    # imported here: distributed.topk imports kernels.ops, which imports
+    # this package
+    from repro_torch.distributed.sharding import drop_nondivisible
+    from repro_torch.distributed.topk import (
+        all_gather_dim,
+        all_to_all_dim,
+        assemble,
+        each_position,
+        position_blocks,
+    )
+    from repro_torch.launch.mesh import axis_size, place, spec_entries
+
+    B, m1 = u.shape[0], u.shape[1]
+    bat, items = spec_entries(drop_nondivisible(
+        rules.resolve("batch", "items"), (B, m1), mesh), 2)
+    us = position_blocks(mesh, u, (bat, items), "u")
+    as_ = position_blocks(mesh, a, (bat, None, items), "a")
+    bs = position_blocks(mesh, b, (), "b")
+    users = bat + items
+    if B % axis_size(mesh, users) == 0:
+        us = all_to_all_dim(mesh, items, us, split_dim=0, cat_dim=1)
+        as_ = all_to_all_dim(mesh, items, as_, split_dim=0, cat_dim=2)
+    else:
+        users = bat
+        us = all_gather_dim(mesh, items, us, dim=1)
+        as_ = all_gather_dim(mesh, items, as_, dim=2)
+    sols = each_position(mesh, lambda i, dev: solve_dual_batch(
+        us[i], as_[i], bs[i], place(gamma, us[i].device), m2=m2,
+        num_iters=num_iters))
+
+    def field(name, shape):
+        return assemble(mesh, [getattr(s, name) for s in sols], (users,),
+                        shape)
+    K = a.shape[1]
+    return DualSolution(
+        lam=field("lam", (B, K)), dual_value=field("dual_value", (B,)),
+        primal_value=field("primal_value", (B,)),
+        exposure=field("exposure", (B, K)),
+        compliant=field("compliant", (B,)), gap=field("gap", (B,)),
+        iters=num_iters)
+
+
 def solve_dual(u, cons: ConstraintSet, gamma, *, m2: int,
                num_iters: int = 300, lr: float = 1.0,
                max_lambda: float = 1e4,

@@ -10,6 +10,11 @@ and the weighting or the audit run:
   knn_predict_quant_distributed  the same over a quantized pack
   rank_distributed               adjusted scores + top-m2 with the item
                                  axis split (serve_retrieval's 2^20)
+  serve_partitioned              configs.paper's default serve program
+                                 partitioned: the first and the third's
+                                 shard bodies at every mesh position,
+                                 each shard's candidates all-gathered
+                                 over its group and merged there
 
 Exact KNN and exact top-k: the merged selection is the dense one, ties
 to the lowest global index.
@@ -39,9 +44,16 @@ import torch
 from repro_torch.core.assignment import rank_by_sort
 from repro_torch.core.predictors import _idw_lambda, knn_quant_scan
 from repro_torch.core.ranking import AUDIT_TOL, RankingOutput, audit_selected
+from repro_torch.distributed.sharding import drop_nondivisible
 from repro_torch.distributed.topk import (
+    all_gather_dim,
+    assemble,
+    each_position,
     gather_merge_top_k,
     map_shards,
+    merge_top_k,
+    position_blocks,
+    positions,
     shard_bodies,
 )
 from repro_torch.kernels import ops, ref
@@ -49,10 +61,28 @@ from repro_torch.kernels.common import sq_norm_seq
 from repro_torch.kernels.fused_rank import MAX_KERNEL_M2
 from repro_torch.launch.mesh import (
     Mesh,
+    axis_size,
+    block_of,
     place,
     shard_rows,
+    spec_entries,
     split_dim,
 )
+
+
+def _knn_shard(xq, xdb, offset: int, kk: int, lam=None):
+    """One database shard's top kk rows for the queries xq (b, d):
+    ops.knn_topk (the kernel on the card, its plain version on the CPU)
+    over the shard's rows xdb, which start at global row `offset`.
+    Returns (-d2 (b, kk), global int64 idx, payload {"y2": the winners'
+    |x|^2 in sq_norm_seq's order[, "lam": their rows of the shard's
+    `lam` as (K, b, kk)]})."""
+    d2, idx = ops.knn_topk(xq, xdb, k=kk, device=xq.device)
+    idx = idx.to(torch.int64)
+    pay = {"y2": sq_norm_seq(xdb[idx])}
+    if lam is not None:
+        pay["lam"] = lam[idx].movedim(-1, 0)
+    return -d2, idx + offset, pay
 
 
 def _knn_merge_idw(parts_by_block, k, x2_fn, lam_db, dev):
@@ -89,10 +119,8 @@ def knn_predict_distributed(mesh: Mesh, X_db, lam_db: torch.Tensor,
     kk = min(k, db.rows)
 
     def body(rows, si, sdev):
-        xdb = db.local(si, sdev)
-        d2, idx = ops.knn_topk(place(X[rows], sdev), xdb, k=kk, device=sdev)
-        idx = idx.to(torch.int64)
-        return -d2, idx + db.offsets[si], {"y2": sq_norm_seq(xdb[idx])}
+        return _knn_shard(place(X[rows], sdev), db.local(si, sdev),
+                          db.offsets[si], kk)
 
     parts = map_shards(mesh, db_axis, batch_axes, X.shape[0], body, dev)
     return _knn_merge_idw(parts, k, lambda rows: sq_norm_seq(X[rows])[:, None],
@@ -155,6 +183,31 @@ def _shard_scores(u_l, a_l, lam_l, m2: int, kk: int, eps: float, dev):
     return torch.gather(s, 1, idx.long()), idx
 
 
+def _rank_shard(u_l, a_l, lam_l, offset: int, m2: int, kk: int,
+                eps: float):
+    """One item shard's candidates: its top kk by adjusted score
+    (_shard_scores) over u_l (b, m1_l), a_l (b, K, m1_l), whose first
+    item is global item `offset`, with their raw utilities and K
+    constraint rows as payload: (vals, global int64 idx, {"u": (b, kk),
+    "a": (K, b, kk)})."""
+    vals, idx = _shard_scores(u_l, a_l, lam_l, m2, kk, eps, u_l.device)
+    idx = idx.to(torch.int64)
+    a_sel = torch.gather(a_l, 2, idx[:, None, :].expand(-1, a_l.shape[1],
+                                                        -1))
+    return vals, idx + offset, {"u": torch.gather(u_l, 1, idx),
+                                "a": a_sel.movedim(1, 0)}
+
+
+def _audit(perm, sel, gamma, b, tol: float):
+    """The merged m2 winners' audit: (perm, utility, exposure,
+    compliant), gamma (m2,) or (n, m2), b (K,) or (n, K)."""
+    n, K = perm.shape[0], sel["a"].shape[0]
+    b_r = b if b.dim() == 2 else b.expand(n, K)
+    g_r = gamma if gamma.dim() == 2 else gamma.expand(n, perm.shape[1])
+    return (perm, *audit_selected(sel["u"], sel["a"].movedim(0, 1), g_r,
+                                  b_r, tol=tol))
+
+
 def rank_distributed(mesh: Mesh, u: torch.Tensor, a: torch.Tensor,
                      b: torch.Tensor, lam: torch.Tensor,
                      gamma: torch.Tensor, *, m2: int, eps: float = 1e-4,
@@ -185,12 +238,8 @@ def rank_distributed(mesh: Mesh, u: torch.Tensor, a: torch.Tensor,
         else:
             a_l = place(a[:, cols], sdev).expand(
                 u_l.shape[0], K, m1_l).contiguous()
-        vals, idx = _shard_scores(u_l, a_l, place(lam[rows], sdev), m2, kk,
-                                  eps, sdev)
-        idx = idx.to(torch.int64)
-        a_sel = torch.gather(a_l, 2, idx[:, None, :].expand(-1, K, -1))
-        return vals, idx + si * m1_l, {"u": torch.gather(u_l, 1, idx),
-                                       "a": a_sel.movedim(1, 0)}
+        return _rank_shard(u_l, a_l, place(lam[rows], sdev), si * m1_l, m2,
+                           kk, eps)
 
     outs = []
     for rows, parts in map_shards(mesh, item_axis, batch_axes, B, body,
@@ -198,14 +247,102 @@ def rank_distributed(mesh: Mesh, u: torch.Tensor, a: torch.Tensor,
         _, perm, sel = gather_merge_top_k(
             [p[0] for p in parts], [p[1] for p in parts], m2,
             [p[2] for p in parts], device=dev)
-        n = perm.shape[0]
-        b_r = b[rows] if b.dim() == 2 else b.expand(n, K)
-        g_r = gamma[rows] if gamma.dim() == 2 else gamma.expand(n, m2)
-        outs.append((perm, *audit_selected(sel["u"], sel["a"].movedim(0, 1),
-                                           g_r, b_r, tol=tol)))
+        outs.append(_audit(perm, sel, gamma[rows] if gamma.dim() == 2
+                           else gamma, b[rows] if b.dim() == 2 else b, tol))
     perm, utility, exposure, compliant = (torch.cat(x) for x in zip(*outs))
     return RankingOutput(perm=perm.to(torch.int32), utility=utility,
                          exposure=exposure, compliant=compliant, lam=lam)
+
+
+def serve_partitioned(mesh: Mesh, rules, X, u, a, b, X_db, lam_db,
+                      gamma: torch.Tensor, *, k: int, m2: int,
+                      eps: float = 1e-4,
+                      tol: float = AUDIT_TOL) -> RankingOutput:
+    """The paper's serve cell, default variant, partitioned over `mesh`
+    by `rules` (PAPER_RULES): X (B, d) by ('batch', None), u (B, m1) by
+    ('batch', 'items'), a (B, K, m1) by ('batch', None, 'items'), b (K,)
+    replicated, X_db (n_db, d) and lam_db (n_db, K) by ('users_db',
+    None), each spec relaxed as drop_nondivisible relaxes it; each
+    argument a tensor (laid by its spec here) or a Sharded laid so.
+    One body a mesh position (p, d, m): the KNN shard body over its
+    batch block and database block m (_knn_shard, its winners' |x|^2
+    and lambda rows as payload), the candidates all-gathered over the
+    database's axes and merged to k, the weighting (identical at every
+    position of the group); then the rank shard body over item block m
+    (_rank_shard), the candidates all-gathered over the items' axes,
+    merged to m2 and audited. Every position of a group merges the same
+    candidates in block order, so its replicas hold the same bits, and
+    the dist-topk variant's (rank_distributed after
+    knn_predict_distributed) on the same arrays. Returns a RankingOutput
+    whose fields are Sharded over the users by the batch axes."""
+    B, m1 = u.shape[0], u.shape[1]
+    n_db, K = lam_db.shape[0], lam_db.shape[1]
+    if not 1 <= m2 <= m1:
+        raise ValueError(f"need 1 <= m2 <= m1, got m2={m2}, m1={m1}")
+    bat, items = spec_entries(drop_nondivisible(
+        rules.resolve("batch", "items"), (B, m1), mesh), 2)
+    db_ax = spec_entries(drop_nondivisible(rules.resolve("users_db"),
+                                           (n_db,), mesh), 1)[0]
+    n_l, m1_l = n_db // axis_size(mesh, db_ax), m1 // axis_size(mesh, items)
+    pos = positions(mesh)
+    xs = position_blocks(mesh, X, (bat, None), "X")
+    us = position_blocks(mesh, u, (bat, items), "u")
+    as_ = position_blocks(mesh, a, (bat, None, items), "a")
+    bs = position_blocks(mesh, b, (), "b")
+    dbs = position_blocks(mesh, X_db, (db_ax, None), "X_db")
+    lams = position_blocks(mesh, lam_db, (db_ax, None), "lam_db")
+
+    def offset(i, axes, size):
+        return block_of(mesh, (axes,), pos[i])[0] * size
+
+    def knn(i, dev):
+        return _knn_shard(xs[i], dbs[i], offset(i, db_ax, n_l),
+                          min(k, n_l), lams[i])
+
+    knn_cand = _gather_candidates(mesh, db_ax, each_position(mesh, knn))
+
+    def weigh(i, dev):
+        vals, idx, pay = knn_cand[i]
+        neg_d2, _, sel = merge_top_k(vals, idx, k, pay)
+        return _idw_lambda(-neg_d2, sq_norm_seq(xs[i])[:, None], sel["y2"],
+                           sel["lam"].movedim(0, -1))
+
+    lam_hat = each_position(mesh, weigh)
+
+    def rank(i, dev):
+        return _rank_shard(us[i].contiguous(), as_[i].contiguous(),
+                           lam_hat[i], offset(i, items, m1_l), m2,
+                           min(m2, m1_l), eps)
+
+    rank_cand = _gather_candidates(mesh, items, each_position(mesh, rank))
+
+    def audit(i, dev):
+        vals, idx, pay = rank_cand[i]
+        _, perm, sel = merge_top_k(vals, idx, m2, pay)
+        return _audit(perm.to(torch.int32), sel, place(gamma, perm.device),
+                      bs[i], tol)
+
+    outs = each_position(mesh, audit)
+    spec = (bat,)
+    perm, utility, exposure, compliant = (
+        assemble(mesh, [o[j] for o in outs], spec, shape)
+        for j, shape in enumerate(((B, m2), (B,), (B, K), (B,))))
+    return RankingOutput(perm=perm, utility=utility, exposure=exposure,
+                         compliant=compliant,
+                         lam=assemble(mesh, lam_hat, spec, (B, K)))
+
+
+def _gather_candidates(mesh: Mesh, axes, parts: list) -> list:
+    """Each position's (values, global idx, payload) candidates joined
+    with its group's over `axes`, in block order along the last dim
+    (distributed.topk.all_gather_dim): the union every position of the
+    group then merges alike."""
+    def gather(xs):
+        return all_gather_dim(mesh, axes, xs, dim=-1)
+    vals, idx = gather([p[0] for p in parts]), gather([p[1] for p in parts])
+    pay = {name: gather([p[2][name] for p in parts]) for name in parts[0][2]}
+    return [(vals[i], idx[i], {name: pay[name][i] for name in pay})
+            for i in range(len(parts))]
 
 
 def dist_kernel_launches(predictor, m2: int, *, mesh: Mesh,

@@ -45,9 +45,13 @@ over `axes`, and takes the position's own slice where the work is
 replicated there), Megatron's pair `reduce_from_shards` (a sum, whose
 backward is the identity: after a row-parallel product) and
 `copy_to_shards` (the identity, whose backward is a sum: before a
-column-parallel one), and `max_over_shards`, with no gradient. Every
-position sums its group's tensors itself, stacked in block order and
-reduced by one op, so replicas hold the same bits.
+column-parallel one), and `max_over_shards` and `all_to_all_dim` (the
+paper's offline reshard: block r of one dimension to member r, joined
+along another), with no gradient. Every position sums its group's
+tensors itself, stacked in block order and reduced by one op, so
+replicas hold the same bits. `position_blocks` cuts an argument (a
+tensor or a Sharded) into its block at every position, `assemble` makes
+a Sharded of the blocks a program returns.
 
 `one_body()` is the cost walk's mode (launch/graph_cost.py): each_block
 runs the body of its first block only and hands its outputs out for
@@ -70,11 +74,15 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import (
     Mesh,
+    Sharded,
     axis_size,
     block_coords,
+    block_of,
     place,
+    shard,
     shard_device,
     shard_rows,
+    spec_entries,
     split_dim,
 )
 
@@ -87,7 +95,7 @@ def _take_last(p: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(p, -1, idx.expand(p.shape[:-1] + idx.shape[-1:]))
 
 
-def _merge_topk(values, indices, k: int, payload=None):
+def merge_top_k(values, indices, k: int, payload=None):
     """Merge (b, n_cand) candidate (value, global-index) pairs -> top-k,
     by a stable descending sort: equal values keep their order, so the
     candidates must come in shard order (lowest global index first)."""
@@ -116,7 +124,7 @@ def gather_merge_top_k(local_v, local_i, k: int, payload=None, *,
     if payload is not None:
         all_p = {name: torch.cat([place(p[name], dev) for p in payload],
                                  dim=-1) for name in payload[0]}
-    return _merge_topk(all_v, all_i, k, all_p)
+    return merge_top_k(all_v, all_i, k, all_p)
 
 
 def local_top_k(scores: torch.Tensor, k: int, offset: int = 0,
@@ -228,8 +236,8 @@ def each_block(mesh: Mesh, axes, body) -> list:
 
 def note_exchange(kind: str, nbytes: float, axes: tuple = ()):
     """The bytes a collective over the mesh axes `axes` moves into the
-    shard whose body calls it (kind: 'all-gather', 'reduce-scatter' or
-    'all-reduce'). Nothing happens here; a cost trace
+    shard whose body calls it (kind: 'all-gather', 'reduce-scatter',
+    'all-reduce' or 'all-to-all'). Nothing happens here; a cost trace
     (launch/graph_cost.py) counts them by mesh position, since a
     virtual mesh has one device."""
 
@@ -482,6 +490,44 @@ def each_position(mesh: Mesh, body) -> list:
     return each_block(mesh, mesh.axis_names, body)
 
 
+def position_blocks(mesh: Mesh, x, spec, what: str) -> list:
+    """x (a tensor, or a launch.mesh.Sharded of this mesh laid by
+    `spec`) as its block at every mesh position (positions' order), on
+    that position's device. Every block has one shape (the spec divides
+    each dim, or split_dim raises), so every body runs the same ops;
+    under one_body() only the first position's block is cut."""
+    pos = positions(mesh)
+    if isinstance(x, Sharded):
+        if x.mesh is not mesh or spec_entries(
+                x.spec, len(x.shape)) != spec_entries(spec, len(x.shape)):
+            raise ValueError(f"{what}: laid by {x.spec}, not {spec}")
+        sh = x
+    elif one_body_active():
+        first = tuple(slice(0, split_dim(n, axis_size(mesh, axes),
+                                         f"{what} dim {d} over {axes}"))
+                      for d, (n, axes) in enumerate(zip(
+                          x.shape, spec_entries(spec, x.dim()))))
+        return [place(x[first], mesh.devices[pos[0]])] * len(pos)
+    else:
+        sh = shard(mesh, x, spec)
+    if one_body_active():
+        return [sh.at(pos[0])] * len(pos)
+    return [sh.at(p) for p in pos]
+
+
+def assemble(mesh: Mesh, xs: list, spec, shape) -> Sharded:
+    """The position list of a tensor's blocks as a Sharded laid by
+    `spec`: each block from the first position that holds it on each
+    device."""
+    entries = spec_entries(spec, len(shape))
+    blocks: dict = {}
+    for i, pos in enumerate(positions(mesh)):
+        blk = block_of(mesh, entries, pos)
+        blocks.setdefault(blk, {}).setdefault(mesh.devices[pos], xs[i])
+    return Sharded(mesh=mesh, spec=tuple(spec), shape=tuple(shape),
+                   dtype=xs[0].dtype, blocks=blocks)
+
+
 @functools.cache
 def _groups(mesh: Mesh, axes: tuple) -> tuple:
     """For each position, (its group over `axes`: the positions that
@@ -664,6 +710,39 @@ def max_over_shards(mesh: Mesh, axes, xs) -> list:
     if one_body_active():
         return _max_group(mesh, axes, _expand(xs[:1], len(xs)))
     return _max_group(mesh, axes, list(xs))
+
+
+def _all_to_all(mesh, axes, split, cat, xs) -> list:
+    groups = _groups(mesh, axes)
+    size = split_dim(xs[0].shape[split], axis_size(mesh, axes),
+                     f"dim {split} over {axes}")
+
+    def body(i, dev):
+        members, r = groups[i]
+        parts = [xs[q].narrow(split, r * size, size) for q in members]
+        note_exchange("all-to-all", sum(_nbytes(p) for q, p in
+                                        zip(members, parts) if q != i), axes)
+        return torch.cat([place(p, dev) for p in parts], cat)
+    return each_position(mesh, body)
+
+
+@torch.no_grad()
+def all_to_all_dim(mesh: Mesh, axes, xs, split_dim: int,
+                   cat_dim: int) -> list:
+    """Position r of each group over `axes` gives block r' of its
+    tensor's `split_dim` to member r' and receives its own block r from
+    every member, joined along `cat_dim` in block order; no gradient.
+    (Users over the batch axes x items over 'model' -> users over the
+    batch axes and 'model' x all items: the offline solve's reshard.)"""
+    axes = _group_axes(mesh, axes)
+    if axis_size(mesh, axes) == 1:
+        return list(xs)
+    if len(xs) != mesh.devices.size:
+        raise ValueError(f"{len(xs)} tensors for the {mesh.devices.size} "
+                         f"positions")
+    return _all_to_all(mesh, axes, split_dim, cat_dim,
+                       _expand(xs[:1], len(xs)) if one_body_active()
+                       else list(xs))
 
 
 @torch.no_grad()

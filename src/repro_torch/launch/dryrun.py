@@ -16,10 +16,14 @@ where they mean the same thing, with `trace_s` (the walk's seconds)
 where JAX has lower_s / compile_s, `graph_cost` where JAX has hlo_cost,
 `fits` (per_device_bytes within the card's 80 GB) and `fits_arguments`
 (the arguments' blocks alone within it). A partitioned program (the
-GNN's and the dense LMs' builds: shard bodies, one a block or a mesh
-position) is traced one body for all (graph_cost.trace_program's
-one_body) and costed per device. A global program (the recsys builds
-and the MoE LMs: the port has no SPMD partitioner) is costed as its
+GNN's, the dense LMs' and the paper cells' builds: shard bodies, one a
+block or a mesh position; the paper's offline_dual reshards its users
+and items once by an all-to-all over 'model', its serve cells gather
+each shard's candidates over 'model', and the dist-topk variant's serve
+cells hand them to the merging device) is traced one body for all
+(graph_cost.trace_program's one_body) and costed per device. A global
+program (the recsys builds and the MoE LMs: the port has no SPMD
+partitioner) is costed as its
 whole walk over the device count and says "partitioned": false; its
 temp bytes, and so per_device_bytes and `fits`, are estimates, which
 the record lists under "estimated". `fits_arguments` is exact: a cell

@@ -18,7 +18,8 @@ Memory, per device:
             largest mesh position's peak of the storages its bodies
             made (the global part's go to the first position).
 Where the program is global (the recsys builds and the MoE LMs: the
-port partitions the GNN's and the dense LMs') the output and temp bytes
+port partitions the GNN's, the dense LMs' and the paper cells') the
+output and temp bytes
 are estimates of a partitioned program's, and the record lists them
 under "estimated".
 
@@ -28,9 +29,11 @@ Collectives, per device, each part marked:
             exchanges, the compressed psum), by mesh position; and the
             bytes the mesh collectives (distributed.topk's
             all_gather_rows, reduce_scatter_rows, psum: the partitioned
-            GNN step) move into the busiest position: (S - 1) / S of
-            the gathered rows for an all-gather or a reduce-scatter,
-            twice the leaf for a psum;
+            GNN step; all_gather_dim, all_to_all_dim and the other
+            collectives over a position's group) move into the busiest
+            position: (S - 1) / S of the gathered rows for an
+            all-gather, a reduce-scatter or an all-to-all, twice the
+            leaf for a psum;
   modeled   for train cells that count no collective of their own, from
             the argument specs (ZeRO-3 / FSDP as GSPMD partitions it):
             a parameter leaf sharded over batch axes ('pod', 'data') is
@@ -41,7 +44,10 @@ Collectives, per device, each part marked:
   tp_activations  the exchanges over 'model' (tensor parallelism's:
             the partitioned LM's row-parallel sums, its vocab-parallel
             loss, decode's merge over the cache's blocks, the gathers of
-            weights its heads need), counted by kind under "kinds" and
+            weights its heads need; in the paper cells, whose 'model'
+            axis splits the items and the KNN database, offline_dual's
+            all-to-all and the serve cells' candidate all-gathers),
+            counted by kind under "kinds" and
             left out of the parts above; "absent" where the mesh has a
             'model' axis and nothing counts them (a global program).
 Bytes modeled are result-buffer bytes, JAX's convention: an
@@ -65,7 +71,7 @@ from repro_torch.launch.graph_cost import (  # noqa: F401 (block_bytes)
 CENSUS = ("matmul",) + KERNELS + ("index", "scatter", "sort", "topk",
                                   "copy", "collective")
 BATCH_AXES = ("pod", "data")
-EXCHANGES = ("all-gather", "reduce-scatter", "all-reduce")
+EXCHANGES = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all")
 
 
 def op_census(walk: Walk) -> dict:

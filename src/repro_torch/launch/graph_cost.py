@@ -49,7 +49,7 @@ Conventions kept from hlo_cost, carried over to aten ops:
           walk's temp bytes.
 
 Per device. A program that runs shard bodies (distributed.topk's
-map_shards and each_block: the dist-topk paper cells, moe_apply_shmap,
+map_shards and each_block: the paper cells, moe_apply_shmap,
 compressed_psum, the partitioned GNN step and dense LM programs) is
 costed as one body (the
 largest mesh position's) plus the merge (gather_merge_top_k, on the

@@ -82,10 +82,12 @@ from repro_torch.distributed.sharding import (
 )
 from repro_torch.distributed.topk import (
     all_gather_dim,
+    assemble,
     copy_to_shards,
     each_position,
     max_over_shards,
     one_body_active,
+    position_blocks,
     positions,
     reduce_from_shards,
     sum_over_shards,
@@ -95,9 +97,7 @@ from repro_torch.launch.mesh import (
     axis_size,
     block_of,
     place,
-    shard,
     spec_entries,
-    split_dim,
 )
 from repro_torch.models.layers import (
     _qkv,
@@ -486,7 +486,7 @@ def lm_grads(params: dict, batch: dict, cfg: LMConfig):
         loss, metrics, grads = _partitioned_grads(plan, cfg, params, batch)
         shapes = _shapes(cfg)
         return loss, metrics, unflatten_like(params, {
-            k: _assemble(plan, g, plan.specs[k], shapes[k])
+            k: assemble(plan.mesh, g, plan.specs[k], shapes[k])
             for k, g in grads.items()})
     flat = flatten_with_paths(params)
     leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
@@ -697,42 +697,6 @@ def _pick(xs: list, fn) -> list:
     if one_body_active():
         return [fn(xs[0])] * len(xs)
     return [fn(x) for x in xs]
-
-
-def _blocks(plan: LMPlan, x, spec, what: str) -> list:
-    """x (a tensor, or a launch.mesh.Sharded of this mesh and spec) as its
-    block at every position. Every block has one shape (the spec divides
-    each dim, or split_dim raises), so every body runs the same ops;
-    under one_body() only the first position's block is cut."""
-    if isinstance(x, Sharded):
-        if x.mesh is not plan.mesh or spec_entries(
-                x.spec, len(x.shape)) != spec_entries(spec, len(x.shape)):
-            raise ValueError(f"{what}: laid by {x.spec}, not {spec}")
-        sh = x
-    elif one_body_active():
-        first = tuple(slice(0, split_dim(n, axis_size(plan.mesh, axes),
-                                         f"{what} dim {d} over {axes}"))
-                      for d, (n, axes) in enumerate(zip(
-                          x.shape, spec_entries(spec, x.dim()))))
-        return [place(x[first], plan.devices[0])] * plan.n
-    else:
-        sh = shard(plan.mesh, x, spec)
-    if one_body_active():
-        return [sh.at(plan.positions[0])] * plan.n
-    return [sh.at(p) for p in plan.positions]
-
-
-def _assemble(plan: LMPlan, xs: list, spec, shape) -> Sharded:
-    """The position list of a tensor's blocks as a Sharded laid by
-    `spec`: each block from the first position that holds it on each
-    device."""
-    entries = spec_entries(spec, len(shape))
-    blocks: dict = {}
-    for i, pos in enumerate(plan.positions):
-        blk = block_of(plan.mesh, entries, pos)
-        blocks.setdefault(blk, {}).setdefault(plan.mesh.devices[pos], xs[i])
-    return Sharded(mesh=plan.mesh, spec=tuple(spec), shape=tuple(shape),
-                   dtype=xs[0].dtype, blocks=blocks)
 
 
 def _fsdp(plan: LMPlan, xs: list, path: str) -> list:
@@ -963,7 +927,8 @@ def _param_blocks(plan: LMPlan, params: dict) -> dict:
     if set(flat) != set(plan.specs):
         raise ValueError(f"parameter paths differ: "
                          f"{sorted(set(flat) ^ set(plan.specs))[:5]}")
-    return {k: _blocks(plan, v, plan.specs[k], k) for k, v in flat.items()}
+    return {k: position_blocks(plan.mesh, v, plan.specs[k], k)
+            for k, v in flat.items()}
 
 
 def _batch_blocks(plan: LMPlan, x) -> list:
@@ -971,7 +936,7 @@ def _batch_blocks(plan: LMPlan, x) -> list:
     int64 on its device."""
     if not isinstance(x, Sharded):
         x = _tokens(x, None)
-    blocks = _blocks(plan, x, ((plan.batch or None),), "batch")
+    blocks = position_blocks(plan.mesh, x, ((plan.batch or None),), "batch")
     return _map(plan, lambda i, b: b.long(), blocks)
 
 
@@ -1146,10 +1111,10 @@ def _partitioned_train_step(plan, params, opt_state, batch, cfg, lr,
         for k, g in zip(keys, gs)]), *(grads[k] for k in keys))
     total = sum_over_shards(plan.mesh, plan.mesh.axis_names, sq)
     gnorm = _map(plan, lambda i, t: torch.sqrt(t.sum()), total)
-    mu = {k: _blocks(plan, opt_state.mu[k], plan.specs[k], f"mu {k}")
-          for k in keys}
-    nu = {k: _blocks(plan, opt_state.nu[k], plan.specs[k], f"nu {k}")
-          for k in keys}
+    mu = {k: position_blocks(plan.mesh, opt_state.mu[k], plan.specs[k],
+                             f"mu {k}") for k in keys}
+    nu = {k: position_blocks(plan.mesh, opt_state.nu[k], plan.specs[k],
+                             f"nu {k}") for k in keys}
     P = _param_blocks(plan, params)
 
     def step(i, gn, *leaves):
@@ -1165,14 +1130,14 @@ def _partitioned_train_step(plan, params, opt_state, batch, cfg, lr,
     out = _map(plan, step, gnorm, *(grads[k] for k in keys),
                *(P[k] for k in keys), *(mu[k] for k in keys),
                *(nu[k] for k in keys))
-    new = {k: _assemble(plan, [o[0][k] for o in out], plan.specs[k],
-                        shapes[k]) for k in keys}
+    new = {k: assemble(plan.mesh, [o[0][k] for o in out], plan.specs[k],
+                       shapes[k]) for k in keys}
     state = AdamState(
         step=out[0][1].step,
-        mu={k: _assemble(plan, [o[1].mu[k] for o in out], plan.specs[k],
-                         shapes[k]) for k in keys},
-        nu={k: _assemble(plan, [o[1].nu[k] for o in out], plan.specs[k],
-                         shapes[k]) for k in keys})
+        mu={k: assemble(plan.mesh, [o[1].mu[k] for o in out],
+                        plan.specs[k], shapes[k]) for k in keys},
+        nu={k: assemble(plan.mesh, [o[1].nu[k] for o in out],
+                        plan.specs[k], shapes[k]) for k in keys})
     return unflatten_like(params, new), state, dict(
         metrics, loss=loss, grad_norm=place(gnorm[0], plan.devices[0]))
 
@@ -1185,9 +1150,9 @@ def _partitioned_forward(plan, params, tokens, cfg, stats):
     zero = torch.zeros((), device=dev0)
     _record(stats, [zero.long()] * cfg.n_layers)
     B, S = _shape_of(tokens)
-    return _assemble(plan, logits, ((plan.batch or None), None,
-                                    (plan.model or None)),
-                     (B, S, cfg.vocab)), zero
+    return assemble(plan.mesh, logits, ((plan.batch or None), None,
+                                        (plan.model or None)),
+                    (B, S, cfg.vocab)), zero
 
 
 def _cache_plan(plan: LMPlan, cfg: LMConfig, B: int, S: int):
@@ -1219,10 +1184,10 @@ def _partitioned_prefill(plan, params, tokens, cfg):
     for j, name in enumerate(("k", "v")):
         blocks = _map(plan, lambda i, *ls, j=j: torch.stack(
             [c[j] for c in ls]), *caches)
-        cache[name] = _assemble(plan, blocks, spec, shape)
-    return cache, _assemble(plan, logits, ((plan.batch or None),
-                                           (plan.model or None)),
-                            (B, cfg.vocab))
+        cache[name] = assemble(plan.mesh, blocks, spec, shape)
+    return cache, assemble(plan.mesh, logits, ((plan.batch or None),
+                                               (plan.model or None)),
+                           (B, cfg.vocab))
 
 
 @torch.no_grad()
@@ -1242,8 +1207,8 @@ def _partitioned_decode(plan, params, cache, token, pos, cfg):
     if spec_entries(spec, 5)[1] != plan.batch:
         raise ValueError(f"the cache's batch over {spec_entries(spec, 5)[1]}"
                          f", the tokens' over {plan.batch}")
-    kc = _blocks(plan, cache["k"], spec, "cache k")
-    vc = _blocks(plan, cache["v"], spec, "cache v")
+    kc = position_blocks(plan.mesh, cache["k"], spec, "cache k")
+    vc = position_blocks(plan.mesh, cache["v"], spec, "cache v")
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     table = _embed_table(plan, P)
     x = _map(plan, lambda i, x: x[:, None, :],
@@ -1303,11 +1268,11 @@ def _partitioned_decode(plan, params, cache, token, pos, cfg):
     last = _map(plan, lambda i, x: x[:, 0, :], x)
     logits = _map(plan, lambda i, l: l.to(torch.float32),
                   _head_part(plan, cfg, P, table, last))
-    out = {"k": _assemble(plan, kc, spec, shape),
-           "v": _assemble(plan, vc, spec, shape)}
-    return _assemble(plan, logits, ((plan.batch or None),
-                                    (plan.model or None)),
-                     (B, cfg.vocab)), out
+    out = {"k": assemble(plan.mesh, kc, spec, shape),
+           "v": assemble(plan.mesh, vc, spec, shape)}
+    return assemble(plan.mesh, logits, ((plan.batch or None),
+                                        (plan.model or None)),
+                    (B, cfg.vocab)), out
 
 
 class TransformerLM(nn.Module):

@@ -182,8 +182,21 @@ def host_empty(shape, dtype: torch.dtype, device: torch.device) -> np.ndarray:
     return torch.empty(shape, dtype=dtype).numpy()
 
 
+class Staging(dict):
+    """One batch's host staging arrays (name -> array), with `written`:
+    the (m1, K, m2) extent of each row that the last `fill_staging`
+    packed, or None while the arrays may hold anything. Everything
+    outside those extents holds the padding identity."""
+
+    __slots__ = ("written",)
+
+    def __init__(self, arrays):
+        super().__init__(arrays)
+        self.written = None
+
+
 def alloc_staging(bucket: Bucket, *, d_cov: int | None = None,
-                  device=None) -> dict:
+                  device=None) -> Staging:
     """Host staging arrays for one batch of `bucket`: u (B, m1),
     a (B, K, m1), b (B, K), gamma (B, m2) and either lam (B, K)
     (d_cov None) or X (B, d_cov). Pinned when `device` (None = the
@@ -196,20 +209,36 @@ def alloc_staging(bucket: Bucket, *, d_cov: int | None = None,
         shapes["lam"] = (B, Kp)
     else:
         shapes["X"] = (B, d_cov)
-    return {k: host_empty(s, torch.float32, dev) for k, s in shapes.items()}
+    return Staging({k: host_empty(s, torch.float32, dev)
+                    for k, s in shapes.items()})
 
 
 def fill_staging(staged: dict, requests, bucket: Bucket) -> dict:
     """Reset `staged` to the padding identity and pack `requests` in,
-    in place; every entry is overwritten, phantom rows included."""
+    in place; every entry is overwritten, phantom rows included. A
+    `Staging` that an earlier fill packed has only that fill's row
+    extents reset, so a batch of n requests costs what n rows cost,
+    not the whole padded bucket; anything else is reset whole."""
     n = len(requests)
     if n > bucket.batch:
         raise ValueError(f"{n} requests > bucket capacity {bucket.batch}")
-    staged["u"].fill(NEG_FILL)
-    staged["a"].fill(0.0)
-    staged["b"].fill(0.0)
-    staged["gamma"].fill(0.0)
-    staged["lam" if "lam" in staged else "X"].fill(0.0)
+    y = "lam" if "lam" in staged else "X"
+    written = getattr(staged, "written", None)
+    if written is None:
+        staged["u"].fill(NEG_FILL)
+        staged["a"].fill(0.0)
+        staged["b"].fill(0.0)
+        staged["gamma"].fill(0.0)
+        staged[y].fill(0.0)
+    else:
+        staged.written = None       # until this fill has packed every row
+        for i, (m1, K, m2) in enumerate(written):
+            staged["u"][i, :m1] = NEG_FILL
+            staged["a"][i, :K, :m1] = 0.0
+            staged["b"][i, :K] = 0.0
+            staged["gamma"][i, :m2] = 0.0
+            staged[y][i] = 0.0
+    extents = []
     for i, r in enumerate(requests):
         m1, K, m2 = r.u.shape[0], r.a.shape[0], r.m2
         staged["u"][i, :m1] = r.u
@@ -221,6 +250,9 @@ def fill_staging(staged: dict, requests, bucket: Bucket) -> dict:
             staged["lam"][i, :K] = r.lam
         if "X" in staged:
             staged["X"][i] = r.X
+        extents.append((m1, K, m2))
+    if isinstance(staged, Staging):
+        staged.written = extents
     return staged
 
 

@@ -72,6 +72,7 @@ from repro_torch.distributed.topk import (
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import (
     Mesh,
+    Sharded,
     make_mesh,
     make_production_mesh,
     make_smoke_mesh,
@@ -575,27 +576,40 @@ def test_build_paper_matches_jax(jax_ref, name, cell, dist):
             for j in range(len(prog.args))]
     for arg, spec in zip(args, prog.args):
         assert tuple(arg.shape) == spec.shape and arg.dtype == spec.dtype
-    out = prog.fn(*args)
+    out = _gathered(prog.fn(*args))
     key = f"{name}/paper/{cell.name}/{dist}"
     if cell.kind == "offline":
-        np.testing.assert_allclose(out.lam.numpy(), want[f"{key}/lam"],
+        np.testing.assert_allclose(out["lam"].numpy(), want[f"{key}/lam"],
                                    **LAM_TOL)
+        np.testing.assert_allclose(out["exposure"].numpy(),
+                                   want[f"{key}/exposure"], **EXPO_TOL)
+        np.testing.assert_array_equal(out["compliant"].numpy(),
+                                      want[f"{key}/compliant"])
         return
-    np.testing.assert_array_equal(out.perm.numpy(), want[f"{key}/perm"])
-    np.testing.assert_array_equal(out.compliant.numpy(),
+    np.testing.assert_array_equal(out["perm"].numpy(), want[f"{key}/perm"])
+    np.testing.assert_array_equal(out["compliant"].numpy(),
                                   want[f"{key}/compliant"])
-    np.testing.assert_allclose(out.utility.numpy(), want[f"{key}/utility"],
-                               **UTIL_TOL)
-    np.testing.assert_allclose(out.exposure.numpy(), want[f"{key}/exposure"],
-                               **EXPO_TOL)
-    np.testing.assert_allclose(out.lam.numpy(), want[f"{key}/lam"], **LAM_TOL)
+    np.testing.assert_allclose(out["utility"].numpy(),
+                               want[f"{key}/utility"], **UTIL_TOL)
+    np.testing.assert_allclose(out["exposure"].numpy(),
+                               want[f"{key}/exposure"], **EXPO_TOL)
+    np.testing.assert_allclose(out["lam"].numpy(), want[f"{key}/lam"],
+                               **LAM_TOL)
     if dist:        # the two variants of the port agree on the same arrays
         dense = build_paper(PaperConfig(), cell, _mesh(name))
         dargs = list(args)
         dargs[2] = args[2].expand(cell["batch"], -1, -1).contiguous()
-        want_d = dense.fn(*dargs)
-        assert torch.equal(out.perm, want_d.perm)
-        assert torch.equal(out.compliant, want_d.compliant)
+        want_d = _gathered(dense.fn(*dargs))
+        assert torch.equal(out["perm"], want_d["perm"])
+        assert torch.equal(out["compliant"], want_d["compliant"])
+
+
+def _gathered(out):
+    """A program's output fields as whole tensors: the partitioned
+    default variant's are launch.mesh.Sharded, gathered here."""
+    return {f.name: (v.gather() if isinstance(v, Sharded) else v)
+            for f in fields(out)
+            if isinstance(v := getattr(out, f.name), (torch.Tensor, Sharded))}
 
 
 # -- the engine's dist executor ------------------------------------------------

@@ -154,7 +154,8 @@ def test_link_rates_follow_the_node_rule():
 
 @pytest.mark.parametrize("arch,cell", [
     ("llama3.2-1b", "decode_32k"), ("sasrec", "retrieval_cand"),
-    ("meshgraphnet", "molecule"), ("paper-ranking", "serve_online")])
+    ("meshgraphnet", "molecule"), ("paper-ranking", "serve_online"),
+    ("paper-ranking", "offline_dual")])
 def test_run_cell_on_a_smoke_mesh(arch, cell):
     mesh = make_smoke_mesh(device="cpu")
     rec = run_cell(arch, cell, mesh, "smoke_single", smoke=True)
@@ -162,12 +163,14 @@ def test_run_cell_on_a_smoke_mesh(arch, cell):
     assert rec["trace_s"] >= 0 and rec["mesh_devices"] == 8
     gc, ma = rec["graph_cost"], rec["memory_analysis"]
     assert gc["devices"] == 8
-    if arch in ("meshgraphnet", "llama3.2-1b"):
+    if arch in ("meshgraphnet", "llama3.2-1b", "paper-ranking"):
         # build_gnn's step runs as shard bodies over the 2 'data'
-        # blocks, build_lm's decode one a mesh position: the temp is a
-        # body's own, no estimate
+        # blocks, build_lm's decode and build_paper's programs one a
+        # mesh position: the temp is a body's own, no estimate
         assert gc["partitioned"] and "estimated" not in rec
-        assert rec["collective_bytes"]["all-reduce"] > 0
+        kind = {"offline_dual": "all-to-all", "serve_online": "all-gather"
+                }.get(cell, "all-reduce")
+        assert rec["collective_bytes"][kind] > 0
     else:
         # a global program's temp is an estimate, and so is its fit
         assert not gc["partitioned"]
@@ -184,7 +187,9 @@ def test_run_cell_on_a_smoke_mesh(arch, cell):
 
 @pytest.mark.parametrize("multi_pod", [False, True])
 @pytest.mark.parametrize("arch,cell", [("llama3.2-1b", "train_4k"),
-                                       ("meshgraphnet", "minibatch_lg")])
+                                       ("meshgraphnet", "minibatch_lg"),
+                                       ("paper-ranking", "offline_dual"),
+                                       ("paper-ranking", "serve_online")])
 def test_one_body_walk_equals_the_all_bodies_walk(arch, cell, multi_pod):
     """A partitioned SMOKE program on the (2, 4) or (2, 2, 2) mesh traced
     one body for all (each op counted for the blocks its body stands
@@ -287,6 +292,52 @@ def test_partitioned_lm_records_count_their_collectives(path):
     assert parts["all-gather"]["how"] == "counted"
     assert parts["all-gather"]["bytes"] > 0
     assert 0.5 <= gc["flops"] / want["hlo_cost"]["flops"] <= 3.0
+
+
+# -- the partitioned paper cells ----------------------------------------------
+
+PAPER_RECORDS = sorted((REPO / "experiments" / "dryrun_torch").glob(
+    "*/paper-ranking__*.json"))
+
+
+def test_the_committed_paper_records_are_here():
+    """The default variant's six records and the dist-topk variant's
+    six, under <mesh>@dist-topk."""
+    assert len(PAPER_RECORDS) == 12
+    assert {p.parent.name for p in PAPER_RECORDS} == {
+        "single", "multi", "single@dist-topk", "multi@dist-topk"}
+
+
+@pytest.mark.parametrize("path", PAPER_RECORDS,
+                         ids=[f"{p.parent.name}-{p.stem}"
+                              for p in PAPER_RECORDS])
+def test_partitioned_paper_records_count_their_collectives(path):
+    """Each committed paper record says "partitioned": true with no
+    estimate and counts its collectives: offline_dual its one all-to-all
+    over 'model' (under 10 MB a device, against JAX's 12.0-12.5 GB), the
+    default's serve cells their candidates' all-gathers over 'model',
+    the dist-topk variant's its shard gathers. The walk counts matmul
+    and kernel flops only, so a serve cell's flops (the kernels') are
+    within [0.9, 1.2] of JAX's hlo_cost flops and offline_dual's are 0
+    (its solve is elementwise work and sorts)."""
+    rec = json.loads(path.read_text())
+    mesh = path.parent.name.split("@")[0]
+    want = json.loads((REPO / "experiments" / "dryrun" / mesh
+                       / path.name).read_text())
+    gc, coll = rec["graph_cost"], rec["collective_bytes"]
+    assert rec["status"] == "ok" and gc["partitioned"]
+    assert "estimated" not in rec
+    assert rec["variant"] == ("dist-topk" if "@" in path.parent.name
+                              else None)
+    if rec["cell"] == "offline_dual":
+        assert 0 < coll["all-to-all"] == coll["total"] < 10e6
+        assert gc["flops"] == 0
+        return
+    assert 0.9 <= gc["flops"] / want["hlo_cost"]["flops"] <= 1.2
+    if rec["variant"] is None:
+        assert coll["parts"]["tp_activations"]["kinds"]["all-gather"] > 0
+    else:
+        assert coll["parts"]["shard_gather"]["bytes"] > 0
 
 
 # -- matmul flops against JAX's hlo_cost ------------------------------------

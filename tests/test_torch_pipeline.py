@@ -44,7 +44,9 @@ from repro_torch.serving import (
     Shed,
     StagingRing,
     alloc_staging,
+    assemble_batch,
     bucket_for,
+    fill_staging,
     make_stream,
     unpad_result,
 )
@@ -517,6 +519,42 @@ def test_staging_on_the_cpu_is_plain_and_the_card_is_the_default():
         alloc_staging(bucket, d_cov=D)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine()
+
+
+def _full_request(rid, m1, m2, K, d_cov=None):
+    """A request whose every field is nonzero where it is written."""
+    rng = np.random.default_rng(100 + rid)
+    return RankRequest(
+        rid=rid, u=rng.uniform(1, 5, m1).astype(np.float32),
+        a=rng.uniform(0.1, 1, (K, m1)).astype(np.float32),
+        b=rng.uniform(0.1, 1, K).astype(np.float32), m2=m2,
+        lam=None if d_cov else rng.uniform(0.1, 1, K).astype(np.float32),
+        X=rng.normal(size=d_cov).astype(np.float32) if d_cov else None)
+
+
+@pytest.mark.parametrize("d_cov", [None, D])
+def test_a_refilled_staging_equals_a_fresh_one(d_cov):
+    """A ring slot refilled batch after batch (wider, narrower, empty,
+    after a fill that raised) holds the same bytes as fresh staging
+    packed with the same requests: only the last fill's rows are reset,
+    and the padding identity holds everywhere else."""
+    bucket = bucket_for(m1=256, m2=32, K=8, tag="knn", batch=4)
+    staged = alloc_staging(bucket, d_cov=d_cov, device="cpu")
+    wide = [_full_request(i, 256, 32, 8, d_cov) for i in range(4)]
+    narrow = [_full_request(10 + i, 130, 9, 5, d_cov) for i in range(2)]
+    bad = [_full_request(20, 200, 20, 6, d_cov),
+           _full_request(21, 300, 20, 6, d_cov)]      # m1 past the bucket
+    steps = [wide, narrow, [], wide, narrow, bad, narrow, [wide[3]]]
+    for reqs in steps:
+        if reqs is bad:
+            with pytest.raises(ValueError):
+                fill_staging(staged, reqs, bucket)
+            continue
+        fill_staging(staged, reqs, bucket)
+        fresh = assemble_batch(reqs, bucket, d_cov=d_cov, device="cpu")
+        assert staged.keys() == fresh.keys()
+        for k in fresh:
+            np.testing.assert_array_equal(staged[k], fresh[k], err_msg=k)
 
 
 def test_pending_batch_carries_the_dispatch_record():

@@ -159,6 +159,24 @@ def test_port_files_cover_the_lm_partition_slice():
     assert (REPO / "tests" / "test_torch_lm_sharded.py").is_file()
 
 
+def test_port_files_cover_the_paper_partition_slice():
+    port = REPO / "src" / "repro_torch"
+    for rel in ("configs/paper.py", "core/dual_solver.py",
+                "core/serving_dist.py", "distributed/topk.py",
+                "launch/graph_analysis.py", "launch/dryrun.py"):
+        assert port / rel in PORT_FILES
+    from repro_torch.core import dual_solver, serving_dist
+    from repro_torch.distributed import topk
+    from repro_torch.launch.graph_analysis import EXCHANGES
+    for name in ("all_to_all_dim", "position_blocks", "assemble",
+                 "merge_top_k"):
+        assert callable(getattr(topk, name))
+    assert callable(dual_solver.solve_dual_partitioned)
+    assert callable(serving_dist.serve_partitioned)
+    assert "all-to-all" in EXCHANGES
+    assert (REPO / "tests" / "test_torch_paper_sharded.py").is_file()
+
+
 # the port's files whose names differ from their JAX counterparts' (the
 # port has no HLO: its cost walk runs the program itself), and the one
 # JAX file with no counterpart (a JAX shim)
